@@ -1,0 +1,151 @@
+"""The VAE-extent-search experiment, offline record-replay arm
+(counterpart of ``scripts/vae_extent_search.py``, ``vae``/``ae`` arms).
+
+Loads a featurized candidate pool, pretrains the pool VAE once, then
+runs the active search for each sampling seed until the recorded-optimal
+schedule is found; writes a per-run CSV and appends the seed average to
+``vae_extent_total_avg.csv`` (same columns as the JAX script).
+
+    python -m vae_extent_search_tpu_torch.cli.vae_extent_search \\
+        --measure-size 32 --seeds 2000 2001 --out-dir result/torch
+
+Runs on CUDA by default; ``--device cpu`` runs on the CPU. Asking for
+CUDA on a host without a GPU is an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import time
+
+import numpy as np
+
+from ..data.pool import load_pool
+from ..search.active_loop import pretrain_pool_vae, run_active_search
+from ..search.select import SelectionConfig
+
+
+def run_experiment(pool=None, out_dir="result", measure_size=64,
+                   seeds=(2000,), weights=(0.5, 0.3, 0.2), grad_num=2,
+                   rand_num=0, uncertainty_topk=128, max_phases=60,
+                   vae_epochs=500, reg_epochs=1000, latent_dim=64,
+                   hidden_dim=256, verbose=False, encoder_mode="vae",
+                   device="cuda"):
+    """Run the search for every seed in ``seeds`` on the pool at ``pool``
+    (an npz of features/labels; default: the committed conv2d pool).
+    Returns (per-seed rows, seed-average row)."""
+    feats, labels, _ = load_pool(pool)
+    print(f"pool: {feats.shape[0]} candidates x {feats.shape[1]} features")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = time.strftime("%m%d_%H%M")
+
+    # the pool VAE is pretrained once and shared across sampling seeds
+    t_vae = time.time()
+    vae_params = pretrain_pool_vae(
+        feats, latent_dim=latent_dim, hidden_dim=hidden_dim,
+        vae_epochs=vae_epochs, vae_beta=0.0 if encoder_mode == "ae" else 0.01,
+        deterministic=encoder_mode == "ae", device=device)
+    print(f"{encoder_mode.upper()} pretrain ({vae_epochs} epochs): "
+          f"{time.time() - t_vae:.1f}s (shared across seeds)")
+
+    rows = []
+    for seed in seeds:
+        res = run_active_search(
+            feats, labels, measure_size=measure_size, max_phases=max_phases,
+            latent_dim=latent_dim, hidden_dim=hidden_dim,
+            vae_epochs=vae_epochs, reg_epochs=reg_epochs,
+            selection=SelectionConfig(
+                num_select=measure_size, w_cost=weights[0],
+                w_unc=weights[1], w_div=weights[2], grad_num=grad_num,
+                rand_num=rand_num, uncertainty_topk=uncertainty_topk),
+            sampling_seed=seed, encoder_mode=encoder_mode, verbose=verbose,
+            pretrained_vae_params=vae_params, device=device)
+        rows.append({
+            "measure_size": measure_size,
+            "weights": str(tuple(weights)),
+            "uncertainty_topk": uncertainty_topk,
+            "grad_num": grad_num,
+            "rand_num": rand_num,
+            "phase": res.phase,
+            "used_time": round(res.used_time, 2),
+            "train_size": res.train_size,
+            "val_reg_r2": str([round(r, 4) for r in res.reg_r2_history]),
+            # the FINAL model's Recall@1 over the full pool, not the
+            # search's found rate (that is "found")
+            "top-1": 0 if res.final_recall_topk is None
+            else int(res.final_recall_topk),
+            "optimum_rank": "" if res.final_optimum_rank is None
+            else res.final_optimum_rank,
+            "found": int(res.found),
+            "sampling_seed": seed,
+        })
+        print(f"seed {seed}: found={res.found} phase={res.phase} "
+              f"train_size={res.train_size} time={res.used_time:.1f}s "
+              f"(predictor training {sum(res.fit_seconds):.2f}s, selection "
+              f"{sum(res.select_seconds):.3f}s)")
+
+    with open(os.path.join(out_dir, f"vae_extent_search_{tag}.csv"), "w",
+              newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+        w.writeheader()
+        w.writerows(rows)
+
+    avg = {
+        "measure_size": measure_size,
+        "weights": str(tuple(weights)),
+        "phase": np.mean([r["phase"] for r in rows]),
+        "train_size": np.mean([r["train_size"] for r in rows]),
+        "used_time": np.mean([r["used_time"] for r in rows]),
+        "top-1": np.mean([r["top-1"] for r in rows]),
+        "found": np.mean([r["found"] for r in rows]),
+        "n_seeds": len(rows),
+    }
+    avg_csv = os.path.join(out_dir, "vae_extent_total_avg.csv")
+    exists = os.path.exists(avg_csv)
+    with open(avg_csv, "a", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(avg.keys()))
+        if not exists:
+            w.writeheader()
+        w.writerow(avg)
+    print("avg:", avg)
+    return rows, avg
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--pool", type=str, default=None,
+                   help="npz with features/labels (default: the committed "
+                        "conv2d_4k extent pool)")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+    p.add_argument("--out-dir", type=str, default="result")
+    p.add_argument("--measure-size", type=int, default=64)
+    p.add_argument("--seeds", type=int, nargs="+",
+                   default=list(range(2000, 2005)))
+    p.add_argument("--weights", type=float, nargs=3, default=[0.5, 0.3, 0.2])
+    p.add_argument("--grad-num", type=int, default=2)
+    p.add_argument("--rand-num", type=int, default=0)
+    p.add_argument("--uncertainty-topk", type=int, default=128)
+    p.add_argument("--max-phases", type=int, default=60)
+    p.add_argument("--vae-epochs", type=int, default=500)
+    p.add_argument("--reg-epochs", type=int, default=1000)
+    p.add_argument("--latent-dim", type=int, default=64)
+    p.add_argument("--hidden-dim", type=int, default=256)
+    p.add_argument("--encoder", type=str, default="vae", choices=["vae", "ae"],
+                   help="VAE pretrain + cost predictor, or the plain-AE "
+                        "ablation (reconstruction-only pretrain, no KL)")
+    p.add_argument("--verbose", action="store_true")
+    args = p.parse_args(argv)
+    run_experiment(
+        args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
+        tuple(args.weights), args.grad_num, args.rand_num,
+        args.uncertainty_topk, max_phases=args.max_phases,
+        vae_epochs=args.vae_epochs, reg_epochs=args.reg_epochs,
+        latent_dim=args.latent_dim, hidden_dim=args.hidden_dim,
+        verbose=args.verbose, encoder_mode=args.encoder, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,298 @@
+"""Fused cost-head statistics for candidate selection (counterpart of
+``vae_extent_search_tpu/ops/fused_head_pallas.py``).
+
+For every candidate the selection phase needs the predicted cost, the
+norm of its gradient with respect to the latent ``z``, and the mean and
+sample variance (ddof=1) of T MC-dropout passes of the 2-hidden-layer
+cost head. :func:`fused_head_stats` computes all four in one launch of
+the hand-written CUDA kernel ``csrc/fused_head.cu`` when its input lies
+on a CUDA device, and through :func:`fused_head_stats_plain`, the same
+function in plain torch, when it lies on the CPU. There is no fallback
+between the two: a CUDA tensor launches the kernel or raises.
+
+The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
+``vae_extent_search_tpu_torch/build/`` and loaded with ctypes through a
+plain C interface.
+
+Numerics (both versions, as the JAX kernel): matmul operands are rounded
+to the compute dtype (the input's dtype, float32 or bfloat16) and
+accumulated in float32; biases are rounded to the compute dtype and
+added in float32, except ``b2``, which stays float32. Dropout keeps a
+hidden unit of h0 when its 32-bit random word is ``>= min(int(rate *
+2**32), 2**32 - 1)`` and scales kept units by ``1 / (1 - rate)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fused_head.cu"
+BUILD_DIR = _PKG / "build"
+LIBRARY = BUILD_DIR / "libfused_head.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# shared memory a block may use on an H100 (227 KB)
+MAX_SMEM_BYTES = 232_448
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def dropout_threshold(rate: float) -> int:
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
+    return path
+
+
+def build(force: bool = False) -> Tuple[Path, str, float]:
+    """Compile ``csrc/fused_head.cu`` into ``build/libfused_head.so`` if it
+    is missing or older than the source. Returns (library path, compiler
+    output, seconds spent compiling — 0.0 when nothing was rebuilt)."""
+    if (not force and LIBRARY.exists()
+            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+        return LIBRARY, "", 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return LIBRARY, proc.stdout + proc.stderr, seconds
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.fused_head_stats_launch.argtypes = [
+                i32, vp, ctypes.c_longlong, i32, i32, vp, vp, vp,
+                vp, vp, vp, vp, vp, vp, vp, vp,
+                i32, i32, i32, i32, ctypes.c_uint, ctypes.c_float,
+                vp, ctypes.c_ulonglong, vp, vp, vp, vp, vp]
+            lib.fused_head_stats_launch.restype = i32
+            lib.fused_head_smem_bytes.argtypes = [i32]
+            lib.fused_head_smem_bytes.restype = ctypes.c_size_t
+            _lib = lib
+        return _lib
+
+
+# ---------------------------------------------------------------------------
+# plain torch version
+# ---------------------------------------------------------------------------
+
+
+def fused_head_stats_plain(head_layers: List[Dict], x: torch.Tensor, T: int,
+                           rate: float,
+                           mask_bits: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           encoder: Optional[Tuple] = None):
+    """(cost, gnorm, mc_mean, mc_var), each [N] float32, in plain torch.
+
+    ``x`` is [N, D] raw features when ``encoder=(encoder_layers, fc_mu)``
+    is given, else latents [N, L]; its dtype is the compute dtype. The
+    dropout words come from ``mask_bits`` [T, N, H] (uint32, candidate
+    major) or, when it is None, from ``generator``."""
+    ct = x.dtype
+    f32 = torch.float32
+
+    def rnd(t):
+        return t.to(ct).to(f32)
+
+    def dense(layer, h):
+        return rnd(h) @ rnd(layer["w"]) + rnd(layer["b"])
+
+    z = x.to(f32)
+    if encoder is not None:
+        enc_layers, fc_mu = encoder
+        for layer in enc_layers:
+            z = torch.relu(dense(layer, z))
+        z = dense(fc_mu, z)
+    w0, w1 = rnd(head_layers[0]["w"]), rnd(head_layers[1]["w"])
+    w2 = rnd(head_layers[2]["w"])[:, 0]
+    b1 = rnd(head_layers[1]["b"])
+    b2 = head_layers[2]["b"].to(f32)[0]
+
+    a0 = rnd(z) @ w0 + rnd(head_layers[0]["b"])
+    h0 = torch.relu(a0)
+    a1 = rnd(h0) @ w1 + b1
+    cost = rnd(torch.relu(a1)) @ w2 + b2
+
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    g1 = torch.where(a1 > 0, w2, zero)
+    g0 = torch.where(a0 > 0, rnd(g1) @ w1.T, zero)
+    gz = rnd(g0) @ w0.T
+    gnorm = torch.sqrt((gz * gz).sum(-1))
+
+    thresh = dropout_threshold(rate)
+    h0s = rnd(h0 * torch.tensor(1.0 / (1.0 - rate), dtype=f32))
+    s = torch.zeros_like(cost)
+    s2 = torch.zeros_like(cost)
+    for t in range(T):
+        if mask_bits is not None:
+            # compared as int64: torch has no >= for uint32 on the CPU
+            # (the int32 view then a mask keeps this to ops every device
+            # has for int32)
+            bits = mask_bits[t].view(torch.int32).to(torch.int64) \
+                & 0xFFFFFFFF
+        else:
+            bits = torch.randint(0, 2 ** 32, h0.shape, dtype=torch.int64,
+                                 generator=generator,
+                                 device=generator.device)
+        keep = bits.to(x.device) >= thresh
+        h1t = rnd(torch.relu(torch.where(keep, h0s, zero) @ w1 + b1))
+        dt = (h1t @ w2 + b2) - cost
+        s = s + dt
+        s2 = s2 + dt * dt
+    mean = cost + s / T
+    var = (s2 - s * s / T) / (T - 1) if T > 1 else s2 * 0.0
+    return cost, gnorm, mean, var
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check_layer(layer: Dict, in_dim: int, name: str) -> int:
+    w, b = layer["w"], layer["b"]
+    if w.dim() != 2 or w.shape[0] != in_dim or b.shape != (w.shape[1],):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} / bias "
+                         f"{tuple(b.shape)} do not take width {in_dim}")
+    return w.shape[1]
+
+
+def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
+                     T: int = 10, rate: float = 0.1,
+                     mask_bits: Optional[torch.Tensor] = None,
+                     encoder: Optional[Tuple[Sequence[Dict], Dict]] = None):
+    """cost, gnorm, mc_mean, mc_var — each [N] float32 — for a
+    2-hidden-layer ReLU cost head over ``x``: latents [N, L], or raw
+    features [N, D] with ``encoder=(encoder_layers, fc_mu)`` run first.
+
+    On a CUDA tensor this launches the CUDA kernel on the current stream
+    (``fused_head_stats.launches`` counts those launches); the dropout
+    words are ``mask_bits`` [T, N, H] uint32 when given, else Philox
+    bits from ``seed``. On a CPU tensor it runs
+    :func:`fused_head_stats_plain`, with ``mask_bits`` or a CPU generator
+    seeded by ``seed``."""
+    if len(head_layers) != 3:
+        raise ValueError("the kernel is specialized to 2 hidden layers")
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    if x.device.type == "cpu":
+        gen = None
+        if mask_bits is None:
+            gen = torch.Generator().manual_seed(int(seed))
+        return fused_head_stats_plain(head_layers, x, T, rate, mask_bits,
+                                      gen, encoder)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch(head_layers, x, int(seed), T, rate, mask_bits, encoder)
+
+
+fused_head_stats.launches = 0
+
+
+def _launch(head_layers, x, seed, T, rate, mask_bits, encoder):
+    dev, ct = x.device, x.dtype
+    if ct not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, "
+                         f"got {ct}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous [N, D] tensor")
+    n, d = x.shape
+    enc = [] if encoder is None else [*encoder[0], encoder[1]]
+    if len(enc) > 8:
+        raise ValueError("at most 8 encoder layers (fc_mu included)")
+    width = d
+    for i, layer in enumerate(enc):
+        width = _check_layer(layer, width, f"encoder layer {i}")
+    L = width
+    H0 = _check_layer(head_layers[0], L, "head layer 0")
+    H1 = _check_layer(head_layers[1], H0, "head layer 1")
+    if _check_layer(head_layers[2], H1, "head layer 2") != 1:
+        raise ValueError("head layer 2 must have one output")
+    if mask_bits is not None:
+        if (mask_bits.dtype != torch.uint32 or mask_bits.device != dev
+                or tuple(mask_bits.shape) != (T, n, H0)
+                or not mask_bits.is_contiguous()):
+            raise ValueError(f"mask_bits must be a contiguous uint32 "
+                             f"[{T}, {n}, {H0}] tensor on {dev}")
+    tensors = [l[k] for l in [*enc, *head_layers] for k in ("w", "b")]
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"every parameter must lie on {dev}")
+
+    lib = _library()
+    # the input width d streams from device memory; the hidden widths
+    # live in shared memory
+    widths = [*[l["w"].shape[1] for l in enc], L, H0, H1, 16]
+    width = -(-max(widths) // 4) * 4
+    smem = lib.fused_head_smem_bytes(width)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"hidden width {max(widths)} needs {smem} bytes of "
+                         f"shared memory per block (> {MAX_SMEM_BYTES})")
+    if n == 0:
+        e = torch.empty(0, dtype=torch.float32, device=dev)
+        return e, e.clone(), e.clone(), e.clone()
+
+    def w_(t):  # weights in the compute dtype, row-major [in, out]
+        return t.to(ct).contiguous()
+
+    def b_(t):  # biases rounded to the compute dtype, passed as f32
+        return t.to(ct).to(torch.float32).contiguous()
+
+    enc_w = [w_(l["w"]) for l in enc]
+    enc_b = [b_(l["b"]) for l in enc]
+    w0, w1 = w_(head_layers[0]["w"]), w_(head_layers[1]["w"])
+    w2 = w_(head_layers[2]["w"][:, 0])
+    b0, b1 = b_(head_layers[0]["b"]), b_(head_layers[1]["b"])
+    b2 = head_layers[2]["b"].to(torch.float32).contiguous()
+    w0t, w1t = w0.t().contiguous(), w1.t().contiguous()
+    outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(4)]
+
+    ptrs = ctypes.c_void_p * max(1, len(enc))
+    err = lib.fused_head_stats_launch(
+        int(ct == torch.bfloat16), x.data_ptr(), n, d, len(enc),
+        ptrs(*[t.data_ptr() for t in enc_w]),
+        ptrs(*[t.data_ptr() for t in enc_b]),
+        (ctypes.c_int * (len(enc) + 1))(d, *[t.shape[1] for t in enc_w]),
+        w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), w0t.data_ptr(), w1t.data_ptr(),
+        L, H0, H1, T, dropout_threshold(rate), 1.0 / (1.0 - rate),
+        None if mask_bits is None else mask_bits.data_ptr(),
+        seed & 0xFFFFFFFFFFFFFFFF, *[o.data_ptr() for o in outs],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_head_stats kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_head_stats.launches += 1
+    return tuple(outs)
