@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result line:
-  1. device and build: the card's name and power limit; nvcc builds the
-     fused-head kernel from csrc/ for sm_90a
+  1. device and build: the card's name and power limit; nvcc builds both
+     kernels from csrc/ for sm_90a, one nvcc per source, started together
   2. kernel vs plain torch version with injected dropout bits, at the
      main path's shape (the committed pool: N=773, D=17) and at the bench
      shape (N=262,144, D=24, H=256, L=64, T=10, rate 0.1), float32 and
@@ -19,16 +19,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (hidden 256, latent 64, T 10, measure size 32, 500 VAE epochs, 1000
      predictor epochs) for seeds 2000-2002; every seed must find the
      optimum, and every selection phase must have gone through the kernel
-The last two lines are a JSON object with each kernel's check and times,
-then {"ok": true, "device": {...}}.
+  7. the histogram kernel vs its plain version in float64 at the
+     pretraining shape (the corpus of data/boost_corpus.py: 1,000,000 rows
+     x 164 features, 256 bins, the first round's gradient, a non-constant
+     hessian) at every level (m = 1, 2, ..., 32 nodes) and at an odd shape
+     (n 700, d 9, m 4, nb 40): within 1e-5 of max |H|, and two launches
+     bit-identical
+  8. histogram times with CUDA events at every level (m = 1 ... 32) beside
+     the byte bound, the plain version and the index_add_ yardstick
+  9. GBDT pretraining at full width: GBDTModelInternal.fit_base on that
+     corpus (depth 6, eta 0.2, pack-sum objective, tr-rmse and a-peak@1)
+     on the device engine for 50 rounds (cut from 300 with early stopping
+     for the time limit): 6 kernel launches per round, and 3 rounds on a
+     50,000-row subset agree with the numpy grower (pack-prediction
+     correlation > 0.999). fit_base is timed whole, and its rounds alone
+     by a second run of the device engine, which must grow the same
+     trees, on phase 7's binned corpus. At ~20 rows per
+     program the protocol's rmse grows on either engine
+     (data/boost_corpus.py says why), so the same fit on the generator's
+     4-rows-per-program corpus, with engine "auto", must go through the
+     kernel and show a falling tr-rmse
+ 10. the gbdt arm end to end on the committed pool (measure size 32, seeds
+     2000-2002, device engine): every seed must find the optimum, and
+     every phase must have grown its 100 trees through the kernel; at each
+     level, the first phase's launch whose rows lie in the most nodes is
+     held against the plain version as in phase 7
+The last three lines are the card's name and power limit, a JSON object
+with each kernel's check and times, then {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -105,6 +134,319 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+# the pretraining shape of the GBDT slice (tools/chip_boost_bench.py):
+# rows x features of the synthetic corpus, 50 rounds (cut from 300 with
+# early stopping, for the time limit)
+PRETRAIN = dict(n=1_000_000, d=164, rounds=50, depth=6)
+HIST_TOL = 1e-5       # of max |H|, against the plain version in float64
+ARM_SEEDS = (2000, 2001, 2002)
+
+
+def hist_bound_ms(n, d, m, nb, peaks):
+    """Least time for one histogram launch: bins (1 B per row and
+    feature) and node/grad/hess (12 B per row) read once, the two
+    [d, m, nb] f32 outputs written once, over the memory rate; two f32
+    additions per (row, feature) over the f32 peak."""
+    t_bytes = (n * d + 12 * n + 2 * d * m * nb * 4) / peaks["bytes"]
+    t_ops = 2.0 * n * d / peaks["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_hist(th, checks, label, b, nd, g, h, m, nb):
+    """Two kernel launches against the plain version in float64: finite,
+    of shape [d, m, nb], bit-identical, and within HIST_TOL of max |H|.
+    Records the errors in checks[label]; raises where one fails."""
+    got = th.hist(b, nd, g, h, m, nb)
+    again = th.hist(b, nd, g, h, m, nb)
+    torch.cuda.synchronize()
+    ref = th.hist_plain(b, nd, g.double(), h.double(), m, nb)
+    errs, scales = [], []
+    for a, a2, r in zip(got, again, ref):
+        if a.shape != (b.shape[0], m, nb) or not torch.isfinite(a).all():
+            raise RuntimeError(f"[hist] {label}: histogram not finite or of "
+                               f"shape {tuple(a.shape)}")
+        if not torch.equal(a, a2):
+            raise RuntimeError(f"[hist] {label}: two launches differ")
+        errs.append(float((a.double() - r).abs().max()))
+        scales.append(float(r.abs().max()))
+    checks[label] = {"max_abs_err": errs, "max_abs_ref": scales}
+    log(f"[hist] {label} (n={b.shape[1]} d={b.shape[0]} m={m} nb={nb}): "
+        f"max abs err g/h {errs[0]:.3e}/{errs[1]:.3e} of max |H| "
+        f"{scales[0]:.4g}/{scales[1]:.4g} (tol {HIST_TOL:g} of max |H|); "
+        f"two launches bit-identical")
+    if any(e > HIST_TOL * sc for e, sc in zip(errs, scales)):
+        raise RuntimeError(f"[hist] kernel disagrees with plain: {label}: "
+                           f"{checks[label]}")
+
+
+def gbdt_phases(dev, peaks, fh, th):
+    """Phases 7-10: the histogram kernel, GBDT pretraining at full width
+    and the gbdt arm of the search. Returns the kernel's result record."""
+    from vae_extent_search_tpu_torch.cli.vae_extent_search import (
+        run_gbdt_arm,
+    )
+    from vae_extent_search_tpu_torch.data.boost_corpus import make_corpus
+    from vae_extent_search_tpu_torch.models import boost, boost_device
+    from vae_extent_search_tpu_torch.models.gbdt import GBDTModelInternal
+
+    n, d = PRETRAIN["n"], PRETRAIN["d"]
+    t0 = time.perf_counter()
+    rows, pack_ids, labels = make_corpus(n, d)
+    dm = boost.DMatrix(rows, label=labels[pack_ids], pack_ids=pack_ids,
+                       group_sizes=[len(labels)])
+    t1 = time.perf_counter()
+    dm._ensure_binned()
+    bin_s = time.perf_counter() - t1
+    nb = max(len(e) for e in dm._thresholds) + 1
+    log(f"[7] corpus {n} rows x {d} features, {len(labels)} programs, "
+        f"{nb} bins; made in {t1 - t0:.1f} s, binned in {bin_s:.2f} s")
+    bins = torch.from_numpy(dm._binned).to(dev)
+    # the first round's pack-sum gradient (predictions 0); the hessian of
+    # a weighted fit (the weights, uniform in [0.5, 1.5))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    grad = torch.as_tensor(-labels[pack_ids], device=dev)
+    hess = torch.rand(n, generator=gen, device=dev) + 0.5
+
+    def nodes(count, m):
+        return torch.randint(0, m, (count,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    # ---- 7. histogram kernel vs plain (float64) ----
+    checks = {}
+    for level in range(PRETRAIN["depth"]):
+        m = 1 << level
+        check_hist(th, checks, f"pretrain_m{m}", bins, nodes(n, m), grad,
+                   hess, m, nb)
+    odd = dict(n=700, d=9, m=4, nb=40)
+    check_hist(th, checks, "odd",
+               torch.randint(0, odd["nb"], (odd["d"], odd["n"]), generator=gen,
+                             device=dev, dtype=torch.uint8),
+               nodes(odd["n"], odd["m"]),
+               torch.randn(odd["n"], generator=gen, device=dev),
+               torch.rand(odd["n"], generator=gen, device=dev),
+               odd["m"], odd["nb"])
+
+    # ---- 8. times per level ----
+    levels = {}
+    for level in range(PRETRAIN["depth"]):
+        m = 1 << level
+        nd = nodes(n, m)
+        k_ms = cuda_ms(lambda: th.hist(bins, nd, grad, hess, m, nb), 10)
+        b_ms, b_by = hist_bound_ms(n, d, m, nb, peaks)
+        levels[m] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by)
+        if m in (1, 32):
+            # the plain version, and the index_add_ yardstick: the same two
+            # index_add_ calls on precomputed keys and values
+            p_ms = cuda_ms(lambda: th.hist_plain(bins, nd, grad, hess, m, nb),
+                           3, warmup=1)
+            key = th.hist_keys(bins, nd, m, nb)
+            vg, vh = grad.expand(d, n).reshape(-1), hess.expand(d, n).reshape(-1)
+            og = torch.zeros(d * m * nb, device=dev)
+            oh = torch.zeros_like(og)
+            l_ms = cuda_ms(lambda: (og.index_add_(0, key, vg),
+                                    oh.index_add_(0, key, vh)), 3, warmup=1)
+            levels[m].update(plain_ms=p_ms, library_ms=l_ms)
+            del key, vg, vh, og, oh
+        log(f"[8] level {level} (m={m}): kernel {k_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of "
+            f"bound" + (f"; plain {levels[m]['plain_ms']:.4f} ms, index_add_ "
+                        f"{levels[m]['library_ms']:.4f} ms"
+                        if m in (1, 32) else ""))
+    per_round = sum(v["ms"] for v in levels.values())
+    log(f"[8] the six levels of one tree: {per_round:.4f} ms of kernel time")
+    del bins, grad, hess
+
+    # ---- 9. GBDT pretraining at full width on the device engine ----
+    rounds, depth = PRETRAIN["rounds"], PRETRAIN["depth"]
+
+    def pretrain(rows, pack_ids, labels, engine, tag):
+        """GBDTModelInternal.fit_base as a user calls it, timed whole;
+        -> (model, tr-rmse at rounds 0 and 25 and the best, wall s, kernel
+        launches)."""
+        programs = np.split(rows, np.flatnonzero(np.diff(pack_ids)) + 1)
+        model = GBDTModelInternal(max_depth=depth, learning_rate=0.2,
+                                  n_estimators=rounds, engine=engine,
+                                  device="cuda")
+        fh.fused_head_stats.launches = 0
+        th.hist.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            model.fit_base(programs, labels, verbose=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = th.hist.launches
+        rmse = [float(v) for v in re.findall(r"tr-rmse: ([\d.e+]+)",
+                                             buf.getvalue())]
+        rmse.append(float(model.model.attr("best_score")))
+        for line in buf.getvalue().strip().splitlines():
+            log(f"[9] {tag}: {line}")
+        log(f"[9] {tag}: fit_base {len(rows)} rows x {rows.shape[1]}, "
+            f"{len(labels)} programs, {rounds} rounds: {fit_s:.2f} s wall; "
+            f"{launches} kernel launches = {launches / rounds:g} per round; "
+            f"tr-rmse at rounds 0, 25 and best {rmse} (best at round "
+            f"{model.model.attr('best_iteration')})")
+        if launches != rounds * depth or fh.fused_head_stats.launches:
+            raise RuntimeError(f"[9] {tag}: {launches} histogram launches "
+                               f"for {rounds} rounds of depth {depth}")
+        return model, rmse, fit_s, launches
+
+    # (a) the corpus of phases 7-8, ~20 rows per program, device engine
+    model, rmse_a, fit_s, pre_launches = pretrain(
+        rows, pack_ids, labels, "device", "20 rows/program")
+    # the rounds alone: the device engine's entry point with fit_base's
+    # arguments on phase 7's binned copy of the same rows (launches not
+    # counted); a run repeats bit for bit, so it grows fit_base's trees
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = boost_device.train(
+        model._native_params(), dm, num_boost_round=rounds,
+        obj=boost.pack_sum_square_error,
+        fevals=[boost.pack_sum_rmse, boost.pack_sum_average_peak_score(1)],
+        evals=[(dm, "tr")], metric="tr-rmse", stopping_rounds=100,
+        verbose_eval=0, device=dev)
+    torch.cuda.synchronize()
+    ms_round = 1e3 * (time.perf_counter() - t) / rounds
+    log(f"[9] 20 rows/program: {rounds} rounds timed alone: {ms_round:.2f} "
+        f"ms per round ({per_round / ms_round * 100:.0f}% of it kernel time "
+        f"by phase 8); binning {bin_s:.2f} s (phase 7)")
+    if not np.array_equal(again.predict(rows[:4096]),
+                          model.model.predict(rows[:4096])):
+        raise RuntimeError("[9] a second run grew other trees")
+    if not all(np.isfinite(rmse_a)):
+        raise RuntimeError(f"[9] tr-rmse not finite: {rmse_a}")
+    # (b) the same generator at 4 rows per program, where the pack-sum
+    # residual amplification (rows/program x eta = 0.8) stays below 2;
+    # engine "auto" must pick the device engine at this row count
+    rows_b, packs_b, labels_b = make_corpus(n, d, seed=1, rows_per_program=4)
+    _, rmse_b, fit_s_b, launches_b = pretrain(
+        rows_b, packs_b, labels_b, "auto", "4 rows/program")
+    del rows_b, packs_b, labels_b
+    # (rounds 0 and 25 are printed to 6 decimals, the best is exact)
+    if not (rmse_b[1] < rmse_b[0] and rmse_b[2] <= rmse_b[1] + 5e-7):
+        raise RuntimeError(f"[9] tr-rmse does not fall: {rmse_b}")
+    sub = 50_000
+    _, p_s = np.unique(pack_ids[:sub], return_inverse=True)
+    rows_s = rows[:sub]
+
+    def subset():
+        return boost.DMatrix(rows_s, label=labels[pack_ids[:sub]],
+                             pack_ids=p_s)
+
+    params = model._native_params()
+    kw = dict(num_boost_round=3, obj=boost.pack_sum_square_error,
+              verbose_eval=0)
+    b_dev = boost_device.train(params, subset(), device=dev, **kw)
+    t = time.perf_counter()
+    b_host = boost.train(params, subset(), **kw)
+    host_s = time.perf_counter() - t
+    q_dev = boost.pack_sum_predict_throughput(b_dev.predict(rows_s), p_s)
+    q_host = boost.pack_sum_predict_throughput(b_host.predict(rows_s), p_s)
+    corr = float(np.corrcoef(q_dev, q_host)[0, 1])
+    log(f"[9] 3 rounds on {sub} rows: device vs numpy grower pack-prediction "
+        f"correlation {corr:.6f} (need > 0.999); numpy grower "
+        f"{host_s / 3:.2f} s per round")
+    if not corr > 0.999:
+        raise RuntimeError(f"[9] engines disagree: correlation {corr}")
+    del rows, dm
+
+    # ---- 10. the gbdt arm end to end on the committed pool ----
+    # the inputs of every launch of the first phase (100 trees), kept to
+    # hold the kernel against its plain version below at each level
+    first_phase = 100 * PRETRAIN["depth"]
+    arm_inputs = []
+
+    def keep(bins, node, grad, hess, m, nb):
+        if len(arm_inputs) < first_phase:
+            arm_inputs.append(tuple(t.clone() for t in (bins, node, grad,
+                                                        hess)) + (m, nb))
+
+    fh.fused_head_stats.launches = 0
+    th.hist.launches = 0
+    th.hist.tap = keep
+    t0 = time.time()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            arm = run_gbdt_arm(None, out_dir, measure_size=32,
+                               seeds=ARM_SEEDS, max_phases=60,
+                               engine="device", device="cuda")
+    finally:
+        th.hist.tap = None
+    arm_s = time.time() - t0
+    arm_launches = th.hist.launches
+    # at each level, the launch whose rows lie in the most nodes (many of
+    # the phase's trees stop splitting early, on both engines)
+    widest = {}
+    for b, nd, g, h, m, nbb in arm_inputs:
+        spread = int(nd.unique().numel())
+        if m not in widest or spread > widest[m][0]:
+            widest[m] = (spread, (b, nd, g, h, m, nbb))
+    log(f"[10] first phase: {len(arm_inputs)} launches; rows lie in at most "
+        + ", ".join(f"{s} nodes at m={m}" for m, (s, _) in sorted(
+            widest.items())))
+    if (sorted(widest) != [1 << lv for lv in range(PRETRAIN["depth"])]
+            or widest[2][0] < 2):
+        raise RuntimeError(f"[10] first phase: levels {sorted(widest)}, "
+                           f"or no split at the root")
+    for m, (_, args) in sorted(widest.items()):
+        check_hist(th, checks, f"gbdt_arm_m{m}", *args)
+    del arm_inputs, widest
+    phases = sum(r["phase"] for r in arm)
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir, \
+            contextlib.redirect_stdout(io.StringIO()):
+        host_arm = run_gbdt_arm(None, out_dir, measure_size=32,
+                                seeds=ARM_SEEDS, max_phases=60,
+                                engine="host", device="cuda")
+    for r, h in zip(arm, host_arm):
+        log(f"[10] seed {r['sampling_seed']}: found={r['found']} "
+            f"phase={r['phase']} train_size={r['train_size']} "
+            f"used_time={r['used_time']} s (numpy-grower arm: phase "
+            f"{h['phase']}, train_size {h['train_size']})")
+    log(f"[10] {phases} phases in {arm_s:.1f} s; {arm_launches} kernel "
+        f"launches = {arm_launches / max(phases, 1):g} per phase (100 trees "
+        f"of depth 6)")
+    if any(r["found"] != 1 for r in arm):
+        raise RuntimeError("[10] a seed did not find the optimum")
+    if (phases == 0 or arm_launches != phases * 100 * PRETRAIN["depth"]
+            or fh.fused_head_stats.launches):
+        raise RuntimeError(f"[10] {arm_launches} histogram launches for "
+                           f"{phases} phases")
+
+    m32 = levels[32]
+    return {
+        "name": "hist",
+        "route": "cuda",
+        "source": "vae_extent_search_tpu_torch/csrc/hist.cu",
+        "replaces": "vae_extent_search_tpu/ops/hist_pallas.py:199",
+        "launches": pre_launches + launches_b + arm_launches,
+        "max_abs_err": max(max(c["max_abs_err"]) for c in checks.values()),
+        "ms": m32["ms"], "plain_ms": m32["plain_ms"],
+        "bound_ms": m32["bound_ms"], "bound_by": m32["bound_by"],
+        "library_ms": m32["library_ms"],
+        "shape": {"n": n, "d": d, "m": 32, "nb": nb},
+        "levels": {str(m): v for m, v in levels.items()},
+        "checks": {**checks, "tolerance_of_max_abs": HIST_TOL,
+                   "bit_identical_launches": True,
+                   "subset_engine_corr": corr},
+        "launches_by_path": {"pretrain": pre_launches,
+                             "pretrain_4_rows": launches_b,
+                             "gbdt_arm": arm_launches},
+        "pretrain": {"rounds": rounds, "ms_per_round": ms_round,
+                     "bin_s": bin_s, "fit_base_s": fit_s,
+                     "launches_per_round": pre_launches / rounds,
+                     "tr_rmse": rmse_a, "fit_base_s_4_rows": fit_s_b,
+                     "tr_rmse_4_rows": rmse_b,
+                     "numpy_grower_s_per_round_50k": host_s / 3},
+        "gbdt_arm": {"found": [r["found"] for r in arm],
+                     "phase": [r["phase"] for r in arm],
+                     "train_size": [r["train_size"] for r in arm],
+                     "used_time": [r["used_time"] for r in arm],
+                     "numpy_grower_phase": [r["phase"] for r in host_arm]},
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -116,6 +458,7 @@ def main():
     from vae_extent_search_tpu_torch.data.pool import load_pool
     from vae_extent_search_tpu_torch.device import resolve_device
     from vae_extent_search_tpu_torch.ops import fused_head as fh
+    from vae_extent_search_tpu_torch.ops import hist as th
     from vae_extent_search_tpu_torch.search.select import (
         SelectionConfig,
         select_programs,
@@ -133,10 +476,15 @@ def main():
     peaks = peaks_for(kind)
     log(f"[1] card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    _, out, secs = fh.build(force=True)
-    regs = [l.strip() for l in out.splitlines() if "registers" in l]
-    log(f"[1] nvcc build of {os.path.relpath(fh.SOURCE, ROOT)}: "
-        f"{secs:.2f} s; {' / '.join(regs)}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda lib: lib.build(force=True),
+                               (fh.LIB, th.LIB)))
+    for lib, (_, out, secs) in zip((fh.LIB, th.LIB), builds):
+        regs = [l.strip() for l in out.splitlines() if "registers" in l]
+        log(f"[1] nvcc build of {os.path.relpath(lib.source, ROOT)}: "
+            f"{secs:.2f} s; {' / '.join(regs)}")
+    log(f"[1] both builds: {time.perf_counter() - t0:.2f} s wall")
 
     feats, labels, _ = load_pool()
     main_shape = dict(n=feats.shape[0], d=feats.shape[1], hid=256, lat=64,
@@ -273,6 +621,7 @@ def main():
 
     # ---- 6. end to end on the main path ----
     fh.fused_head_stats.launches = 0
+    th.hist.launches = 0
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
         rows, avg = run_experiment(
@@ -292,8 +641,11 @@ def main():
         f"{phases} selection phases")
     if any(r["found"] != 1 for r in rows):
         raise RuntimeError("a seed did not find the optimum")
-    if launches != phases or launches == 0:
-        raise RuntimeError(f"{launches} kernel launches for {phases} phases")
+    if launches != phases or launches == 0 or th.hist.launches:
+        raise RuntimeError(f"{launches} kernel launches for {phases} phases"
+                           f" ({th.hist.launches} histogram launches)")
+
+    hist_record = gbdt_phases(dev, peaks, fh, th)
 
     # ---- result ----
     k_ms, p_ms, b_ms, b_by = times[("main", torch.float32)]
@@ -325,7 +677,7 @@ def main():
                   "float32_ms": fk, "float32_plain_ms": fp,
                   "float32_bound_ms": fb},
         "select_phase_ms": ph_ms,
-    }]}), flush=True)
+    }, hist_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,7 +25,11 @@ bad = sorted(k for k in sys.modules
                                     "vae_extent_search_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 12, mods
+need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
+         "ops.hist", "ops.fused_head", "data.boost_corpus",
+         "search.active_loop", "cli.vae_extent_search"}}
+missing = need - {{m.split(".", 1)[1] for m in mods}}
+assert not missing and len(mods) >= 23, (missing, mods)
 """
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels of the PyTorch port against their plain torch
-versions, on the card. These tests need an NVIDIA GPU and nvcc; where
+"""The CUDA kernels of the PyTorch port (the fused cost head and the GBDT
+histograms) against their plain torch versions, on the card. These tests need an NVIDIA GPU and nvcc; where
 there is none they skip. They import neither jax nor the JAX package,
 so they also run on a machine that has only torch:
 
@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from vae_extent_search_tpu_torch.convert import params_from_numpy
+from vae_extent_search_tpu_torch.models import boost, boost_device
 from vae_extent_search_tpu_torch.models.predictor import pred_encode
 from vae_extent_search_tpu_torch.ops import fused_head as fh
+from vae_extent_search_tpu_torch.ops import hist as th
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +138,94 @@ def test_fused_head_rejects_bad_inputs(dev):
         fh.fused_head_stats(head, x.to(torch.float16), 0, T=4, encoder=enc)
     with pytest.raises(ValueError):
         fh.fused_head_stats(head, x.t(), 0, T=4, encoder=enc)
+
+
+def _hist_inputs(dev, n, d, m, nb, zero_rows=0, g_scale=1.0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, nb, (d, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    node = torch.randint(0, m, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g = torch.randn(n, generator=gen, device=dev) * g_scale
+    h = torch.rand(n, generator=gen, device=dev)
+    if zero_rows:
+        g[-zero_rows:] = 0.0
+        h[-zero_rows:] = 0.0
+    return bins, node, g, h
+
+
+# the kernel sums exactly in fixed point and rounds once to f32; the plain
+# version runs in float64: within 1e-5 of max |H| (in practice ~1e-7), and
+# two launches are bit-identical
+@pytest.mark.parametrize("n,d,m,nb,zero_rows,g_scale", [
+    (700, 9, 4, 40, 0, 1.0), (1000, 5, 1, 256, 0, 1.0),
+    (20_000, 7, 32, 256, 3000, 1.0), (5000, 3, 16, 100, 0, 1e-30),
+    (70_000, 20, 8, 2, 0, 1e6), (1, 1, 1, 1, 0, 1.0),
+    (1_000_000, 164, 32, 256, 0, 1.0), (1_000_000, 164, 1, 256, 0, 1.0)])
+def test_hist_kernel_matches_plain(dev, n, d, m, nb, zero_rows, g_scale):
+    bins, node, g, h = _hist_inputs(dev, n, d, m, nb, zero_rows, g_scale)
+    before = th.hist.launches
+    got = th.hist(bins, node, g, h, m, nb)
+    again = th.hist(bins, node, g, h, m, nb)
+    torch.cuda.synchronize()
+    assert th.hist.launches == before + 2
+    ref = th.hist_plain(bins, node, g.double(), h.double(), m, nb)
+    for a, b, r in zip(got, again, ref):
+        assert a.shape == (d, m, nb) and a.dtype == torch.float32
+        assert torch.equal(a, b)
+        err = float((a.double() - r).abs().max())
+        assert err <= 1e-5 * float(r.abs().max()), err
+
+
+def test_hist_kernel_skips_out_of_range_like_plain(dev):
+    """Nodes outside [0, m) and bins >= nb add nothing in the kernel and in
+    the plain version alike (within 1e-5 of max |H|)."""
+    bins, node, g, h = _hist_inputs(dev, 5000, 7, 8, 64)
+    node[::9] = 8
+    node[4::13] = -3
+    got = th.hist(bins, node, g, h, 8, 40)
+    torch.cuda.synchronize()
+    ref = th.hist_plain(bins, node, g.double(), h.double(), 8, 40)
+    for a, r in zip(got, ref):
+        err = float((a.double() - r).abs().max())
+        assert err <= 1e-5 * float(r.abs().max()), err
+
+
+def test_hist_rejects_bad_inputs(dev):
+    bins, node, g, h = _hist_inputs(dev, 100, 3, 4, 16)
+    with pytest.raises(ValueError):
+        th.hist(bins.int(), node, g, h, 4, 16)
+    with pytest.raises(ValueError):
+        th.hist(bins, node.long(), g, h, 4, 16)
+    with pytest.raises(ValueError):
+        th.hist(bins, node, g.double(), h, 4, 16)
+    with pytest.raises(ValueError):
+        th.hist(bins.t().contiguous().t(), node, g, h, 4, 16)
+    with pytest.raises(ValueError):
+        th.hist(bins, node, g, h, 64, 256)  # shared memory does not fit
+
+
+def test_device_engine_on_card():
+    """The device engine on the card grows the host engine's trees on
+    continuous data, once per level through the kernel, and repeats
+    itself bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((3000, 9)).astype(np.float32)
+    y = (2 * X[:, 0] + np.sin(X[:, 1]) + 0.1 * rng.standard_normal(3000)
+         ).astype(np.float32)
+    params = {"max_depth": 5, "eta": 0.3}
+
+    def fit(fn, **kw):
+        return fn(params, boost.DMatrix(X, label=y), num_boost_round=10,
+                  verbose_eval=0, **kw)
+
+    before = th.hist.launches
+    d1 = fit(boost_device.train, device="cuda")
+    assert th.hist.launches == before + 10 * 5
+    d2 = fit(boost_device.train, device="cuda")
+    host = fit(boost.train)
+    assert np.array_equal(d1.predict(X), d2.predict(X))
+    assert [t.feature for t in d1.trees] == [t.feature for t in d2.trees]
+    assert np.abs(d1.predict(X) - host.predict(X)).max() < 1e-4

@@ -1,13 +1,18 @@
 """The VAE-extent-search experiment, offline record-replay arm
-(counterpart of ``scripts/vae_extent_search.py``, ``vae``/``ae`` arms).
+(counterpart of ``scripts/vae_extent_search.py``: the ``vae``/``ae``
+encoder arms and the ``gbdt`` tree-model baseline arm).
 
-Loads a featurized candidate pool, pretrains the pool VAE once, then
-runs the active search for each sampling seed until the recorded-optimal
-schedule is found; writes a per-run CSV and appends the seed average to
-``vae_extent_total_avg.csv`` (same columns as the JAX script).
+Loads a featurized candidate pool. The ``vae`` arm pretrains the pool VAE
+once, then runs the active search for each sampling seed until the
+recorded-optimal schedule is found; it writes a per-run CSV and appends
+the seed average to ``vae_extent_total_avg.csv``. The ``gbdt`` arm fits
+the pack-sum GBDT on the measured set each phase and writes
+``gbdt_search_<time>.csv``. Columns are the JAX script's.
 
     python -m vae_extent_search_tpu_torch.cli.vae_extent_search \\
         --measure-size 32 --seeds 2000 2001 --out-dir result/torch
+    python -m vae_extent_search_tpu_torch.cli.vae_extent_search \\
+        --arm gbdt --measure-size 32 --seeds 2000 2001 --out-dir result/torch
 
 Runs on CUDA by default; ``--device cpu`` runs on the CPU. Asking for
 CUDA on a host without a GPU is an error.
@@ -23,7 +28,11 @@ import time
 import numpy as np
 
 from ..data.pool import load_pool
-from ..search.active_loop import pretrain_pool_vae, run_active_search
+from ..search.active_loop import (
+    pretrain_pool_vae,
+    run_active_search,
+    run_gbdt_baseline_search,
+)
 from ..search.select import SelectionConfig
 
 
@@ -113,6 +122,40 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
     return rows, avg
 
 
+def run_gbdt_arm(pool=None, out_dir="result", measure_size=64, seeds=(2000,),
+                 max_phases=60, engine="auto", device="cuda"):
+    """The tree-model baseline arm (reference result_xgb corpus) on the
+    pool at ``pool`` (default: the committed conv2d pool). Returns the
+    per-seed rows."""
+    feats, labels, _ = load_pool(pool)
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for seed in seeds:
+        res = run_gbdt_baseline_search(
+            feats, labels, measure_size=measure_size, max_phases=max_phases,
+            sampling_seed=seed, engine=engine, device=device)
+        rows.append({
+            "measure_size": measure_size, "phase": res.phase,
+            "train_size": res.train_size,
+            "used_time": round(res.used_time, 2),
+            "top-1": 0 if res.final_recall_topk is None
+            else int(res.final_recall_topk),
+            "optimum_rank": "" if res.final_optimum_rank is None
+            else res.final_optimum_rank,
+            "found": int(res.found), "sampling_seed": seed,
+        })
+        print(f"gbdt seed {seed}: found={res.found} phase={res.phase} "
+              f"train_size={res.train_size} time={res.used_time:.1f}s "
+              f"(model fitting {sum(res.fit_seconds):.2f}s)")
+    tag = time.strftime("%m%d_%H%M")
+    out_csv = os.path.join(out_dir, f"gbdt_search_{tag}.csv")
+    with open(out_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+        w.writeheader()
+        w.writerows(rows)
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--pool", type=str, default=None,
@@ -121,6 +164,13 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--out-dir", type=str, default="result")
+    p.add_argument("--arm", type=str, default="vae", choices=["vae", "gbdt"],
+                   help="the encoder search (see --encoder) or the GBDT "
+                        "baseline arm")
+    p.add_argument("--engine", type=str, default="auto",
+                   choices=["auto", "device", "host"],
+                   help="gbdt arm: grow trees on the device, with the numpy "
+                        "grower, or by the row count (auto)")
     p.add_argument("--measure-size", type=int, default=64)
     p.add_argument("--seeds", type=int, nargs="+",
                    default=list(range(2000, 2005)))
@@ -138,6 +188,11 @@ def main(argv=None):
                         "ablation (reconstruction-only pretrain, no KL)")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
+    if args.arm == "gbdt":
+        run_gbdt_arm(args.pool, args.out_dir, args.measure_size,
+                     tuple(args.seeds), args.max_phases, engine=args.engine,
+                     device=args.device)
+        return
     run_experiment(
         args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
         tuple(args.weights), args.grad_num, args.rand_num,

@@ -12,7 +12,7 @@ between the two: a CUDA tensor launches the kernel or raises.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``vae_extent_search_tpu_torch/build/`` and loaded with ctypes through a
-plain C interface.
+plain C interface (``ops/build.py``).
 
 Numerics (both versions, as the JAX kernel): matmul operands are rounded
 to the compute dtype (the input's dtype, float32 or bfloat16) and
@@ -25,84 +25,30 @@ hidden unit of h0 when its 32-bit random word is ``>= min(int(rate *
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_head.cu"
-BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libfused_head.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# shared memory a block may use on an H100 (227 KB)
-MAX_SMEM_BYTES = 232_448
+from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _declare(lib):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_head_stats_launch.argtypes = [
+        i32, vp, ctypes.c_longlong, i32, i32, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, vp,
+        i32, i32, i32, i32, ctypes.c_uint, ctypes.c_float,
+        vp, ctypes.c_ulonglong, vp, vp, vp, vp, vp]
+    lib.fused_head_stats_launch.restype = i32
+    lib.fused_head_smem_bytes.argtypes = [i32]
+    lib.fused_head_smem_bytes.restype = ctypes.c_size_t
+
+
+LIB = CudaLibrary("fused_head", _declare)
 
 
 def dropout_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin)")
-    return path
-
-
-def build(force: bool = False) -> Tuple[Path, str, float]:
-    """Compile ``csrc/fused_head.cu`` into ``build/libfused_head.so`` if it
-    is missing or older than the source. Returns (library path, compiler
-    output, seconds spent compiling — 0.0 when nothing was rebuilt)."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY, proc.stdout + proc.stderr, seconds
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.fused_head_stats_launch.argtypes = [
-                i32, vp, ctypes.c_longlong, i32, i32, vp, vp, vp,
-                vp, vp, vp, vp, vp, vp, vp, vp,
-                i32, i32, i32, i32, ctypes.c_uint, ctypes.c_float,
-                vp, ctypes.c_ulonglong, vp, vp, vp, vp, vp]
-            lib.fused_head_stats_launch.restype = i32
-            lib.fused_head_smem_bytes.argtypes = [i32]
-            lib.fused_head_smem_bytes.restype = ctypes.c_size_t
-            _lib = lib
-        return _lib
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +197,7 @@ def _launch(head_layers, x, seed, T, rate, mask_bits, encoder):
     if any(t.device != dev for t in tensors):
         raise ValueError(f"every parameter must lie on {dev}")
 
-    lib = _library()
+    lib = LIB.load()
     # the input width d streams from device memory; the hidden widths
     # live in shared memory
     widths = [*[l["w"].shape[1] for l in enc], L, H0, H1, 16]
@@ -291,8 +237,6 @@ def _launch(head_layers, x, seed, T, rate, mask_bits, encoder):
         None if mask_bits is None else mask_bits.data_ptr(),
         seed & 0xFFFFFFFFFFFFFFFF, *[o.data_ptr() for o in outs],
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_head_stats kernel launch failed: CUDA "
-                           f"error {err}")
+    check_launch(err, "fused_head_stats")
     fused_head_stats.launches += 1
     return tuple(outs)

@@ -4,7 +4,8 @@
 Init with ``measure_size`` random candidates, then per phase: retrain the
 latent cost predictor on the measured set, select the next batch
 (``select_programs``), reveal the recorded costs, and stop once the
-true-best candidate is in the measured set.
+true-best candidate is in the measured set. ``run_gbdt_baseline_search``
+is the tree-model baseline arm of the same experiment.
 
 Randomness: the initial measured set and the VAE's train/validation
 split are numpy draws (``default_rng(sampling_seed)`` and
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.gbdt import GBDTModelInternal
 from ..models.metrics import metric_r_squared, recall_at_k
 from ..models.predictor import (
     PredictorConfig,
@@ -257,4 +259,75 @@ def run_active_search(
     result.train_size = int(used.sum())
     result.used_time = time.time() - t0
     result.selected_order = selected_order
+    return result
+
+
+def run_gbdt_baseline_search(
+    features: np.ndarray,
+    labels: np.ndarray,
+    measure_size: int = 64,
+    max_phases: int = 60,
+    eps_greedy: float = 0.05,
+    sampling_seed: int = 2000,
+    stop_top_k: int = 1,
+    engine: str = "auto",
+    device="cuda",
+) -> ActiveSearchResult:
+    """The experiment's tree-model baseline arm: per phase, fit a GBDT on
+    the measured set and pick 95% predicted-top-k + 5% eps-greedy random
+    (reference vae_extent_search.py:843-865,1980-2307 xgb_select_indices
+    with XGBoostModelInternal over the same extent features). The rng use
+    and stop rule are the JAX package's. ``engine`` and ``device`` go to
+    ``GBDTModelInternal``; ``fit_seconds`` holds each phase's host seconds
+    of model fitting and prediction."""
+    resolve_device(device)
+    t0 = time.time()
+    N = features.shape[0]
+    X = np.log1p(features.astype(np.float32))
+    rng = np.random.default_rng(sampling_seed)
+    true_top = set(np.argsort(-labels)[:stop_top_k].tolist())
+
+    measured = np.zeros(N, bool)
+    init = rng.choice(N, size=min(measure_size, N), replace=False)
+    measured[init] = True
+    result = ActiveSearchResult(False, 0, 0, 0.0)
+    result.selected_order = init.tolist()
+    if true_top & set(init.tolist()):
+        result.found = True
+        result.train_size = int(measured.sum())
+        result.used_time = time.time() - t0
+        return result
+
+    n_rand = max(1, int(measure_size * eps_greedy))
+    n_top = measure_size - n_rand
+    for phase in range(1, max_phases + 1):
+        t_fit = time.perf_counter()
+        tr = np.where(measured)[0]
+        model = GBDTModelInternal(n_estimators=100, engine=engine,
+                                  device=device)
+        model.fit_base([X[i:i + 1] for i in tr], labels[tr])
+        preds = model.predict_on_features([X[i:i + 1] for i in range(N)])
+        result.fit_seconds.append(time.perf_counter() - t_fit)
+        remaining = np.where(~measured)[0]
+        order = remaining[np.argsort(-preds[remaining])]
+        sel = list(order[:min(n_top, len(order))])
+        rest = np.setdiff1d(remaining, sel)
+        if len(rest) and n_rand:
+            sel.extend(rng.choice(rest, size=min(n_rand, len(rest)),
+                                  replace=False).tolist())
+        measured[sel] = True
+        result.selected_order.extend(int(i) for i in sel)
+        result.phase = phase
+        result.top1_hits.append(int(bool(true_top & set(sel))))
+        result.final_recall_topk = recall_at_k(preds, labels,
+                                               k=stop_top_k)
+        tb = int(np.argmax(labels))
+        result.final_optimum_rank = int(np.sum(preds > preds[tb])) + 1
+        if true_top & set(sel):
+            result.found = True
+            break
+        if not (~measured).any():
+            break
+    result.train_size = int(measured.sum())
+    result.used_time = time.time() - t0
     return result
