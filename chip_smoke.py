@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result line:
-  1. device and build: the card's name and power limit; nvcc builds both
-     kernels from csrc/ for sm_90a, one nvcc per source, started together
+  1. device and build: the card's name and power limit; nvcc builds the
+     four kernels from csrc/ for sm_90a, one nvcc per source, started
+     together
   2. kernel vs plain torch version with injected dropout bits, at the
      main path's shape (the committed pool: N=773, D=17) and at the bench
      shape (N=262,144, D=24, H=256, L=64, T=10, rate 0.1), float32 and
@@ -44,6 +45,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      every phase must have grown its 100 trees through the kernel; at each
      level, the first phase's launch whose rows lie in the most nodes is
      held against the plain version as in phase 7
+ 11. the matmul kernel (csrc/matmul.cu) vs its plain version at lattice
+     configs of 1536^3 and of odd shapes, among them a non-square tile and
+     one whose bk is the whole K, in float32 (rel tol 1e-5) and bfloat16
+     (rel 1e-2 against the f32 plain version of the same bf16 inputs); two
+     launches bit-identical; the plain version's time beside the bound at
+     1536^3 bf16 (the kernel's and cuBLAS's come from phase 13)
+ 12. the same for the conv2d kernel (csrc/conv2d.cu) at the JAX tests'
+     shapes and at 1 x 56 x 56 x 256 -> 256, 3 x 3, pad 1
+ 13. self-tuning end to end: cli.tune_kernel on the matmul at the JAX
+     defaults (1536^3 bf16, 1,000 candidates, measure size 16, 6 phases,
+     VAE 500 epochs, predictor 1000 epochs), --arm model then --arm
+     random; every timed config went through the kernel (its launch count
+     grew), none failed to launch, the record log holds every measured
+     state; the best config against cuBLAS
+ 14. the same for conv2d at 1 x 56 x 56 x 256 -> 256, 3 x 3, pad 1, bf16,
+     against cuDNN
 The last three lines are the card's name and power limit, a JSON object
 with each kernel's check and times, then {"ok": true, "device": {...}}.
 """
@@ -447,6 +464,328 @@ def gbdt_phases(dev, peaks, fh, th):
     }
 
 
+# the self-tuning shapes (scripts/tune_pallas_kernel.py's defaults) and
+# the tuner's settings at the JAX defaults
+MM_DIM = 1536
+CONV = (1, 56, 56, 256, 256, 3, 3, 1, 1)  # N H W CO CI KH KW stride pad
+TUNE_ARGS = ["--n-candidates", "1000", "--measure-size", "16",
+             "--n-phases", "6", "--vae-epochs", "500", "--reg-epochs",
+             "1000", "--dtype", "bfloat16"]
+# relative to max |plain|. float32: the same products summed in another
+# order; bfloat16 inputs: against the f32 plain version of the same
+# bf16-rounded inputs, so again only the order of the f32 sums differs (a
+# kernel that rounded its output to bf16 would be off by about 2^-9)
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+
+def instance_cases(om, oc):
+    """({dims: [matmul configs]}, {conv params: [conv2d configs]}) that
+    between them launch each of the 16 thread micro-tiles (TM, TN) the
+    kernels are built for (each .cu file holds one template instance per
+    micro-tile and input type): the first valid config found per
+    micro-tile at a few shapes chosen so that all 16 occur."""
+    def divs(n):
+        return [d for d in range(1, n + 1) if n % d == 0]
+
+    mm, cv, seen_mm, seen_cv = {}, {}, set(), set()
+    M, N, K = 1536, 768, 64
+    for bm in divs(M):
+        for bn in divs(N):
+            t = om.thread_tile(bm, bn)
+            if t and t not in seen_mm and om.config_is_valid(
+                    M, N, K, bm, bn, 8, dtype="float32")[0]:
+                seen_mm.add(t)
+                mm.setdefault((M, N, K), []).append((bm, bn, 8))
+    for params in ((1, 64, 3, 384, 16, 3, 3, 1), (1, 512, 1, 384, 8, 1, 1, 0)):
+        n, h, w, co, ci, kh, kw, pad = params
+        ow = w + 2 * pad - kw + 1
+        for boh in divs(h + 2 * pad - kh + 1):
+            for bco in divs(co):
+                t = om.thread_tile(boh * ow, bco)
+                if t and t not in seen_cv and oc.conv_config_is_valid(
+                        n, h, w, co, ci, kh, kw, 1, pad, boh, bco, 8,
+                        dtype="float32")[0]:
+                    seen_cv.add(t)
+                    cv.setdefault(params, []).append((boh, bco, 8))
+    if len(seen_mm) != 16 or len(seen_cv) != 16:
+        raise RuntimeError(f"micro-tiles reached: matmul {sorted(seen_mm)}, "
+                           f"conv2d {sorted(seen_cv)}")
+    return mm, cv
+
+
+def gemm_bound_ms(flops, nbytes, dtype, peaks):
+    """Least time: the operations over the input type's peak, or the
+    bytes (each input read once, the output written once) over the
+    memory rate, whichever is longer."""
+    t_ops = flops / peaks[dtype_name(dtype)]
+    t_bytes = nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def matmul_work(M, N, K, item):
+    """(operations, bytes) of C [M, N] f32 = A [M, K] @ B [K, N]."""
+    return 2.0 * M * N * K, (M * K + K * N) * item + M * N * 4
+
+
+def conv_work(N, H, W, CO, CI, KH, KW, stride, pad, item):
+    """(operations, bytes) of one stride-1 conv2d + bias + ReLU: x and w
+    in the input type, the f32 bias, the f32 output."""
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    return (2.0 * N * OH * OW * CO * KH * KW * CI,
+            (N * H * W * CI + KH * KW * CI * CO) * item + CO * 4
+            + N * OH * OW * CO * 4)
+
+
+def check_gemm(tag, label, launch, plain, tol, checks):
+    """Two launches against the plain version: finite, bit-identical, and
+    within ``tol`` relative to max |plain|. Raises where one fails."""
+    got = launch()
+    again = launch()
+    torch.cuda.synchronize()
+    ref = plain()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"[{tag}] {label}: not finite or of shape "
+                           f"{tuple(got.shape)}")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"[{tag}] {label}: two launches differ")
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    checks[label] = {"max_abs_err": err, "max_rel_err": rel, "tol": tol}
+    log(f"[{tag}] {label}: rel err {rel:.2e} (tol {tol:g}), max abs "
+        f"{err:.3e}; two launches bit-identical")
+    if not rel <= tol:
+        raise RuntimeError(f"[{tag}] kernel disagrees with plain: {label}")
+
+
+def tune_arms(tag, workload, best_launch, kernels, checks):
+    """cli.tune_kernel with ``workload`` at TUNE_ARGS, arm model then arm
+    random, each driven with every kernel count at 0 and read just after.
+    Checks that every timed config went through the kernel, none failed to
+    launch, and each was held against the plain version within
+    GEMM_TOL; then holds each arm's best config against the plain version
+    on the runner's own operands (``best_launch(runner, cfg)`` gives the
+    launch and the plain version; into ``checks``). Returns {arm:
+    (summary, runner, launches by kernel, wall s)}."""
+    from vae_extent_search_tpu_torch.cli.tune_kernel import tune
+    from vae_extent_search_tpu_torch.records.serde import (
+        ERROR_COMPILE_DEVICE,
+        ERROR_NO_ERROR,
+    )
+
+    out = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for arm in ("model", "random"):
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            log_file = os.path.join(d, "tune.json")
+            for k in kernels.values():
+                k.launches = 0
+            t = time.time()
+            with contextlib.redirect_stdout(buf):
+                summary, runner = tune(workload + TUNE_ARGS + [
+                    "--arm", arm, "--log-file", log_file])
+            wall = time.time() - t
+            launches = {n: k.launches for n, k in kernels.items()}
+            with open(log_file) as f:
+                recs = [json.loads(ln) for ln in f if ln.strip()]
+        text = buf.getvalue()
+        with open(os.path.join(OUT_DIR, f"tune_{tag}_{arm}.log"), "w") as f:
+            f.write(text)
+        for line in text.splitlines():
+            if not line.startswith("  config"):
+                log(f"[{tag}] {arm}: {line}")
+        measured = runner.measured_configs()
+        ok = [(c, sec) for c, sec, e in measured if e == ERROR_NO_ERROR]
+        failed = [c for c, _, e in measured if e == ERROR_COMPILE_DEVICE]
+        per_cfg = runner.launches_per_config
+        verify = runner.n_verified
+        lib = summary["library_ms"]
+        lib_s = "not timed" if lib is None else f"{lib:.4f} ms"
+        log(f"[{tag}] arm {arm}: best {summary['best_cfg']} "
+            f"{summary['best_ms']:.4f} ms = {summary['gflops'] / 1e3:.3f} "
+            f"TFLOP/s; {runner.n_timed} configs timed ({len(ok)} ok, "
+            f"{len(failed)} failed to launch), {summary['n_measured']} "
+            f"states measured, {wall:.1f} s wall; library {lib_s}; "
+            f"{runner.n_verified} configs held against plain, max rel err "
+            f"{runner.verify_rel_err}; launches "
+            f"{launches}")
+        if failed:
+            raise RuntimeError(f"[{tag}] {arm}: configs failed on the card "
+                               f"(ERROR_COMPILE_DEVICE): {failed}")
+        if not ok or any(per_cfg.get(c, 0) < 3 for c, _ in ok):
+            raise RuntimeError(f"[{tag}] {arm}: a timed config did not go "
+                               f"through the kernel: {per_cfg}")
+        if (launches[tag] != sum(per_cfg.values()) + verify
+                or verify != len(per_cfg) or verify != len(ok)):
+            raise RuntimeError(f"[{tag}] {arm}: {launches[tag]} launches for "
+                               f"{sum(per_cfg.values())} timed + {verify} "
+                               f"verified, {len(ok)} configs ok")
+        tol = GEMM_TOL[torch.bfloat16]
+        if not runner.verify_rel_err <= tol:
+            raise RuntimeError(f"[{tag}] {arm}: a timed config is off its "
+                               f"plain version by {runner.verify_rel_err:g} "
+                               f"(tol {tol:g})")
+        others = {n: v for n, v in launches.items()
+                  if n not in (tag, "fused_head_stats")}
+        want_fh = summary["n_phases"] if arm == "model" else 0
+        if any(others.values()) or launches["fused_head_stats"] != want_fh:
+            raise RuntimeError(f"[{tag}] {arm}: kernel launches {launches}")
+        if (len(recs) != summary["n_measured"]
+                or {r["i"][0][1] for r in recs} != {"cuda -model=bfloat16"}):
+            raise RuntimeError(f"[{tag}] {arm}: {len(recs)} records for "
+                               f"{summary['n_measured']} measured states")
+        if not (0 < summary["best_ms"] < 1e4 and lib and lib > 0):
+            raise RuntimeError(f"[{tag}] {arm}: best {summary['best_ms']} "
+                               f"ms, library {lib} ms")
+        best = tuple(int(v) for v in summary["best_cfg"].split("x"))
+        launch, plain = best_launch(runner, best)
+        check_gemm(tag, f"{arm} arm's best {best} on the tuner's operands",
+                   launch, plain, tol, checks)
+        out[arm] = (summary, runner, launches, wall)
+    return out
+
+
+def tuner_phases(dev, peaks, kernels):
+    """Phases 11-14: the matmul and conv2d kernels against their plain
+    versions, and the self-tuning path on both. Returns their result
+    records."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+    from vae_extent_search_tpu_torch.ops import matmul as om
+    from vae_extent_search_tpu_torch.search.kernel_tuner import cuda_seconds
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # ---- 11. matmul kernel vs plain ----
+    mm_inst, cv_inst = instance_cases(om, oc)
+    mm_checks = {}
+    for dims, cfgs in (
+            ((MM_DIM,) * 3, [(128, 128, 64), (64, 256, 8), (2, 32, 8),
+                             (4, 32, 1536)]),
+            ((96, 160, 72), [(3, 32, 72)]), ((1000, 24, 40), [(8, 24, 40)]),
+            *mm_inst.items()):
+        M, N, K = dims
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = randn(M, K, dtype=dtype), randn(K, N, dtype=dtype)
+            for cfg in cfgs:
+                ok, why = om.config_is_valid(M, N, K, *cfg,
+                                             dtype=dtype_name(dtype))
+                if not ok:
+                    raise RuntimeError(f"[11] {cfg} at {dims}: {why}")
+                check_gemm("11", f"{M}x{N}x{K} {cfg} {dtype_name(dtype)}",
+                           lambda: om.matmul(a, b, *cfg),
+                           lambda: om.matmul_plain(a, b), GEMM_TOL[dtype],
+                           mm_checks)
+    a = randn(MM_DIM, MM_DIM, dtype=torch.bfloat16)
+    b = randn(MM_DIM, MM_DIM, dtype=torch.bfloat16)
+    mm_plain_ms = cuda_seconds(lambda: om.matmul_plain(a, b), 20, 3) * 1e3
+    mm_bound, mm_by = gemm_bound_ms(*matmul_work(MM_DIM, MM_DIM, MM_DIM, 2),
+                                    torch.bfloat16, peaks)
+    log(f"[11] 1536^3 bf16: plain {mm_plain_ms:.4f} ms, bound "
+        f"{mm_bound:.4f} ms ({mm_by})")
+    del a, b
+
+    # ---- 12. conv2d kernel vs plain ----
+    cv_checks = {}
+    for params, cfgs in (
+            ((2, 8, 8, 6, 256, 3, 3, 1), [(1, 6, 128), (4, 6, 128),
+                                           (8, 6, 256)]),
+            ((3, 10, 7, 2, 4, 3, 3, 0), [(4, 2, 4)]),
+            ((1, 8, 8, 4, 8, 3, 3, 1), [(2, 4, 8)]),
+            (CONV[:7] + CONV[8:], [(2, 128, 64), (8, 32, 8), (1, 256, 64),
+                                   (7, 32, 32)]), *cv_inst.items()):
+        N, H, W, CO, CI, KH, KW, pad = params
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = randn(N, H, W, CI, dtype=dtype), randn(KH, KW, CI, CO,
+                                                         dtype=dtype)
+            bias = randn(CO)
+            for cfg in cfgs:
+                ok, why = oc.conv_config_is_valid(
+                    N, H, W, CO, CI, KH, KW, 1, pad, *cfg,
+                    dtype=dtype_name(dtype))
+                if not ok:
+                    raise RuntimeError(f"[12] {cfg} at {params}: {why}")
+                check_gemm("12", f"{params} {cfg} {dtype_name(dtype)}",
+                           lambda: oc.conv2d(x, w, bias, pad, *cfg),
+                           lambda: oc.conv2d_plain(x, w, bias, pad),
+                           GEMM_TOL[dtype], cv_checks)
+    N, H, W, CO, CI, KH, KW, _, pad = CONV
+    x, w = randn(N, H, W, CI, dtype=torch.bfloat16), randn(
+        KH, KW, CI, CO, dtype=torch.bfloat16)
+    bias = randn(CO)
+    cv_plain_ms = cuda_seconds(lambda: oc.conv2d_plain(x, w, bias, pad), 20,
+                               3) * 1e3
+    cv_bound, cv_by = gemm_bound_ms(*conv_work(*CONV, 2), torch.bfloat16,
+                                    peaks)
+    log(f"[12] 1x56x56x256->256 3x3 bf16: plain {cv_plain_ms:.4f} ms, bound "
+        f"{cv_bound:.4f} ms ({cv_by})")
+    del x, w, bias
+
+    # ---- 13. / 14. self-tuning end to end ----
+    def mm_best(runner, cfg):
+        a, b = runner.operands(MM_DIM, MM_DIM, MM_DIM)
+        return lambda: om.matmul(a, b, *cfg), lambda: om.matmul_plain(a, b)
+
+    def cv_best(runner, cfg):
+        N, H, W, CO, CI, KH, KW, _, pad = CONV
+        x, w, bias = runner.operands(N, H, W, CO, CI, KH, KW)
+        return (lambda: oc.conv2d(x, w, bias, pad, *cfg),
+                lambda: oc.conv2d_plain(x, w, bias, pad))
+
+    mm_arms = tune_arms("matmul", ["--workload", "matmul", "--dim",
+                                   str(MM_DIM)], mm_best, kernels, mm_checks)
+    cv_arms = tune_arms("conv2d", ["--workload", "conv2d", "--conv",
+                                   *map(str, CONV[:7])], cv_best, kernels,
+                        cv_checks)
+
+    def record(name, arms, checks, src, replaces, plain_ms, b_ms, b_by,
+               shape):
+        best = min(arms.values(), key=lambda v: v[0]["best_ms"])[0]
+        return {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(v[2][name] for v in arms.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "ms": best["best_ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": min(v[0]["library_ms"] for v in arms.values()),
+            "shape": shape, "best_cfg": best["best_cfg"],
+            "checks": {"max_rel_err": max(c["max_rel_err"]
+                                          for c in checks.values()),
+                       "tolerance": {dtype_name(t): v
+                                     for t, v in GEMM_TOL.items()},
+                       "bit_identical_launches": True,
+                       "configs_checked": len(checks)},
+            "tune": {arm: {k: v[0][k] for k in (
+                "best_cfg", "best_ms", "gflops", "library_ms",
+                "n_configs_timed", "n_measured", "n_raw_configs",
+                "n_lattice_configs", "pool_s", "bound_s", "featurize_s",
+                "vae_s", "fit_s", "select_s", "measure_s", "timing_s")}
+                | {"wall_s": v[3], "launches": v[2][name],
+                   "configs_verified": v[1].n_verified,
+                   "verify_max_rel_err": v[1].verify_rel_err}
+                for arm, v in arms.items()},
+        }
+
+    return [
+        record("matmul", mm_arms, mm_checks,
+               "vae_extent_search_tpu_torch/csrc/matmul.cu",
+               "vae_extent_search_tpu/ops/matmul_pallas.py:78", mm_plain_ms,
+               mm_bound, mm_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
+                                 "dtype": "bfloat16"}),
+        record("conv2d", cv_arms, cv_checks,
+               "vae_extent_search_tpu_torch/csrc/conv2d.cu",
+               "vae_extent_search_tpu/ops/conv2d_pallas.py:106", cv_plain_ms,
+               cv_bound, cv_by, dict(zip(("N", "H", "W", "CO", "CI", "KH",
+                                          "KW", "stride", "pad"), CONV),
+                                     dtype="bfloat16")),
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -457,8 +796,10 @@ def main():
     from vae_extent_search_tpu_torch.convert import params_from_numpy
     from vae_extent_search_tpu_torch.data.pool import load_pool
     from vae_extent_search_tpu_torch.device import resolve_device
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
     from vae_extent_search_tpu_torch.ops import fused_head as fh
     from vae_extent_search_tpu_torch.ops import hist as th
+    from vae_extent_search_tpu_torch.ops import matmul as om
     from vae_extent_search_tpu_torch.search.select import (
         SelectionConfig,
         select_programs,
@@ -477,14 +818,19 @@ def main():
     log(f"[1] card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda lib: lib.build(force=True),
-                               (fh.LIB, th.LIB)))
-    for lib, (_, out, secs) in zip((fh.LIB, th.LIB), builds):
-        regs = [l.strip() for l in out.splitlines() if "registers" in l]
+    libs = (fh.LIB, th.LIB, om.LIB, oc.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        builds = list(pool.map(lambda lib: lib.build(force=True), libs))
+    for lib, (_, out, secs) in zip(libs, builds):
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
+                                                  out)})
+        spills = [l.strip() for l in out.splitlines() if "spill" in l and
+                  "0 bytes spill stores, 0 bytes spill loads" not in l]
         log(f"[1] nvcc build of {os.path.relpath(lib.source, ROOT)}: "
-            f"{secs:.2f} s; {' / '.join(regs)}")
-    log(f"[1] both builds: {time.perf_counter() - t0:.2f} s wall")
+            f"{secs:.2f} s; {out.count('registers')} kernel instances using "
+            f"{regs} registers; {len(spills)} spill"
+            + (f" ({spills[0]})" if spills else ""))
+    log(f"[1] all builds: {time.perf_counter() - t0:.2f} s wall")
 
     feats, labels, _ = load_pool()
     main_shape = dict(n=feats.shape[0], d=feats.shape[1], hid=256, lat=64,
@@ -646,6 +992,9 @@ def main():
                            f" ({th.hist.launches} histogram launches)")
 
     hist_record = gbdt_phases(dev, peaks, fh, th)
+    tuner_records = tuner_phases(dev, peaks, {
+        "fused_head_stats": fh.fused_head_stats, "hist": th.hist,
+        "matmul": om.matmul, "conv2d": oc.conv2d})
 
     # ---- result ----
     k_ms, p_ms, b_ms, b_by = times[("main", torch.float32)]
@@ -677,7 +1026,7 @@ def main():
                   "float32_ms": fk, "float32_plain_ms": fp,
                   "float32_bound_ms": fb},
         "select_phase_ms": ph_ms,
-    }, hist_record]}), flush=True)
+    }, hist_record, *tuner_records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

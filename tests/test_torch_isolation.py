@@ -27,9 +27,15 @@ print(len(mods), bad)
 assert not bad, bad
 need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "ops.hist", "ops.fused_head", "data.boost_corpus",
-         "search.active_loop", "cli.vae_extent_search"}}
+         "search.active_loop", "cli.vae_extent_search",
+         "ir.expr", "ir.tensor", "ir.state", "ir.steps", "ir.schedule_api",
+         "ir.intset", "ir.bound", "ir.dag", "records.workload",
+         "records.workload_library", "records.task", "records.serde",
+         "features.extent", "search.sketch", "search.measure",
+         "search.kernel_tuner", "ops.matmul", "ops.conv2d",
+         "cli.tune_kernel"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 23, (missing, mods)
+assert not missing and len(mods) >= 45, (missing, mods)
 """
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels of the PyTorch port (the fused cost head and the GBDT
-histograms) against their plain torch versions, on the card. These tests need an NVIDIA GPU and nvcc; where
+"""The CUDA kernels of the PyTorch port (the fused cost head, the GBDT
+histograms, and the self-tuning targets matmul and conv2d) against their
+plain torch versions, on the card. These tests need an NVIDIA GPU and nvcc; where
 there is none they skip. They import neither jax nor the JAX package,
 so they also run on a machine that has only torch:
 
@@ -13,8 +14,10 @@ import torch
 from vae_extent_search_tpu_torch.convert import params_from_numpy
 from vae_extent_search_tpu_torch.models import boost, boost_device
 from vae_extent_search_tpu_torch.models.predictor import pred_encode
+from vae_extent_search_tpu_torch.ops import conv2d as oc
 from vae_extent_search_tpu_torch.ops import fused_head as fh
 from vae_extent_search_tpu_torch.ops import hist as th
+from vae_extent_search_tpu_torch.ops import matmul as om
 
 pytestmark = pytest.mark.cuda
 
@@ -229,3 +232,74 @@ def test_device_engine_on_card():
     assert np.array_equal(d1.predict(X), d2.predict(X))
     assert [t.feature for t in d1.trees] == [t.feature for t in d2.trees]
     assert np.abs(d1.predict(X) - host.predict(X)).max() < 1e-4
+
+
+# float32: the same f32 products summed in another order (K <= 1536);
+# bfloat16: the plain version multiplies the same bf16-rounded inputs in
+# f32, so only the order of the f32 sums differs
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims,cfg", [
+    ((256, 256, 256), (128, 128, 64)), ((256, 512, 128), (64, 256, 8)),
+    ((96, 160, 72), (3, 32, 72)),       # non-square, bk = the whole K
+    ((1536, 1536, 1536), (2, 32, 8)), ((64, 24, 48), (64, 24, 48))])
+def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
+    M, N, K = dims
+    assert om.config_is_valid(M, N, K, *cfg, dtype=om.dtype_name(dtype))[0]
+    g = torch.Generator(device=dev).manual_seed(sum(dims))
+    a = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    b = torch.randn(K, N, generator=g, device=dev).to(dtype)
+    before = om.matmul.launches
+    got = om.matmul(a, b, *cfg)
+    again = om.matmul(a, b, *cfg)
+    torch.cuda.synchronize()
+    assert om.matmul.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, om.matmul_plain(a, b)) <= MM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("params,cfg", [
+    ((2, 8, 8, 6, 256, 3, 3, 1), (4, 6, 128)),
+    ((3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
+    ((1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
+    ((1, 56, 56, 256, 256, 3, 3, 1), (8, 32, 8))])
+def test_conv2d_kernel_matches_plain(dev, dtype, params, cfg):
+    N, H, W, CO, CI, KH, KW, pad = params
+    ok, why = oc.conv_config_is_valid(N, H, W, CO, CI, KH, KW, 1, pad, *cfg,
+                                      dtype=om.dtype_name(dtype))
+    assert ok, why
+    g = torch.Generator(device=dev).manual_seed(CO + CI)
+    x = torch.randn(N, H, W, CI, generator=g, device=dev).to(dtype)
+    w = torch.randn(KH, KW, CI, CO, generator=g, device=dev).to(dtype)
+    bias = torch.randn(CO, generator=g, device=dev)
+    before = oc.conv2d.launches
+    got = oc.conv2d(x, w, bias, pad, *cfg)
+    again = oc.conv2d(x, w, bias, pad, *cfg)
+    torch.cuda.synchronize()
+    assert oc.conv2d.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, oc.conv2d_plain(x, w, bias, pad)) <= 1e-5
+
+
+def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
+    a = torch.randn(256, 256, device=dev)
+    before = om.matmul.launches
+    for cfg in ((100, 128, 64),      # does not divide
+                (256, 128, 64),      # more than 256 threads of 8 x 8
+                (128, 128, 256)):    # f32 tiles over 227 KB
+        with pytest.raises(ValueError, match="invalid matmul config"):
+            om.matmul(a, a, *cfg)
+    with pytest.raises(ValueError):
+        om.matmul(a, a.half(), 128, 128, 64)
+    assert om.matmul.launches == before
+    x = torch.randn(1, 56, 56, 256, device=dev)
+    w = torch.randn(3, 3, 256, 256, device=dev)
+    b = torch.randn(256, device=dev)
+    before = oc.conv2d.launches
+    for cfg in ((8, 128, 128), (1, 256, 256), (3, 32, 8)):
+        with pytest.raises(ValueError, match="invalid conv2d config"):
+            oc.conv2d(x, w, b, 1, *cfg)
+    assert oc.conv2d.launches == before

@@ -2,12 +2,14 @@
 (counterpart of ``scripts/vae_extent_search.py``: the ``vae``/``ae``
 encoder arms and the ``gbdt`` tree-model baseline arm).
 
-Loads a featurized candidate pool. The ``vae`` arm pretrains the pool VAE
-once, then runs the active search for each sampling seed until the
-recorded-optimal schedule is found; it writes a per-run CSV and appends
-the seed average to ``vae_extent_total_avg.csv``. The ``gbdt`` arm fits
-the pack-sum GBDT on the measured set each phase and writes
-``gbdt_search_<time>.csv``. Columns are the JAX script's.
+Loads a featurized candidate pool (``--pool``, an npz) or featurises a
+record log (``--record-file``: each record replayed, its extent vector and
+-log(mean cost), as ``scripts/vae_extent_search.py`` does). The ``vae``
+arm pretrains the pool VAE once, then runs the active search for each
+sampling seed until the recorded-optimal schedule is found; it writes a
+per-run CSV and appends the seed average to ``vae_extent_total_avg.csv``.
+The ``gbdt`` arm fits the pack-sum GBDT on the measured set each phase and
+writes ``gbdt_search_<time>.csv``. Columns are the JAX script's.
 
     python -m vae_extent_search_tpu_torch.cli.vae_extent_search \\
         --measure-size 32 --seeds 2000 2001 --out-dir result/torch
@@ -27,7 +29,7 @@ import time
 
 import numpy as np
 
-from ..data.pool import load_pool
+from ..data.pool import load_pool, pool_from_records
 from ..search.active_loop import (
     pretrain_pool_vae,
     run_active_search,
@@ -36,16 +38,25 @@ from ..search.active_loop import (
 from ..search.select import SelectionConfig
 
 
+def _load(pool=None, record_file=None):
+    if record_file is not None:
+        if pool is not None:
+            raise ValueError("pass a pool or a record file, not both")
+        return pool_from_records(record_file)
+    return load_pool(pool)
+
+
 def run_experiment(pool=None, out_dir="result", measure_size=64,
                    seeds=(2000,), weights=(0.5, 0.3, 0.2), grad_num=2,
                    rand_num=0, uncertainty_topk=128, max_phases=60,
                    vae_epochs=500, reg_epochs=1000, latent_dim=64,
                    hidden_dim=256, verbose=False, encoder_mode="vae",
-                   device="cuda"):
+                   device="cuda", record_file=None):
     """Run the search for every seed in ``seeds`` on the pool at ``pool``
-    (an npz of features/labels; default: the committed conv2d pool).
-    Returns (per-seed rows, seed-average row)."""
-    feats, labels, _ = load_pool(pool)
+    (an npz of features/labels; default: the committed conv2d pool) or on
+    the featurised ``record_file``. Returns (per-seed rows, seed-average
+    row)."""
+    feats, labels, _ = _load(pool, record_file)
     print(f"pool: {feats.shape[0]} candidates x {feats.shape[1]} features")
     os.makedirs(out_dir, exist_ok=True)
     tag = time.strftime("%m%d_%H%M")
@@ -123,11 +134,12 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
 
 
 def run_gbdt_arm(pool=None, out_dir="result", measure_size=64, seeds=(2000,),
-                 max_phases=60, engine="auto", device="cuda"):
+                 max_phases=60, engine="auto", device="cuda",
+                 record_file=None):
     """The tree-model baseline arm (reference result_xgb corpus) on the
-    pool at ``pool`` (default: the committed conv2d pool). Returns the
-    per-seed rows."""
-    feats, labels, _ = load_pool(pool)
+    pool at ``pool`` (default: the committed conv2d pool) or on the
+    featurised ``record_file``. Returns the per-seed rows."""
+    feats, labels, _ = _load(pool, record_file)
     os.makedirs(out_dir, exist_ok=True)
     rows = []
     for seed in seeds:
@@ -161,6 +173,9 @@ def main(argv=None):
     p.add_argument("--pool", type=str, default=None,
                    help="npz with features/labels (default: the committed "
                         "conv2d_4k extent pool)")
+    p.add_argument("--record-file", type=str, default=None,
+                   help="a record log (NDJSON, or .gz) to featurise "
+                        "instead of --pool")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--out-dir", type=str, default="result")
@@ -191,7 +206,7 @@ def main(argv=None):
     if args.arm == "gbdt":
         run_gbdt_arm(args.pool, args.out_dir, args.measure_size,
                      tuple(args.seeds), args.max_phases, engine=args.engine,
-                     device=args.device)
+                     device=args.device, record_file=args.record_file)
         return
     run_experiment(
         args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
@@ -199,7 +214,8 @@ def main(argv=None):
         args.uncertainty_topk, max_phases=args.max_phases,
         vae_epochs=args.vae_epochs, reg_epochs=args.reg_epochs,
         latent_dim=args.latent_dim, hidden_dim=args.hidden_dim,
-        verbose=args.verbose, encoder_mode=args.encoder, device=args.device)
+        verbose=args.verbose, encoder_mode=args.encoder, device=args.device,
+        record_file=args.record_file)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ Init with ``measure_size`` random candidates, then per phase: retrain the
 latent cost predictor on the measured set, select the next batch
 (``select_programs``), reveal the recorded costs, and stop once the
 true-best candidate is in the measured set. ``run_gbdt_baseline_search``
-is the tree-model baseline arm of the same experiment.
+is the tree-model baseline arm of the same experiment, and
+``run_active_search_online`` the live-measurement arm that the self-tuning
+path (``cli/tune_kernel.py``) drives.
 
 Randomness: the initial measured set and the VAE's train/validation
 split are numpy draws (``default_rng(sampling_seed)`` and
@@ -122,6 +124,60 @@ class ActiveSearchResult:
     select_seconds: List[float] = field(default_factory=list)
 
 
+class _ModelPhase:
+    """One phase of the model-guided selection, shared by the offline and
+    the online loop: retrain the cost predictor on the measured rows (the
+    JAX package's masked full-pool loss over them is the same function),
+    then pick the next batch with ``select_programs``, whose diversity
+    stage reads a ring buffer of the measured set (when its capacity
+    binds, the oldest centers go)."""
+
+    def __init__(self, X, vae_params, pred_cfg, sel_cfg, hidden_dim,
+                 latent_dim, reg_epochs, train_seed, sampling_seed,
+                 measured):
+        self.X, self.vae_params = X, vae_params
+        self.pred_cfg, self.sel_cfg = pred_cfg, sel_cfg
+        self.hidden_dim, self.latent_dim = hidden_dim, latent_dim
+        self.reg_epochs = reg_epochs
+        self.center_buf = np.zeros(sel_cfg.max_centers, np.int64)
+        self.center_n = min(len(measured), sel_cfg.max_centers)
+        self.center_buf[:self.center_n] = measured[:self.center_n]
+        self.center_pos = torch.arange(sel_cfg.max_centers, device=X.device)
+        self.g_phase = make_generator(train_seed, _PHASE_STREAM, X.device)
+        self.g_sel = make_generator(sampling_seed, _SELECT_STREAM, X.device)
+
+    def fit(self, measured, y):
+        """Predictor parameters fitted to labels ``y`` of rows
+        ``measured``, from a fresh init with the pretrained encoder."""
+        X = self.X
+        params = init_predictor_params(self.g_phase, X.shape[1],
+                                       self.hidden_dim, self.latent_dim,
+                                       device=X.device)
+        params = load_pretrained_encoder(params, self.vae_params)
+        midx = torch.as_tensor(np.asarray(measured), device=X.device)
+        params, _ = fit_predictor(params, X[midx], y, None, self.g_phase,
+                                  self.pred_cfg, self.reg_epochs)
+        return params
+
+    def select(self, params, used, remaining, n_measured):
+        """(pool indices to measure next, the new ``remaining`` mask)."""
+        cfg = self.sel_cfg
+        with torch.no_grad():
+            sel_idx, sel_valid, remaining, _ = select_programs(
+                params, self.X, used, remaining, self.g_sel, cfg,
+                gate_uncertainty_to_remaining=n_measured
+                < cfg.uncertainty_topk,
+                center_idx=torch.as_tensor(self.center_buf,
+                                           device=self.X.device),
+                center_valid=self.center_pos < min(self.center_n,
+                                                   cfg.max_centers))
+        sel = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
+        for i in sel.tolist():
+            self.center_buf[self.center_n % cfg.max_centers] = i
+            self.center_n += 1
+        return sel, remaining
+
+
 def run_active_search(
     features: np.ndarray,
     labels: np.ndarray,
@@ -197,25 +253,15 @@ def run_active_search(
     if encoder_mode == "ae":
         pred_cfg = pred_cfg._replace(beta=0.0)  # no KL in the AE arm
 
-    # compact measured-set ring buffer for the diversity stage
-    center_buf = np.zeros(sel_cfg.max_centers, np.int64)
-    center_n = min(len(selected_order), sel_cfg.max_centers)
-    center_buf[:center_n] = selected_order[:center_n]
-    center_pos = torch.arange(sel_cfg.max_centers, device=device)
-
-    g_phase = make_generator(train_seed, _PHASE_STREAM, device)
-    g_sel = make_generator(sampling_seed, _SELECT_STREAM, device)
+    step = _ModelPhase(X, vae_params, pred_cfg,
+                       selection or SelectionConfig(num_select=measure_size),
+                       hidden_dim, latent_dim, reg_epochs, train_seed,
+                       sampling_seed, selected_order)
     labels_np = np.asarray(labels)
     for phase in range(1, max_phases + 1):
-        # retrain the predictor on the measured rows only (the masked
-        # full-pool loss over them is the same function)
         t_fit = time.perf_counter()
-        params = init_predictor_params(g_phase, X.shape[1], hidden_dim,
-                                       latent_dim, device=device)
-        params = load_pretrained_encoder(params, vae_params)
-        midx = torch.as_tensor(np.asarray(selected_order), device=device)
-        params, _ = fit_predictor(params, X[midx], y_all[midx], None,
-                                  g_phase, pred_cfg, reg_epochs)
+        params = step.fit(selected_order, y_all[
+            torch.as_tensor(np.asarray(selected_order), device=device)])
         result.fit_seconds.append(time.perf_counter() - t_fit)
 
         with torch.no_grad():
@@ -229,21 +275,11 @@ def run_active_search(
             np.sum(all_pred > all_pred[true_best])) + 1
 
         t_sel = time.perf_counter()
-        gate = len(selected_order) < sel_cfg.uncertainty_topk
-        with torch.no_grad():
-            sel_idx, sel_valid, remaining, _ = select_programs(
-                params, X, used, remaining, g_sel, sel_cfg,
-                gate_uncertainty_to_remaining=gate,
-                center_idx=torch.as_tensor(center_buf, device=device),
-                center_valid=center_pos < min(center_n, sel_cfg.max_centers))
-        sel = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
+        sel, remaining = step.select(params, used, remaining,
+                                     len(selected_order))
         result.select_seconds.append(time.perf_counter() - t_sel)
         used[torch.as_tensor(sel, device=device)] = True
         selected_order.extend(sel.tolist())
-        # ring buffer: when capacity binds, the oldest centers go
-        for i in sel.tolist():
-            center_buf[center_n % sel_cfg.max_centers] = i
-            center_n += 1
 
         if verbose:
             print(f"phase {phase}: +{len(sel)} measured "
@@ -257,6 +293,129 @@ def run_active_search(
             break
 
     result.train_size = int(used.sum())
+    result.used_time = time.time() - t0
+    result.selected_order = selected_order
+    return result
+
+
+@dataclass
+class OnlineSearchResult:
+    best_index: int
+    best_label: float
+    n_measured: int
+    phases: int
+    used_time: float
+    best_history: List[float] = field(default_factory=list)
+    selected_order: List[int] = field(default_factory=list)
+    # host seconds: VAE pretraining once, then per phase (the initial
+    # draw first) predictor retraining, selection and measurement; each
+    # device step ends in a host fetch of its result
+    vae_seconds: float = 0.0
+    fit_seconds: List[float] = field(default_factory=list)
+    select_seconds: List[float] = field(default_factory=list)
+    measure_seconds: List[float] = field(default_factory=list)
+
+
+def run_active_search_online(
+    features: np.ndarray,
+    measure_fn,
+    measure_size: int = 16,
+    max_phases: int = 8,
+    latent_dim: int = 64,
+    hidden_dim: int = 256,
+    vae_epochs: int = 500,
+    reg_epochs: int = 1000,
+    selection: Optional[SelectionConfig] = None,
+    sampling_seed: int = 2000,
+    train_seed: int = 2023,
+    select: str = "model",
+    verbose: bool = False,
+    device="cuda",
+) -> OnlineSearchResult:
+    """The ONLINE variant of run_active_search: labels are not known up
+    front — ``measure_fn(pool_indices) -> labels`` measures candidates for
+    real (higher label = better, the -log-cost convention). This is the
+    reference's live-measurement arm (vae_experiments/tune_vae.py:73-166)
+    with its selection stub (tuning.py:65-68 picks randomly) replaced by
+    the offline arm's selection mix (select_programs); ``select="random"``
+    reproduces the stub as a baseline arm and draws only from numpy
+    (``default_rng(sampling_seed)``), exactly as the JAX package does, so
+    both pick the same candidates in the same order. There is no
+    stop-on-optimum (the optimum is unknown): the loop runs the phase
+    budget and reports the best measured candidate. The VAE and the
+    predictor take their default learning rate, beta and configuration."""
+    if select not in ("model", "random"):
+        raise ValueError(f"unknown select {select!r}")
+    device = resolve_device(device)
+    t0 = time.time()
+    N = features.shape[0]
+    X, _ = _prepare_pool(features, np.zeros(N, np.float32), device)
+    result = OnlineSearchResult(0, -np.inf, 0, 0, 0.0)
+
+    rng = np.random.default_rng(sampling_seed)
+    init_idx = rng.choice(N, size=min(measure_size, N), replace=False)
+    step = None
+    if select == "model":
+        t = time.perf_counter()
+        vae_params = _train_pool_vae(
+            X, make_generator(train_seed, _VAE_STREAM, device), train_seed,
+            latent_dim, hidden_dim, 1e-3, 0.01, vae_epochs)
+        result.vae_seconds = time.perf_counter() - t
+        step = _ModelPhase(
+            X, vae_params, PredictorConfig(),
+            selection or SelectionConfig(num_select=measure_size),
+            hidden_dim, latent_dim, reg_epochs, train_seed, sampling_seed,
+            init_idx.tolist())
+
+    labels = np.full(N, -1e9, np.float32)  # unmeasured sentinel
+    t = time.perf_counter()
+    labels[init_idx] = measure_fn(init_idx.tolist())
+    result.measure_seconds.append(time.perf_counter() - t)
+    used_mask = np.zeros(N, bool)
+    used_mask[init_idx] = True
+    selected_order = [int(i) for i in init_idx]
+
+    def note_best():
+        meas = np.where(used_mask)[0]
+        b = meas[np.argmax(labels[meas])]
+        result.best_index = int(b)
+        result.best_label = float(labels[b])
+        result.best_history.append(result.best_label)
+
+    note_best()
+    used = torch.as_tensor(used_mask, device=device)
+    remaining = ~used
+    for phase in range(1, max_phases + 1):
+        rem_np = np.where(~used_mask)[0]
+        if len(rem_np) == 0:
+            break
+        if step is None:
+            sel = rng.choice(rem_np, size=min(measure_size, len(rem_np)),
+                             replace=False)
+        else:
+            t = time.perf_counter()
+            params = step.fit(selected_order, torch.as_tensor(
+                labels[selected_order], device=device))
+            result.fit_seconds.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            sel, remaining = step.select(params, used, remaining,
+                                         len(selected_order))
+            result.select_seconds.append(time.perf_counter() - t)
+
+        t = time.perf_counter()
+        labels[sel] = measure_fn([int(i) for i in sel])
+        result.measure_seconds.append(time.perf_counter() - t)
+        used_mask[sel] = True
+        used[torch.as_tensor(np.asarray(sel, np.int64), device=device)] = True
+        selected_order.extend(int(i) for i in sel)
+        result.phases = phase
+        note_best()
+        if verbose:
+            print(f"phase {phase}: +{len(sel)} measured "
+                  f"(total {int(used_mask.sum())}), "
+                  f"best label {result.best_label:.4f}")
+
+    result.n_measured = int(used_mask.sum())
     result.used_time = time.time() - t0
     result.selected_order = selected_order
     return result

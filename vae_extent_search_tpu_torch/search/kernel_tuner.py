@@ -1,0 +1,512 @@
+"""Self-tuning: the active search tunes the port's own CUDA kernels
+(counterpart of ``vae_extent_search_tpu/search/pallas_tuner.py``).
+
+- The candidate pool is the ordinary sketch-GA pool for a matmul or
+  conv2d task (``search/sketch.py``: the SSRSRS multi-level tilings Ansor
+  samples, sketch_policy.cc:96-151).
+- Each schedule's tile structure maps onto a block configuration of the
+  port's kernel, ``(bm, bn, bk)`` for ``ops/matmul.py`` and ``(boh, bco,
+  bci)`` for ``ops/conv2d.py`` (``state_to_matmul_config``,
+  ``state_to_conv_config``), snapped onto the kernel's Hopper lattice.
+- ``MatmulRunner`` and ``Conv2dRunner`` time that kernel on the card with
+  CUDA events: warm-up launches, then ``iters`` back-to-back launches
+  between two events with ``iters`` chosen so that the window reaches
+  ``target_ms``, the minimum over ``repeats`` windows. Operands stay the
+  same across launches, so at the benchmark shapes (which fit in the 50 MB
+  L2) the kernel runs warm, as on the TPU.
+
+Many states collapse onto one configuration; the runners time each novel
+configuration once and answer the rest from a cache (the reference's
+measured-state dedup, sketch_policy.cc:626-631). Before it times a
+configuration, a runner holds the kernel at that configuration against its
+plain version (relative error <= 2e-2), so that a configuration that
+computes the wrong thing (a template instance that skips work, say) cannot
+win the search. On a CUDA device a runner
+launches the kernel or raises; it never times the plain version or a
+library call in its place. ``time_fn`` replaces the timing (tests and the
+CPU stand-in, ``--fake-timer``).
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ir.state import AT_ROOT, State
+from ..ops import conv2d as oc
+from ..ops import matmul as om
+from ..records.serde import (
+    ERROR_BUILD_TIMEOUT,
+    ERROR_COMPILE_DEVICE,
+    ERROR_INSTANTIATION,
+    ERROR_NO_ERROR,
+    MAX_FLOAT,
+    MeasureResult,
+)
+from ..records.task import SearchTask
+from ..records.workload import decode_workload_key
+from .measure import Runner
+
+VERIFY_REL_TOL = 2e-2
+
+
+# ---------------------------------------------------------------------------
+# state -> block config
+# ---------------------------------------------------------------------------
+
+def state_loops(state: State) -> List[Tuple[str, int, int]]:
+    """(iterator name, extent, nest depth) in print order — the print
+    traversal of ir/state.py::_print_stage, including trivial (0,1) loops
+    so tile products are exact.  Depth counts every enclosing iterator
+    (the printed tree's nesting), so "descendants of loop at index p" is
+    exactly the run of following entries with depth > loops[p].depth."""
+    loops: List[Tuple[str, int, int]] = []
+
+    def visit(sid: int, base: int):
+        stage = state.stages[sid]
+        depth = base
+        for i, it in enumerate(stage.iters):
+            if it.range is not None and isinstance(it.range[1], int):
+                loops.append((it.name, it.range[1], depth))
+            depth += 1
+            attached = state.attach_map.iter_to_attached_stages.get((sid, i))
+            if attached:
+                for a_sid in attached:
+                    visit(a_sid, depth)
+
+    for sid, stage in enumerate(state.stages):
+        if stage.op_type == "placeholder":
+            continue
+        if stage.compute_at == AT_ROOT:
+            visit(sid, 0)
+    return loops
+
+
+def _roots(name: str) -> set:
+    # split names: "i.0"; fused names: "i.0@j.0@"; suffixed: "k.1"
+    return {part.split(".")[0] for part in name.split("@") if part}
+
+
+def state_to_matmul_config(
+    state: State, m_root: str = "i", n_root: str = "j", k_root: str = "k",
+) -> Tuple[Optional[Tuple[int, int, int]], Optional[str]]:
+    """Quotient a schedule onto ``(bm, bn, bk)``.
+
+    The cut is the outermost reduction loop: everything outside it is the
+    grid of blocks, everything inside is the block. For the canonical CPU
+    tiling i0 j0 i1 j1 k0 i2 j2 k1 i3 j3 (SSRSRS + reduce split,
+    sketch_policy.cc:96-104) this yields bm=i2*i3, bn=j2*j3, bk=k1 —
+    grid (i0*i1, j0*j1), K steps k0.  Degenerate schedules (no tiling) map
+    to degenerate configs; the runner measures or rejects them on merit.
+    """
+    loops = state_loops(state)
+    kpos = None
+    for idx, (name, _, _) in enumerate(loops):
+        if k_root in _roots(name):
+            kpos = idx
+            break
+    if kpos is None:
+        return None, "no reduction loop in the nest"
+    k_depth = loops[kpos][2]
+    bm = bn = bk = 1
+    saw_k_inner = False
+    for name, ext, depth in loops[kpos + 1:]:
+        if depth <= k_depth:
+            break  # left the outermost reduction loop's subtree
+        roots = _roots(name)
+        if m_root in roots:
+            bm *= ext
+        if n_root in roots:
+            bn *= ext
+        if k_root in roots:
+            bk *= ext
+            saw_k_inner = True
+    if not saw_k_inner:
+        # unsplit reduction: the single k loop IS the block's k extent
+        bk = loops[kpos][1]
+    return (bm, bn, bk), None
+
+
+def state_to_conv_config(
+    state: State,
+) -> Tuple[Optional[Tuple[int, int, int]], Optional[str]]:
+    """Quotient a conv2d_layer schedule onto ``(boh, bco, bci)``.
+
+    Same cut as the matmul quotient: the outermost reduction loop
+    (roots rc/ry/rx — records/workload_library.py:62-64) splits grid
+    from block.  Inside it, yy extents multiply into boh (spatial output
+    rows per block), ff into bco (output channels), rc into bci (input
+    channels).  xx (output width: the kernel always takes full OW rows)
+    and ry/rx (the kernel steps kh and kw inside the block) are quotiented
+    away — interleavings the implicit-GEMM kernel cannot express collapse
+    onto the same config, exactly like the matmul map.
+    """
+    reduce_roots = {"rc", "ry", "rx"}
+    loops = state_loops(state)
+    kpos = None
+    for idx, (name, _, _) in enumerate(loops):
+        if _roots(name) & reduce_roots:
+            kpos = idx
+            break
+    if kpos is None:
+        return None, "no reduction loop in the nest"
+    k_depth = loops[kpos][2]
+    boh = bco = bci = 1
+    saw_rc_inner = False
+    for name, ext, depth in loops[kpos + 1:]:
+        if depth <= k_depth:
+            break
+        roots = _roots(name)
+        if "yy" in roots:
+            boh *= ext
+        if "ff" in roots:
+            bco *= ext
+        if "rc" in roots:
+            bci *= ext
+            saw_rc_inner = True
+    if not saw_rc_inner and "rc" in _roots(loops[kpos][0]):
+        # unsplit channel reduction: the cut loop itself is rc
+        bci = loops[kpos][1]
+    return (boh, bco, bci), None
+
+
+# ---------------------------------------------------------------------------
+# timing on the card
+# ---------------------------------------------------------------------------
+
+def cuda_seconds(fn: Callable[[], object], target_ms: float, repeats: int,
+                 warmup: int = 2) -> float:
+    """Seconds per call of ``fn`` (which launches work on the current CUDA
+    stream): ``warmup`` calls, one timed call to size the window, then the
+    minimum over ``repeats`` windows of ``iters`` back-to-back calls
+    between two CUDA events, ``iters`` chosen so that a window lasts about
+    ``target_ms``."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def window(iters):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    est = window(1)
+    iters = max(1, math.ceil(target_ms / max(est, 1e-4)))
+    return min(window(iters) for _ in range(repeats)) / 1e3
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / (want.abs().max() + 1e-30))
+
+
+def _run_cached(runner, states: Sequence[State], *, to_raw, snap, valid,
+                time_cfg, shape_key: tuple, flops: float,
+                names: Tuple[str, ...]) -> List[MeasureResult]:
+    """Shared measure loop of the kernel runners: quotient each state onto
+    a snapped block config, memoize one timing per novel config (the
+    economics of the reference's measured-state dedup,
+    sketch_policy.cc:626-631)."""
+    out: List[MeasureResult] = []
+    for st in states:
+        now = time.time()
+        raw, _why = to_raw(st)
+        if raw is None:
+            out.append(MeasureResult([MAX_FLOAT], ERROR_INSTANTIATION,
+                                     0.0, now))
+            continue
+        cfg = snap(raw)
+        key = shape_key + cfg
+        res = runner.cache.get(key)
+        if res is None:
+            ok, _why = valid(cfg)
+            if not ok:
+                res = MeasureResult([MAX_FLOAT], ERROR_INSTANTIATION,
+                                    0.0, now)
+                runner.cache[key] = res
+        if res is None:
+            t0 = time.time()
+            try:
+                sec = time_cfg(cfg)
+                res = MeasureResult([sec], ERROR_NO_ERROR,
+                                    time.time() - t0, now)
+            except TimeoutError:
+                res = MeasureResult([MAX_FLOAT], ERROR_BUILD_TIMEOUT,
+                                    time.time() - t0, now)
+            except Exception as exc:
+                # a launch the kernel refused, a wrong result at the
+                # verification, or a device fault: the config is charged
+                # ERROR_COMPILE_DEVICE and the cause logged
+                first = str(exc).splitlines()[0] if str(exc) else ""
+                print(f"  config {cfg} FAILED "
+                      f"{type(exc).__name__}: {first[:200]}",
+                      file=sys.stderr)
+                res = MeasureResult([MAX_FLOAT], ERROR_COMPILE_DEVICE,
+                                    time.time() - t0, now)
+            runner.cache[key] = res
+            runner.n_timed += 1
+            runner.timing_seconds += time.time() - t0
+            if runner.verbose and res.error_no == ERROR_NO_ERROR:
+                gf = flops / res.costs[0] / 1e9
+                cfg_s = " ".join(f"{n}={v:<5d}" for n, v in zip(names, cfg))
+                print(f"  config {cfg_s} {res.costs[0]*1e3:8.3f} ms "
+                      f"{gf:10.1f} GFLOP/s")
+        out.append(res)
+    return out
+
+
+class _KernelRunner(Runner):
+    """What the matmul and conv2d runners share: options, the cache of
+    timed configs, the verification of each, and the timing itself."""
+
+    kernel: Callable = None      # the wrapper whose ``launches`` count
+    n_shape: int = 0             # length of a cache key's shape part
+
+    def __init__(self, dtype: str = "bfloat16", target_ms: float = 50.0,
+                 repeats: int = 3, max_seconds: float = 2.0,
+                 time_fn: Optional[Callable] = None, verbose: bool = False,
+                 device="cuda"):
+        if dtype not in om.DTYPES:
+            raise ValueError(f"dtype must be float32 or bfloat16: {dtype!r}")
+        self.dtype = dtype
+        self.target_ms = target_ms
+        self.repeats = repeats
+        self.max_seconds = max_seconds
+        self.time_fn = time_fn  # test hook: (shape..., config...) -> seconds
+        self.verbose = verbose
+        self.device = torch.device(device)
+        self.cache: Dict[tuple, MeasureResult] = {}
+        self.n_timed = 0
+        self.timing_seconds = 0.0
+        # kernel launches made while timing each config (verification
+        # launches not counted)
+        self.launches_per_config: Dict[tuple, int] = {}
+        # configs held against the plain version, and the largest relative
+        # error among them
+        self.n_verified = 0
+        self.verify_rel_err: Optional[float] = None
+        self._operands = {}
+        self._plain_out = {}
+
+    def _time_launches(self, shape: tuple, cfg,
+                       call: Callable[[], torch.Tensor],
+                       plain: Callable[[], torch.Tensor]) -> float:
+        """Hold ``call`` (the kernel at ``cfg``) against the plain version
+        on the operands of ``shape``, then time it."""
+        got = call()
+        torch.cuda.synchronize(self.device)
+        want = self._plain_out.get(shape)
+        if want is None:
+            want = self._plain_out[shape] = plain()
+        err = _rel_err(got, want)
+        if not err <= VERIFY_REL_TOL:
+            raise RuntimeError(f"kernel numerics off: rel err {err:g}")
+        self.n_verified += 1
+        self.verify_rel_err = max(err, self.verify_rel_err or 0.0)
+        before = type(self).kernel.launches
+        sec = cuda_seconds(call, self.target_ms, self.repeats)
+        self.launches_per_config[cfg] = type(self).kernel.launches - before
+        return sec
+
+    def _check_device(self):
+        if self.time_fn is None and self.device.type != "cuda":
+            raise ValueError("timing a kernel needs a CUDA device; pass "
+                             "time_fn (the --fake-timer stand-in) on the CPU")
+
+    def measured_configs(self) -> List[Tuple[Tuple[int, ...], float, int]]:
+        """(config, seconds, error_no) per distinct measured config."""
+        return [(k[self.n_shape:], r.costs[0], r.error_no)
+                for k, r in self.cache.items()]
+
+
+class MatmulRunner(_KernelRunner):
+    """Times the port's CUDA matmul (``ops/matmul.py``) on the card at the
+    block config each schedule maps onto. Costs are seconds per kernel
+    call, so records written through RecordToFile replay like any other
+    measurement log."""
+
+    kernel = om.matmul
+    n_shape = 3
+
+    @staticmethod
+    def task_dims(task: SearchTask) -> Tuple[int, int, int]:
+        """(M, N, K) in matmul terms from the workload key.
+        matmul_auto_scheduler_test(N, M, K): A=(N,K) B=(K,M) C=(N,M),
+        i over N(arg0), j over M(arg1) (workload_library.py) — so the
+        kernel's M=args[0], N=args[1], K=args[2]."""
+        name, args = decode_workload_key(task.workload_key)
+        if "matmul" not in name:
+            raise ValueError(
+                f"MatmulRunner needs a matmul workload, got {name!r}")
+        return int(args[0]), int(args[1]), int(args[2])
+
+    def operands(self, M: int, N: int, K: int):
+        """A [M, K] and B [K, N], standard normal from numpy seed 0, in
+        the runner's dtype on its device (made once per shape)."""
+        key = (M, N, K)
+        ops = self._operands.get(key)
+        if ops is None:
+            rng = np.random.default_rng(0)
+            dt = om.DTYPES[self.dtype][0]
+            ops = self._operands[key] = tuple(
+                torch.as_tensor(rng.standard_normal(s, np.float32)).to(
+                    self.device, dt) for s in ((M, K), (K, N)))
+        return ops
+
+    def _time_config(self, M: int, N: int, K: int,
+                     bm: int, bn: int, bk: int) -> float:
+        """Seconds per kernel call (raises on a failed launch)."""
+        if self.time_fn is not None:
+            return float(self.time_fn(M, N, K, bm, bn, bk))
+        est = om.predicted_seconds(M, N, K, bm, bn, bk, self.dtype)
+        if est > self.max_seconds:
+            raise TimeoutError(
+                f"predicted {est:.2f}s/call exceeds --max-seconds "
+                f"{self.max_seconds:g}")
+        a, b = self.operands(M, N, K)
+        return self._time_launches(
+            (M, N, K), (bm, bn, bk), lambda: om.matmul(a, b, bm, bn, bk),
+            lambda: om.matmul_plain(a, b))
+
+    def run(self, task: SearchTask, states: Sequence[State]
+            ) -> List[MeasureResult]:
+        M, N, K = self.task_dims(task)
+        self._check_device()
+        return _run_cached(
+            self, states,
+            to_raw=state_to_matmul_config,
+            snap=lambda raw: om.snap_config_to_hw(M, N, K, *raw,
+                                                  dtype=self.dtype),
+            valid=lambda cfg: om.config_is_valid(M, N, K, *cfg,
+                                                 dtype=self.dtype),
+            time_cfg=lambda cfg: self._time_config(M, N, K, *cfg),
+            shape_key=(M, N, K),
+            flops=2.0 * M * N * K,
+            names=("bm", "bn", "bk"),
+        )
+
+
+class Conv2dRunner(_KernelRunner):
+    """Times the port's CUDA conv2d + bias + ReLU (``ops/conv2d.py``) on the
+    card: conv2d_layer schedules (records/workload_library.py:141, the
+    reference's flagship tutorial workload) quotient onto its block
+    configs."""
+
+    kernel = oc.conv2d
+    n_shape = 9
+
+    @staticmethod
+    def task_params(task: SearchTask) -> Tuple[int, ...]:
+        """(N, H, W, CO, CI, KH, KW, stride, pad) from the workload key
+        (conv2d_layer arg order, workload_library.py:141)."""
+        name, args = decode_workload_key(task.workload_key)
+        if "conv2d_layer" not in name:
+            raise ValueError(
+                f"Conv2dRunner needs a conv2d_layer workload, got {name!r}")
+        N, H, W, CO, CI, KH, KW, stride, pad = args[:9]
+
+        def scalar(v):
+            return int(v[0]) if isinstance(v, (list, tuple)) else int(v)
+
+        return (int(N), int(H), int(W), int(CO), int(CI), int(KH),
+                int(KW), scalar(stride), scalar(pad))
+
+    def operands(self, N, H, W, CO, CI, KH, KW):
+        """x [N, H, W, CI], w [KH, KW, CI, CO] in the runner's dtype and
+        bias [CO] (rounded to it, kept as float32), standard normal from
+        numpy seed 0, on its device (made once per shape)."""
+        key = (N, H, W, CO, CI, KH, KW)
+        ops = self._operands.get(key)
+        if ops is None:
+            rng = np.random.default_rng(0)
+            dt = om.DTYPES[self.dtype][0]
+            x, w, bias = (
+                torch.as_tensor(rng.standard_normal(s, np.float32)).to(
+                    self.device, dt)
+                for s in ((N, H, W, CI), (KH, KW, CI, CO), (CO,)))
+            ops = self._operands[key] = (x, w, bias.float())
+        return ops
+
+    def _time_config(self, params: Tuple[int, ...],
+                     boh: int, bco: int, bci: int) -> float:
+        if self.time_fn is not None:
+            return float(self.time_fn(*params, boh, bco, bci))
+        N, H, W, CO, CI, KH, KW, stride, pad = params
+        est = oc.predicted_conv_seconds(*params, boh, bco, bci, self.dtype)
+        if est > self.max_seconds:
+            raise TimeoutError(
+                f"predicted {est:.2f}s/call exceeds --max-seconds "
+                f"{self.max_seconds:g}")
+        x, w, bias = self.operands(N, H, W, CO, CI, KH, KW)
+        return self._time_launches(
+            params, (boh, bco, bci),
+            lambda: oc.conv2d(x, w, bias, pad, boh, bco, bci),
+            lambda: oc.conv2d_plain(x, w, bias, pad))
+
+    def run(self, task: SearchTask, states: Sequence[State]
+            ) -> List[MeasureResult]:
+        params = self.task_params(task)
+        self._check_device()
+        N, H, W, CO, CI, KH, KW, stride, pad = params
+        OH = oc.conv_out_size(H, KH, stride, pad)
+        OW = oc.conv_out_size(W, KW, stride, pad)
+        return _run_cached(
+            self, states,
+            to_raw=state_to_conv_config,
+            snap=lambda raw: oc.snap_conv_config_to_hw(*params, *raw,
+                                                       dtype=self.dtype),
+            valid=lambda cfg: oc.conv_config_is_valid(*params, *cfg,
+                                                      dtype=self.dtype),
+            time_cfg=lambda cfg: self._time_config(params, *cfg),
+            shape_key=params,
+            flops=2.0 * N * OH * OW * CO * KH * KW * CI,
+            names=("boh", "bco", "bci"),
+        )
+
+
+# ---------------------------------------------------------------------------
+# the library yardsticks (printed beside the tuned kernel, never tuned)
+# ---------------------------------------------------------------------------
+
+def time_library_matmul(M: int, N: int, K: int, dtype: str = "bfloat16",
+                        target_ms: float = 50.0, repeats: int = 3,
+                        device="cuda") -> float:
+    """Seconds per ``torch.matmul`` (cuBLAS) at the same shapes and input
+    dtype, on the same operands as the runner and with the same timing —
+    the line the tuned kernel is judged against. cuBLAS accumulates in
+    float32 but writes its result in the input dtype (bf16: half the
+    kernel's output bytes)."""
+    a, b = MatmulRunner(dtype, device=device).operands(M, N, K)
+    return cuda_seconds(lambda: torch.matmul(a, b), target_ms, repeats)
+
+
+def time_library_conv2d(N: int, H: int, W: int, CO: int, CI: int,
+                        KH: int, KW: int, stride: int, pad: int,
+                        dtype: str = "bfloat16", target_ms: float = 50.0,
+                        repeats: int = 3, device="cuda") -> float:
+    """Seconds per cuDNN convolution (``F.conv2d`` on channels-last
+    tensors, TF32 off) + bias + ReLU at the same shapes and dtype, on the
+    same operands as the runner and with the same timing."""
+    import torch.nn.functional as F
+
+    x, w, bias = Conv2dRunner(dtype, device=device).operands(
+        N, H, W, CO, CI, KH, KW)
+    xn = x.permute(0, 3, 1, 2)                       # NHWC memory, NCHW view
+    wn = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bn = bias.to(x.dtype)
+
+    def call():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return torch.relu(F.conv2d(xn, wn, bn, stride=stride,
+                                       padding=pad))
+
+    return cuda_seconds(call, target_ms, repeats)
