@@ -47,6 +47,45 @@ def np_vae_params(rng, input_dim, latent_dim, hidden_dim):
     }
 
 
+def np_segment_trunk(rng, in_dim, hidden_dim, latent_dim):
+    return {
+        "segment_encoder": np_mlp(rng, [in_dim, hidden_dim, hidden_dim]),
+        "l0": np_mlp(rng, [hidden_dim, hidden_dim]),
+        "l1": np_mlp(rng, [hidden_dim, hidden_dim]),
+        "fc_mean": np_dense(rng, hidden_dim, latent_dim),
+        "fc_logvar": np_dense(rng, hidden_dim, latent_dim),
+    }
+
+
+def np_segment_mlp_params(rng, in_dim, hidden_dim):
+    return {
+        "segment_encoder": np_mlp(rng, [in_dim, hidden_dim, hidden_dim]),
+        "l0": np_mlp(rng, [hidden_dim, hidden_dim]),
+        "l1": np_mlp(rng, [hidden_dim, hidden_dim]),
+        "decoder": np_dense(rng, hidden_dim, 1),
+    }
+
+
+def np_segment_vae_params(rng, in_dim, hidden_dim, latent_dim):
+    p = np_segment_trunk(rng, in_dim, hidden_dim, latent_dim)
+    p["decoder"] = np_mlp(rng, [latent_dim] + [hidden_dim] * 3)
+    return p
+
+
+def np_segment_predictor_params(rng, in_dim, hidden_dim, latent_dim,
+                                predictor_hidden):
+    p = np_segment_trunk(rng, in_dim, hidden_dim, latent_dim)
+    p["cost_predictor"] = np_mlp(
+        rng, [latent_dim, predictor_hidden, predictor_hidden, 1])
+    return p
+
+
+def ragged_programs(rng, n, dim, lo=1, hi=8, scale=1.0):
+    """n ragged [rows_i, dim] float32 feature arrays, lo <= rows_i < hi."""
+    return [(rng.random((int(rng.integers(lo, hi)), dim)) * scale
+             ).astype(np.float32) for _ in range(n)]
+
+
 def to_jax(tree):
     return tree_map(jnp.asarray, tree)
 

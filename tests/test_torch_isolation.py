@@ -33,9 +33,11 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "records.workload_library", "records.task", "records.serde",
          "features.extent", "search.sketch", "search.measure",
          "search.kernel_tuner", "ops.matmul", "ops.conv2d",
-         "cli.tune_kernel"}}
+         "cli.tune_kernel", "ops.segment_sum", "models.segment",
+         "models.embedding", "features.per_store", "data.dataset",
+         "cli.make_dataset", "cli.train_model", "cli.eval_model_on_dataset"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 45, (missing, mods)
+assert not missing and len(mods) >= 53, (missing, mods)
 """
 
 

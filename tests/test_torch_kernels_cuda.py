@@ -1,6 +1,7 @@
 """The CUDA kernels of the PyTorch port (the fused cost head, the GBDT
-histograms, and the self-tuning targets matmul and conv2d) against their
-plain torch versions, on the card. These tests need an NVIDIA GPU and nvcc; where
+histograms, the self-tuning targets matmul and conv2d, and the ragged
+segment sum with its gradient) against their plain torch versions, on the
+card. These tests need an NVIDIA GPU and nvcc; where
 there is none they skip. They import neither jax nor the JAX package,
 so they also run on a machine that has only torch:
 
@@ -18,6 +19,7 @@ from vae_extent_search_tpu_torch.ops import conv2d as oc
 from vae_extent_search_tpu_torch.ops import fused_head as fh
 from vae_extent_search_tpu_torch.ops import hist as th
 from vae_extent_search_tpu_torch.ops import matmul as om
+from vae_extent_search_tpu_torch.ops import segment_sum as tss
 
 pytestmark = pytest.mark.cuda
 
@@ -303,3 +305,107 @@ def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
         with pytest.raises(ValueError, match="invalid conv2d config"):
             oc.conv2d(x, w, b, 1, *cfg)
     assert oc.conv2d.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the ragged segment sum, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _segments(rng, counts, H, pad_rows, dev, dtype=torch.float32):
+    counts = np.asarray(counts)
+    n_seg = len(counts)
+    ids = np.concatenate([np.repeat(np.arange(n_seg), counts),
+                          np.full(pad_rows, n_seg)]).astype(np.int32)
+    feats = rng.standard_normal((len(ids), H)).astype(np.float32)
+    offs = tss.segment_ids_to_offsets(ids, n_seg)
+    return (torch.as_tensor(feats, device=dev).to(dtype),
+            torch.as_tensor(ids, device=dev), torch.as_tensor(offs, device=dev),
+            n_seg)
+
+
+SEG_CASES = {
+    # the JAX docstring's shape: [32768, 256], spans 1-32
+    "docstring_32k_x_256": lambda r: (r.integers(1, 33, 2048), 256, 0),
+    "h164_odd_rows": lambda r: (r.integers(1, 24, 513), 164, 7),
+    "h174_padding": lambda r: (r.integers(4, 24, 512), 174, 301),
+    "empty_start_middle_end": lambda r: ([0, 0, 3, 0, 0, 9, 1, 0], 40, 5),
+    "one_long_segment": lambda r: ([5000], 256, 0),
+    "h1": lambda r: (r.integers(0, 5, 100), 1, 2),
+}
+
+
+# f32 sums of a segment's rows in another order than index_add_: a few
+# 1e-7 of max |out| per 32 rows, ~1e-6 for the 5,000-row segment
+@pytest.mark.parametrize("case", SEG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernels_match_plain(dev, case, dtype):
+    rng = np.random.default_rng(5)
+    counts, H, pad = SEG_CASES[case](rng)
+    x, ids, offs, n_seg = _segments(rng, counts, H, pad, dev, dtype)
+    x.requires_grad_(True)
+    f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
+    out = tss.segment_sum(x, offs)
+    again = tss.segment_sum(x.detach(), offs)
+    w = torch.randn(n_seg, H, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert tss.segment_sum.launches == f0 + 2
+    assert tss.segment_sum.backward_launches == b0 + 1
+    assert out.shape == (n_seg, H) and out.dtype == torch.float32
+    assert torch.equal(out.detach(), again)     # no atomics: same bits
+    ref = tss.segment_sum_plain(x.detach().double(), ids, n_seg)
+    tol = 1e-5 if case == "one_long_segment" else 2e-6
+    assert _rel(out.detach().double(), ref) < tol
+    # the backward is a copy (rounded to bf16 where the input is bf16)
+    gref = tss.segment_sum_grad_plain(w, ids, n_seg).to(dtype)
+    assert x.grad.dtype == dtype and torch.equal(x.grad, gref)
+    if pad:
+        assert not x.grad[-pad:].any()
+
+
+def test_segment_sum_model_step_goes_through_both_kernels(dev):
+    """One training step of the per-store MLP on the card equals the same
+    step on the CPU (plain versions) within float32 summation order. (The
+    rmse loss: under a rank loss the decoder bias has a zero gradient, and
+    Adam turns its rounding noise into steps that differ by device.)"""
+    from vae_extent_search_tpu_torch.models import segment as ts
+
+    rng = np.random.default_rng(6)
+    feats = [rng.random((int(rng.integers(1, 9)), 20)).astype(np.float32)
+             for _ in range(100)]
+    y = rng.random(100).astype(np.float32)
+    preds = {}
+    for device in ("cpu", dev):
+        m = ts.MLPModelInternal(in_dim=20, hidden_dim=32, batch_size=64,
+                                n_epoch=2, loss_type="rmse",
+                                device=str(device))
+        m.params = ts.init_segment_mlp_params(np.random.default_rng(0), 20,
+                                              32, device=device)
+        f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
+        m.fit_base(feats, y)
+        steps, ev = m.fit_info["steps"], m.fit_info["epochs"]
+        if device != "cpu":
+            assert tss.segment_sum.backward_launches - b0 == steps == 4
+            assert tss.segment_sum.launches - f0 == steps + ev
+        else:
+            assert tss.segment_sum.launches == f0
+        preds[str(device)] = m.predict_on_features(feats)
+    assert np.allclose(preds["cpu"], preds[str(dev)], rtol=1e-3, atol=1e-4)
+
+
+def test_segment_sum_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(6, 4, device=dev)
+    offs = torch.tensor([0, 3, 6], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tss.segment_sum(x.double(), offs)
+    with pytest.raises(ValueError):
+        tss.segment_sum(x, offs.cpu())
+    with pytest.raises(ValueError):
+        tss.segment_sum(x, offs.long())
+    # a strided view is made contiguous by the wrapper, not refused
+    wide = torch.randn(6, 8, device=dev)
+    got = tss.segment_sum(wide[:, ::2], offs)
+    assert torch.allclose(got, tss.segment_sum(wide[:, ::2].contiguous(), offs))
+    assert tss.segment_sum(x, offs[:1]).shape == (0, 4)

@@ -3,8 +3,9 @@
 encoder arms and the ``gbdt`` tree-model baseline arm).
 
 Loads a featurized candidate pool (``--pool``, an npz) or featurises a
-record log (``--record-file``: each record replayed, its extent vector and
--log(mean cost), as ``scripts/vae_extent_search.py`` does). The ``vae``
+record log (``--record-file``: each record replayed, its extent vector, or
+with ``--features per_store`` its flattened per-store rows, and -log(mean
+cost), as ``scripts/vae_extent_search.py`` does). The ``vae``
 arm pretrains the pool VAE once, then runs the active search for each
 sampling seed until the recorded-optimal schedule is found; it writes a
 per-run CSV and appends the seed average to ``vae_extent_total_avg.csv``.
@@ -38,11 +39,15 @@ from ..search.active_loop import (
 from ..search.select import SelectionConfig
 
 
-def _load(pool=None, record_file=None):
+def _load(pool=None, record_file=None, features="extent"):
     if record_file is not None:
         if pool is not None:
             raise ValueError("pass a pool or a record file, not both")
-        return pool_from_records(record_file)
+        return pool_from_records(record_file, features)
+    if features != "extent":
+        raise ValueError(f"--features {features} featurises a record log: "
+                         "pass --record-file (a pool npz holds its features "
+                         "already)")
     return load_pool(pool)
 
 
@@ -51,12 +56,12 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
                    rand_num=0, uncertainty_topk=128, max_phases=60,
                    vae_epochs=500, reg_epochs=1000, latent_dim=64,
                    hidden_dim=256, verbose=False, encoder_mode="vae",
-                   device="cuda", record_file=None):
+                   device="cuda", record_file=None, features="extent"):
     """Run the search for every seed in ``seeds`` on the pool at ``pool``
     (an npz of features/labels; default: the committed conv2d pool) or on
-    the featurised ``record_file``. Returns (per-seed rows, seed-average
-    row)."""
-    feats, labels, _ = _load(pool, record_file)
+    ``record_file`` featurised as ``features`` ("extent" or "per_store").
+    Returns (per-seed rows, seed-average row)."""
+    feats, labels, _ = _load(pool, record_file, features)
     print(f"pool: {feats.shape[0]} candidates x {feats.shape[1]} features")
     os.makedirs(out_dir, exist_ok=True)
     tag = time.strftime("%m%d_%H%M")
@@ -135,11 +140,12 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
 
 def run_gbdt_arm(pool=None, out_dir="result", measure_size=64, seeds=(2000,),
                  max_phases=60, engine="auto", device="cuda",
-                 record_file=None):
+                 record_file=None, features="extent"):
     """The tree-model baseline arm (reference result_xgb corpus) on the
-    pool at ``pool`` (default: the committed conv2d pool) or on the
-    featurised ``record_file``. Returns the per-seed rows."""
-    feats, labels, _ = _load(pool, record_file)
+    pool at ``pool`` (default: the committed conv2d pool) or on
+    ``record_file`` featurised as ``features``. Returns the per-seed
+    rows."""
+    feats, labels, _ = _load(pool, record_file, features)
     os.makedirs(out_dir, exist_ok=True)
     rows = []
     for seed in seeds:
@@ -176,6 +182,11 @@ def main(argv=None):
     p.add_argument("--record-file", type=str, default=None,
                    help="a record log (NDJSON, or .gz) to featurise "
                         "instead of --pool")
+    p.add_argument("--features", type=str, default="extent",
+                   choices=["extent", "per_store"],
+                   help="model input featurised from --record-file: "
+                        "printed-extent vectors (the reference experiment) "
+                        "or flattened 164-dim per-store feature rows")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--out-dir", type=str, default="result")
@@ -206,7 +217,8 @@ def main(argv=None):
     if args.arm == "gbdt":
         run_gbdt_arm(args.pool, args.out_dir, args.measure_size,
                      tuple(args.seeds), args.max_phases, engine=args.engine,
-                     device=args.device, record_file=args.record_file)
+                     device=args.device, record_file=args.record_file,
+                     features=args.features)
         return
     run_experiment(
         args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
@@ -215,7 +227,7 @@ def main(argv=None):
         vae_epochs=args.vae_epochs, reg_epochs=args.reg_epochs,
         latent_dim=args.latent_dim, hidden_dim=args.hidden_dim,
         verbose=args.verbose, encoder_mode=args.encoder, device=args.device,
-        record_file=args.record_file)
+        record_file=args.record_file, features=args.features)
 
 
 if __name__ == "__main__":

@@ -19,16 +19,27 @@ import numpy as np
 DEFAULT_POOL = Path(__file__).resolve().parent / "pool_conv2d_4k_extent.npz"
 
 
-def pool_from_records(record_file) -> Tuple[np.ndarray, np.ndarray,
-                                           np.ndarray]:
+def pool_from_records(record_file, features: str = "extent"
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(features, labels, kept) of a record log (NDJSON, or gzip-compressed
-    as ``*.gz``): each error-free record replayed and bound, its extent
-    vector, -log(mean cost), the modal-length bucket."""
-    from ..features.extent import extent_features_from_records
+    as ``*.gz``): each error-free record replayed and bound, -log(mean
+    cost), the modal-length bucket. ``features``: "extent", the printed
+    extent vector, or "per_store", the record's 164-dim per-store rows
+    flattened row-major (the input-mode ablation of the reference's design
+    lineage)."""
     from ..records.serde import load_records
 
-    feats, labels, kept = extent_features_from_records(
-        load_records(str(record_file)))
+    records = load_records(str(record_file))
+    if features == "per_store":
+        from ..features.per_store import perstore_features_from_records
+
+        feats, labels, kept = perstore_features_from_records(records)
+    elif features == "extent":
+        from ..features.extent import extent_features_from_records
+
+        feats, labels, kept = extent_features_from_records(records)
+    else:
+        raise ValueError(f"unknown features {features!r}")
     return feats, labels, np.asarray(kept, np.int64)
 
 

@@ -6,6 +6,7 @@ exactly that, or an error.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def make_generator(seed: int, stream: int, device) -> torch.Generator:
+    """An explicit torch Generator on ``device`` for stream ``stream`` of
+    ``seed``; distinct streams of one seed are independent."""
+    s = np.random.SeedSequence([int(seed), stream]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))

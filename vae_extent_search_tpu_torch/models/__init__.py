@@ -1,1 +1,28 @@
-"""Model layers of the port: dense MLPs, the VAE, the cost predictor."""
+"""Model layers of the port: dense MLPs, the VAE, the cost predictor, the
+GBDT cost models and the per-store segment models."""
+
+
+def load_model_pickle(path: str, device="cuda"):
+    """Load ANY saved cost-model internal by sniffing the pickle blob: the
+    eval scripts take a model file of whatever family train_model
+    produced. Tree internals pickle themselves; the segment models save
+    dict blobs distinguished by their keys (the JAX package's layout, so
+    its MLP and SegmentVAE pickles load here too) and are placed on
+    ``device``."""
+    import pickle
+
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if not isinstance(blob, dict):
+        return blob                    # pickled internal (GBDT/LGB)
+    if "vae_params" in blob:
+        from .segment import SegmentVAEModelInternal
+
+        return SegmentVAEModelInternal.load(path, device=device)
+    if "arch" in blob:
+        raise NotImplementedError(
+            "the lstm/mha/tabnet sequence models (models/variants.py) are "
+            "not ported yet")
+    from .segment import MLPModelInternal
+
+    return MLPModelInternal.load(path, device=device)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import functools
 import pickle
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -64,7 +64,11 @@ class GBDTModelInternal:
 
     def __init__(self, max_depth: int = 6, learning_rate: float = 0.2,
                  n_estimators: int = 300, seed: int = 43,
-                 backend: str = "auto", engine: str = "auto", device="cuda"):
+                 backend: str = "auto", engine: str = "auto", device="cuda",
+                 in_dim: Optional[int] = None):
+        # in_dim is accepted and unused (trees take any width), so that
+        # the few-shot harness (models/segment.py few_shot_fit) drives this
+        # model through the same modes as the MLP
         if backend not in ("auto", "xgb", "lgb", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         if engine not in ("auto", "device", "host"):
@@ -172,6 +176,53 @@ class GBDTModelInternal:
     def load(cls, path: str):
         with open(path, "rb") as f:
             return pickle.load(f)
+
+
+class LGBModelInternal(GBDTModelInternal):
+    """LightGBM-semantics variant (reference cost_model/lgbm_model.py):
+    the same pack_sum_square_error objective + fevals as the xgb model
+    (lgbm_model.py:246-247) but with lightgbm's tree grower, best-first
+    leaf-wise growth capped by num_leaves, per-tree feature_fraction and
+    bagging, and the reference's tuned params (lgbm_model.py:250-258:
+    num_leaves 72, lr 0.1632095, feature_fraction 0.84375, bagging
+    0.89435/freq 4, min_sum_hessian_in_leaf 4). It grows on the in-repo
+    booster's leaf-wise grower (models/boost.py _grow_tree_leafwise), which
+    runs on the host on either engine: the device engine hands such a fit
+    to it."""
+
+    def __init__(self, params: Optional[dict] = None, **kw):
+        # `params` mirrors the reference's tunable-params constructor
+        # (lgbm_model.py LGBModelInternal(params=...)): lightgbm-named
+        # keys override the tuned defaults below
+        self._params_override = dict(params or {})
+        self._explicit_depth = "max_depth" in self._params_override
+        for k in ("learning_rate", "max_depth", "n_estimators"):
+            if k in self._params_override:
+                kw[k] = self._params_override.pop(k)
+        self._params_override.pop("boosting_type", None)  # always gbdt
+        kw.setdefault("backend", "lgb")
+        kw.setdefault("learning_rate", 0.1632095)
+        super().__init__(**kw)
+
+    def _native_params(self) -> dict:
+        p = {
+            "grow_policy": "lossguide",
+            "num_leaves": 72,
+            "eta": self.learning_rate,
+            "feature_fraction": 0.84375,
+            "bagging_fraction": 0.89435,
+            "bagging_freq": 4,
+            "min_child_weight": 4,  # min_sum_hessian_in_leaf
+            "seed": self.seed,
+        }
+        if self._explicit_depth:
+            # absent key = unlimited depth (lightgbm's default); only an
+            # explicit user override caps the leaf-wise grower
+            p["max_depth"] = self.max_depth
+        rename = {"min_sum_hessian_in_leaf": "min_child_weight"}
+        for k, v in self._params_override.items():
+            p[rename.get(k, k)] = v
+        return p
 
 
 class RandomModelInternal:

@@ -27,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import make_generator, resolve_device
 from ..models.gbdt import GBDTModelInternal
 from ..models.metrics import metric_r_squared, recall_at_k
 from ..models.predictor import (
@@ -42,14 +42,6 @@ from .select import SelectionConfig, select_programs
 
 # Generator streams derived from one seed (numpy SeedSequence spawn keys)
 _VAE_STREAM, _PHASE_STREAM, _SELECT_STREAM = 0, 1, 2
-
-
-def make_generator(seed: int, stream: int, device) -> torch.Generator:
-    """An explicit torch Generator on ``device`` for stream ``stream`` of
-    ``seed``; distinct streams of one seed are independent."""
-    s = np.random.SeedSequence([int(seed), stream]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(s))
 
 
 def standardize(X: np.ndarray):
