@@ -5,7 +5,9 @@
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
      five kernels from csrc/ for sm_90a, one nvcc per source, started
-     together
+     together; cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
+     instance and HMMA (mma.sync) in every bf16 conv2d instance, and
+     neither in the f32 instances
   2. kernel vs plain torch version with injected dropout bits, at the
      main path's shape (the committed pool: N=773, D=17) and at the bench
      shape (N=262,144, D=24, H=256, L=64, T=10, rate 0.1), float32 and
@@ -45,22 +47,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
      every phase must have grown its 100 trees through the kernel; at each
      level, the first phase's launch whose rows lie in the most nodes is
      held against the plain version as in phase 7
- 11. the matmul kernel (csrc/matmul.cu) vs its plain version at lattice
-     configs of 1536^3 and of odd shapes, among them a non-square tile and
-     one whose bk is the whole K, in float32 (rel tol 1e-5) and bfloat16
-     (rel 1e-5 against the f32 plain version of the same bf16 inputs); two
-     launches bit-identical; the plain version's time beside the bound at
-     1536^3 bf16 (the kernel's and cuBLAS's come from phase 13)
- 12. the same for the conv2d kernel (csrc/conv2d.cu) at the JAX tests'
-     shapes and at 1 x 56 x 56 x 256 -> 256, 3 x 3, pad 1
+ 11. the matmul kernels (csrc/matmul.cu) vs their plain version: every
+     template instance the library lists (each bf16 wgmma instance at each
+     bk on a shape no tile divides, each f32 thread micro-tile), lattice
+     configs of 1536^3 and of odd shapes, in float32 (rel tol 1e-5) and
+     bfloat16 (rel 1e-5 against the f32 plain version of the same bf16
+     inputs); two launches bit-identical; A = identity gives C == B exactly
+     at every bf16 instance; the plain version's time beside the bound at
+     1536^3 bf16 (the kernel's and cuBLAS's come from phase 13), and the f32
+     CUDA-core kernel at 1536^3 at a few configs beside torch.matmul in f32
+ 12. the same for the conv2d kernels (csrc/conv2d.cu): every bf16 mma.sync
+     warp tile and every f32 micro-tile, the JAX tests' shapes and 1 x 56 x
+     56 x 256 -> 256, 3 x 3, pad 1, ragged edges (boh, bco, bci not
+     dividing OH, CO, CI) and the element-load path (CI not a multiple of 8)
  13. self-tuning end to end: cli.tune_kernel on the matmul at the JAX
      defaults (1536^3 bf16, 1,000 candidates, measure size 16, 6 phases,
      VAE 500 epochs, predictor 1000 epochs), --arm model then --arm
      random; every timed config went through the kernel (its launch count
      grew), none failed to launch, the record log holds every measured
-     state; the best config against cuBLAS
+     state; the best config against cuBLAS. Kernel and library times are
+     device times (search/kernel_tuner.py::cuda_seconds: the calls queued
+     behind a blocking product), the host's ms per call beside. Then a
+     sweep of the bf16 lattice at 1536^3 (every (bm, bn) at bk 64), each
+     config checked and timed the same way: the lattice's fastest config
+     beside the tuned one
  14. the same for conv2d at 1 x 56 x 56 x 256 -> 256, 3 x 3, pad 1, bf16,
-     against cuDNN
+     against cuDNN; its sweep takes the grid CONV_SWEEP
  15. the segment-sum kernels (csrc/segment_sum.cu), forward and backward,
      vs their plain versions: the forward against the plain version in
      float64 (within 2e-6 of max |out| for segments of up to 36 rows, 2e-5
@@ -74,9 +86,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
  16. segment-sum times with CUDA events, forward and backward, at the
      training batch, [32,768, 256] and 1,000,000 x 256, beside the byte
      bound, the plain version and the library calls torch.segment_reduce
-     and index_add_; the launches are enqueued behind a long matrix
-     product, because the host takes longer to enqueue one than the card
-     to run it (that host time is printed beside)
+     and index_add_, all by the tuner's card timer (phase 13), because the
+     host takes longer to enqueue one than the card to run it (that host
+     time is printed beside)
  17. cost-model training end to end on committed records: cli.make_dataset
      on result/corpus/resnet_50-B1-llvm.json (2,528 records, 26 tasks),
      cli.train_model --models mlp,random (lambdaRank, hidden 256, batch
@@ -147,6 +159,24 @@ def log(*a):
     print(*a, flush=True)
 
 
+def sass_functions(library):
+    """{kernel name: its SASS lines} of a built library, by cuobjdump from
+    the toolkit that built it."""
+    from vae_extent_search_tpu_torch.ops.build import _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
 def peaks_for(name):
     for key, val in PEAKS.items():
         if key in name:
@@ -201,35 +231,17 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, iters, blocker_ms=None):
-    """Device time of one ``fn()`` where a call takes the host longer to
-    enqueue than the device to run (a few microseconds of kernel): the
-    launches are enqueued behind a long matrix product, so that they all
-    wait in the stream when the first event fires and the events see the
-    device's time alone. Returns (ms per call, host ms per call to enqueue);
-    raises if the host was not done enqueueing when the product ended."""
-    for _ in range(3):
-        fn()
-    a = torch.empty(8192, 8192, device="cuda")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    mid = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.matmul(a, a)
-    torch.matmul(a, a)
-    mid.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    blocked = start.elapsed_time(mid)
-    if host_ms >= blocked:
-        raise RuntimeError(f"enqueueing {iters} calls took {host_ms:.2f} ms, "
-                           f"the blocking products {blocked:.2f} ms")
-    return mid.elapsed_time(end) / iters, host_ms / iters
+def card_ms(fn, target_ms=10.0):
+    """(device ms, host ms) per call of ``fn``, by the tuner's card timer
+    (search/kernel_tuner.py::cuda_seconds): the calls are enqueued behind a
+    blocking matrix product, so that they all wait in the stream when the
+    first event fires and the events see the device's time alone, however
+    long the host takes to enqueue one; it raises if the host was still
+    enqueueing when the product ended."""
+    from vae_extent_search_tpu_torch.search.kernel_tuner import cuda_seconds
+
+    t = cuda_seconds(fn, target_ms)
+    return t.seconds * 1e3, t.host_seconds * 1e3
 
 
 # the pretraining shape of the GBDT slice (tools/chip_boost_bench.py):
@@ -557,42 +569,82 @@ TUNE_ARGS = ["--n-candidates", "1000", "--measure-size", "16",
 # bf16-rounded inputs, so again only the order of the f32 sums differs (a
 # kernel that rounded its output to bf16 would be off by about 2^-9)
 GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+# float32 CUDA-core configs timed at the tuning shapes (PR 3's best bf16
+# tiles and their neighbours on the f32 lattice)
+MM_F32_CONFIGS = ((96, 64, 16), (128, 64, 16), (64, 128, 8), (128, 128, 8))
+CONV_F32_CONFIGS = ((2, 32, 32), (1, 64, 32), (2, 64, 16), (4, 32, 16))
+# the grids of phases 13-14's lattice sweeps at the tuning shapes: every
+# (bm, bn) of the bf16 matmul at bk 64, and the conv2d's at the two widest
+# ci blocks (the deepest k loops per barrier)
+MM_SWEEP_BK = 64
+CONV_SWEEP = dict(boh=(1, 2, 3, 4, 7, 8, 14), bco=(16, 32, 64, 128, 256),
+                  bci=(64, 128))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
 def instance_cases(om, oc):
-    """({dims: [matmul configs]}, {conv params: [conv2d configs]}) that
-    between them launch each of the 16 thread micro-tiles (TM, TN) the
-    kernels are built for (each .cu file holds one template instance per
-    micro-tile and input type): the first valid config found per
-    micro-tile at a few shapes chosen so that all 16 occur."""
+    """[(dtype, shape, config)] that between them launch every template
+    instance the two libraries hold, as each library lists them
+    (``<name>_instances``): the bf16 matmul at each (bm, bn) instance and
+    each bk, on a shape no tile divides; the bf16 conv2d at one config per
+    (MT, NT) warp tile, found among configs of a few shapes (one of them
+    with CI and CO not multiples of 8, the element-load path); and the f32
+    kernels at the first valid config per thread micro-tile (TM, TN).
+    Raises if an instance is not reached."""
     def divs(n):
         return [d for d in range(1, n + 1) if n % d == 0]
 
-    mm, cv, seen_mm, seen_cv = {}, {}, set(), set()
+    mm_lib = om.library_instances(om.LIB.load().matmul_instances)
+    cv_lib = om.library_instances(oc.LIB.load().conv2d_instances)
+    mm, cv, seen_mm, seen_cv = [], [], set(), set()
+    for d, bm, bn in mm_lib:
+        if d == "bfloat16":
+            for bk in om.BF16_BK:
+                mm.append((torch.bfloat16, (2 * bm + 40, 2 * bn + 24, 200),
+                           (bm, bn, bk)))
+            seen_mm.add((d, bm, bn))
     M, N, K = 1536, 768, 64
     for bm in divs(M):
         for bn in divs(N):
             t = om.thread_tile(bm, bn)
-            if t and t not in seen_mm and om.config_is_valid(
+            if t and ("float32",) + t not in seen_mm and om.config_is_valid(
                     M, N, K, bm, bn, 8, dtype="float32")[0]:
-                seen_mm.add(t)
-                mm.setdefault((M, N, K), []).append((bm, bn, 8))
+                seen_mm.add(("float32",) + t)
+                mm.append((torch.float32, (M, N, K), (bm, bn, 8)))
+    bf16_shapes = ((1, 56, 56, 256, 256, 3, 3, 1), (1, 28, 28, 64, 128, 3, 3, 1),
+                   (3, 10, 7, 24, 4, 3, 3, 0))
+    for params in bf16_shapes:
+        n, h, w, co, ci, kh, kw, pad = params
+        oh, ow = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+        for boh in range(1, oh + 1):
+            for bco in oc.BF16_BCO:
+                if bco > co + 15:
+                    continue
+                tile = oc.warp_tile(boh * ow, bco)
+                bci = oc.BF16_BCI[len(cv) % 3]
+                if tile and ("bfloat16",) + tile[:2] not in seen_cv and \
+                        oc.conv_config_is_valid(n, h, w, co, ci, kh, kw, 1,
+                                                pad, boh, bco, bci)[0]:
+                    seen_cv.add(("bfloat16",) + tile[:2])
+                    cv.append((torch.bfloat16, params, (boh, bco, bci)))
+    cv.append((torch.bfloat16, bf16_shapes[2], (2, 32, 16)))
     for params in ((1, 64, 3, 384, 16, 3, 3, 1), (1, 512, 1, 384, 8, 1, 1, 0)):
         n, h, w, co, ci, kh, kw, pad = params
         ow = w + 2 * pad - kw + 1
         for boh in divs(h + 2 * pad - kh + 1):
             for bco in divs(co):
                 t = om.thread_tile(boh * ow, bco)
-                if t and t not in seen_cv and oc.conv_config_is_valid(
-                        n, h, w, co, ci, kh, kw, 1, pad, boh, bco, 8,
-                        dtype="float32")[0]:
-                    seen_cv.add(t)
-                    cv.setdefault(params, []).append((boh, bco, 8))
-    if len(seen_mm) != 16 or len(seen_cv) != 16:
-        raise RuntimeError(f"micro-tiles reached: matmul {sorted(seen_mm)}, "
-                           f"conv2d {sorted(seen_cv)}")
-    return mm, cv
+                if t and ("float32",) + t not in seen_cv and \
+                        oc.conv_config_is_valid(
+                            n, h, w, co, ci, kh, kw, 1, pad, boh, bco, 8,
+                            dtype="float32")[0]:
+                    seen_cv.add(("float32",) + t)
+                    cv.append((torch.float32, params, (boh, bco, 8)))
+    if seen_mm != set(mm_lib) or seen_cv != set(cv_lib):
+        raise RuntimeError(f"instances not reached: matmul "
+                           f"{sorted(set(mm_lib) - seen_mm)}, conv2d "
+                           f"{sorted(set(cv_lib) - seen_cv)}")
+    return mm, cv, len(mm_lib), len(cv_lib)
 
 
 def gemm_bound_ms(flops, nbytes, dtype, peaks):
@@ -683,10 +735,13 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
         per_cfg = runner.launches_per_config
         verify = runner.n_verified
         lib = summary["library_ms"]
-        lib_s = "not timed" if lib is None else f"{lib:.4f} ms"
+        lib_s = "not timed" if lib is None else (
+            f"{lib:.4f} ms on the card ({summary['library_host_ms']:.4f} ms "
+            f"per call on the host)")
         log(f"[{tag}] arm {arm}: best {summary['best_cfg']} "
             f"{summary['best_ms']:.4f} ms = {summary['gflops'] / 1e3:.3f} "
-            f"TFLOP/s; {runner.n_timed} configs timed ({len(ok)} ok, "
+            f"TFLOP/s on the card, the host {summary['host_ms']:.4f} ms per "
+            f"call; {runner.n_timed} configs timed ({len(ok)} ok, "
             f"{len(failed)} failed to launch), {summary['n_measured']} "
             f"states measured, {wall:.1f} s wall; library {lib_s}; "
             f"{runner.n_verified} configs held against plain, max rel err "
@@ -728,82 +783,147 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
     return out
 
 
+def lattice_sweep(tag, configs, launch, plain, tuned_ms):
+    """Each of ``configs`` held against the plain version within GEMM_TOL
+    and timed on the card like the tuner's configs, after the tuning arms:
+    the lattice's fastest config beside the one the search found."""
+    tol = GEMM_TOL[torch.bfloat16]
+    ref = plain()
+    times = {}
+    for cfg in configs:
+        got = launch(cfg)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        if not rel <= tol:
+            raise RuntimeError(f"[{tag}] sweep {cfg}: rel err {rel:g} (tol "
+                               f"{tol:g})")
+        times["x".join(map(str, cfg))] = card_ms(lambda: launch(cfg))[0]
+    order = sorted(times, key=times.get)
+    best = order[0]
+    log(f"[{tag}] lattice sweep, {len(times)} configs: fastest "
+        + ", ".join(f"{c} {times[c]:.4f}" for c in order[:6])
+        + f" ms; slowest {order[-1]} {times[order[-1]]:.4f} ms; the tuned "
+          f"best {tuned_ms:.4f} ms is {tuned_ms / times[best]:.3f}x the "
+          f"sweep's fastest")
+    return {"configs": len(times), "best_cfg": best, "best_ms": times[best],
+            "fastest_ms": {c: times[c] for c in order[:6]},
+            "slowest_ms": times[order[-1]]}
+
+
 def tuner_phases(dev, peaks, kernels):
     """Phases 11-14: the matmul and conv2d kernels against their plain
-    versions, and the self-tuning path on both. Returns their result
-    records."""
+    versions at every instance the libraries hold, and the self-tuning path
+    on both. Returns their result records."""
     from vae_extent_search_tpu_torch.ops import conv2d as oc
     from vae_extent_search_tpu_torch.ops import matmul as om
-    from vae_extent_search_tpu_torch.search.kernel_tuner import cuda_seconds
+    from vae_extent_search_tpu_torch.search.kernel_tuner import (
+        time_library_conv2d,
+        time_library_matmul,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(31)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
+    mm_inst, cv_inst, n_mm, n_cv = instance_cases(om, oc)
+    log(f"[11] {n_mm} matmul and {n_cv} conv2d template instances in the "
+        f"libraries; {len(mm_inst)} and {len(cv_inst)} instance checks")
+
     # ---- 11. matmul kernel vs plain ----
-    mm_inst, cv_inst = instance_cases(om, oc)
+    F32, BF16 = torch.float32, torch.bfloat16
     mm_checks = {}
-    for dims, cfgs in (
-            ((MM_DIM,) * 3, [(128, 128, 64), (64, 256, 8), (2, 32, 8),
-                             (4, 32, 1536)]),
-            ((96, 160, 72), [(3, 32, 72)]), ((1000, 24, 40), [(8, 24, 40)]),
-            *mm_inst.items()):
+    mm_cases = [(F32, (MM_DIM,) * 3, c) for c in (
+        (128, 128, 64), (64, 256, 8), (2, 32, 8), (4, 32, 1536))] + [
+        (BF16, (MM_DIM,) * 3, c) for c in (
+            (128, 192, 64), (256, 128, 64), (64, 16, 16), (128, 256, 32))] + [
+        (F32, (96, 160, 72), (3, 32, 72)), (F32, (1000, 24, 40), (8, 24, 40)),
+        # ragged: no tile divides M, N or K
+        (BF16, (96, 160, 72), (64, 64, 32)), (BF16, (1000, 24, 40),
+                                              (64, 32, 64))] + mm_inst
+    operands = {}
+    for dtype, dims, cfg in mm_cases:
         M, N, K = dims
-        for dtype in (torch.float32, torch.bfloat16):
-            a, b = randn(M, K, dtype=dtype), randn(K, N, dtype=dtype)
-            for cfg in cfgs:
-                ok, why = om.config_is_valid(M, N, K, *cfg,
-                                             dtype=dtype_name(dtype))
-                if not ok:
-                    raise RuntimeError(f"[11] {cfg} at {dims}: {why}")
-                check_gemm("11", f"{M}x{N}x{K} {cfg} {dtype_name(dtype)}",
-                           lambda: om.matmul(a, b, *cfg),
-                           lambda: om.matmul_plain(a, b), GEMM_TOL[dtype],
-                           mm_checks)
-    a = randn(MM_DIM, MM_DIM, dtype=torch.bfloat16)
-    b = randn(MM_DIM, MM_DIM, dtype=torch.bfloat16)
-    mm_plain_ms = cuda_seconds(lambda: om.matmul_plain(a, b), 20, 3) * 1e3
+        if (dtype, dims) not in operands:
+            operands = {(dtype, dims): (randn(M, K, dtype=dtype),
+                                        randn(K, N, dtype=dtype))}
+        a, b = operands[(dtype, dims)]
+        ok, why = om.config_is_valid(M, N, K, *cfg, dtype=dtype_name(dtype))
+        if not ok:
+            raise RuntimeError(f"[11] {cfg} at {dims}: {why}")
+        check_gemm("11", f"{M}x{N}x{K} {cfg} {dtype_name(dtype)}",
+                   lambda: om.matmul(a, b, *cfg),
+                   lambda: om.matmul_plain(a, b), GEMM_TOL[dtype], mm_checks)
+    # A = identity at every bf16 instance: C equals B exactly, so a wrong
+    # (row, column) in the epilogue or a missed mask cannot pass
+    for dtype, dims, cfg in mm_inst:
+        if dtype != BF16 or cfg[2] != 64:
+            continue
+        M = dims[0]
+        b = randn(M, dims[1], dtype=BF16)
+        got = om.matmul(torch.eye(M, device=dev, dtype=BF16), b, *cfg)
+        if not torch.equal(got, b.float()):
+            raise RuntimeError(f"[11] identity A at {cfg}: C != B")
+    log(f"[11] identity A: C == B exactly at every bf16 instance")
+    del operands, a, b
+    a = randn(MM_DIM, MM_DIM, dtype=BF16)
+    b = randn(MM_DIM, MM_DIM, dtype=BF16)
+    mm_plain_ms, _ = card_ms(lambda: om.matmul_plain(a, b))
     mm_bound, mm_by = gemm_bound_ms(*matmul_work(MM_DIM, MM_DIM, MM_DIM, 2),
-                                    torch.bfloat16, peaks)
+                                    BF16, peaks)
     log(f"[11] 1536^3 bf16: plain {mm_plain_ms:.4f} ms, bound "
         f"{mm_bound:.4f} ms ({mm_by})")
+    del a, b
+    a, b = randn(MM_DIM, MM_DIM), randn(MM_DIM, MM_DIM)
+    mm_f32 = f32_times(
+        "11", MM_F32_CONFIGS, lambda cfg: om.matmul(a, b, *cfg),
+        time_library_matmul(MM_DIM, MM_DIM, MM_DIM, "float32",
+                            device=dev).seconds * 1e3,
+        *gemm_bound_ms(*matmul_work(MM_DIM, MM_DIM, MM_DIM, 4), F32, peaks))
     del a, b
 
     # ---- 12. conv2d kernel vs plain ----
     cv_checks = {}
-    for params, cfgs in (
-            ((2, 8, 8, 6, 256, 3, 3, 1), [(1, 6, 128), (4, 6, 128),
-                                           (8, 6, 256)]),
-            ((3, 10, 7, 2, 4, 3, 3, 0), [(4, 2, 4)]),
-            ((1, 8, 8, 4, 8, 3, 3, 1), [(2, 4, 8)]),
-            (CONV[:7] + CONV[8:], [(2, 128, 64), (8, 32, 8), (1, 256, 64),
-                                   (7, 32, 32)]), *cv_inst.items()):
+    cv_cases = [(F32, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
+        (1, 6, 128), (4, 6, 128), (8, 6, 256))] + [
+        (BF16, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
+            (1, 16, 128), (4, 16, 128), (8, 16, 64))] + [
+        (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
+        (BF16, (3, 10, 7, 2, 4, 3, 3, 0), (3, 16, 16)),
+        (F32, (1, 8, 8, 4, 8, 3, 3, 1), (2, 4, 8)),
+        (BF16, (1, 8, 8, 4, 8, 3, 3, 1), (2, 16, 16))] + [
+        (F32, CONV[:7] + CONV[8:], c) for c in (
+            (2, 128, 64), (8, 32, 8), (1, 256, 64), (7, 32, 32))] + [
+        (BF16, CONV[:7] + CONV[8:], c) for c in (
+            (2, 128, 64), (3, 32, 16), (1, 256, 64), (2, 64, 128))] + cv_inst
+    operands = {}
+    for dtype, params, cfg in cv_cases:
         N, H, W, CO, CI, KH, KW, pad = params
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w = randn(N, H, W, CI, dtype=dtype), randn(KH, KW, CI, CO,
-                                                         dtype=dtype)
-            bias = randn(CO)
-            for cfg in cfgs:
-                ok, why = oc.conv_config_is_valid(
-                    N, H, W, CO, CI, KH, KW, 1, pad, *cfg,
-                    dtype=dtype_name(dtype))
-                if not ok:
-                    raise RuntimeError(f"[12] {cfg} at {params}: {why}")
-                check_gemm("12", f"{params} {cfg} {dtype_name(dtype)}",
-                           lambda: oc.conv2d(x, w, bias, pad, *cfg),
-                           lambda: oc.conv2d_plain(x, w, bias, pad),
-                           GEMM_TOL[dtype], cv_checks)
+        if (dtype, params) not in operands:
+            operands = {(dtype, params): (
+                randn(N, H, W, CI, dtype=dtype),
+                randn(KH, KW, CI, CO, dtype=dtype), randn(CO))}
+        x, w, bias = operands[(dtype, params)]
+        ok, why = oc.conv_config_is_valid(N, H, W, CO, CI, KH, KW, 1, pad,
+                                          *cfg, dtype=dtype_name(dtype))
+        if not ok:
+            raise RuntimeError(f"[12] {cfg} at {params}: {why}")
+        check_gemm("12", f"{params} {cfg} {dtype_name(dtype)}",
+                   lambda: oc.conv2d(x, w, bias, pad, *cfg),
+                   lambda: oc.conv2d_plain(x, w, bias, pad),
+                   GEMM_TOL[dtype], cv_checks)
+    del operands
     N, H, W, CO, CI, KH, KW, _, pad = CONV
-    x, w = randn(N, H, W, CI, dtype=torch.bfloat16), randn(
-        KH, KW, CI, CO, dtype=torch.bfloat16)
+    x, w = randn(N, H, W, CI, dtype=BF16), randn(KH, KW, CI, CO, dtype=BF16)
     bias = randn(CO)
-    cv_plain_ms = cuda_seconds(lambda: oc.conv2d_plain(x, w, bias, pad), 20,
-                               3) * 1e3
-    cv_bound, cv_by = gemm_bound_ms(*conv_work(*CONV, 2), torch.bfloat16,
-                                    peaks)
+    cv_plain_ms, _ = card_ms(lambda: oc.conv2d_plain(x, w, bias, pad))
+    cv_bound, cv_by = gemm_bound_ms(*conv_work(*CONV, 2), BF16, peaks)
     log(f"[12] 1x56x56x256->256 3x3 bf16: plain {cv_plain_ms:.4f} ms, bound "
         f"{cv_bound:.4f} ms ({cv_by})")
+    x, w = randn(N, H, W, CI), randn(KH, KW, CI, CO)
+    cv_f32 = f32_times(
+        "12", CONV_F32_CONFIGS, lambda cfg: oc.conv2d(x, w, bias, pad, *cfg),
+        time_library_conv2d(*CONV, "float32", device=dev).seconds * 1e3,
+        *gemm_bound_ms(*conv_work(*CONV, 4), F32, peaks))
     del x, w, bias
 
     # ---- 13. / 14. self-tuning end to end ----
@@ -823,8 +943,28 @@ def tuner_phases(dev, peaks, kernels):
                                    *map(str, CONV[:7])], cv_best, kernels,
                         cv_checks)
 
+    def tuned_ms(arms):
+        return min(v[0]["best_ms"] for v in arms.values())
+
+    a, b = mm_arms["model"][1].operands(MM_DIM, MM_DIM, MM_DIM)
+    mm_sweep = lattice_sweep(
+        "13", [(bm, bn, MM_SWEEP_BK) for bm in om.BF16_BM
+               for bn in om.BF16_BN if om.config_is_valid(
+                   MM_DIM, MM_DIM, MM_DIM, bm, bn, MM_SWEEP_BK)[0]],
+        lambda cfg: om.matmul(a, b, *cfg), lambda: om.matmul_plain(a, b),
+        tuned_ms(mm_arms))
+    N, H, W, CO, CI, KH, KW, _, pad = CONV
+    x, w, bias = cv_arms["model"][1].operands(N, H, W, CO, CI, KH, KW)
+    cv_sweep = lattice_sweep(
+        "14", [(boh, bco, bci) for boh in CONV_SWEEP["boh"]
+               for bco in CONV_SWEEP["bco"] for bci in CONV_SWEEP["bci"]
+               if oc.conv_config_is_valid(*CONV, boh, bco, bci)[0]],
+        lambda cfg: oc.conv2d(x, w, bias, pad, *cfg),
+        lambda: oc.conv2d_plain(x, w, bias, pad), tuned_ms(cv_arms))
+    del a, b, x, w, bias
+
     def record(name, arms, checks, src, replaces, plain_ms, b_ms, b_by,
-               shape):
+               shape, f32, sweep, flops):
         best = min(arms.values(), key=lambda v: v[0]["best_ms"])[0]
         return {
             "name": name, "route": "cuda", "source": src,
@@ -835,6 +975,13 @@ def tuner_phases(dev, peaks, kernels):
             "bound_by": b_by,
             "library_ms": min(v[0]["library_ms"] for v in arms.values()),
             "shape": shape, "best_cfg": best["best_cfg"],
+            "tflops": flops / best["best_ms"] / 1e9,
+            "host_ms": best["host_ms"],
+            "library_host_ms": best["library_host_ms"],
+            "timer": "device time, calls queued behind a blocking product "
+                     "(search/kernel_tuner.py::cuda_seconds)",
+            "float32": f32,
+            "lattice_sweep": sweep,
             "checks": {"max_rel_err": max(c["max_rel_err"]
                                           for c in checks.values()),
                        "tolerance": {dtype_name(t): v
@@ -842,10 +989,11 @@ def tuner_phases(dev, peaks, kernels):
                        "bit_identical_launches": True,
                        "configs_checked": len(checks)},
             "tune": {arm: {k: v[0][k] for k in (
-                "best_cfg", "best_ms", "gflops", "library_ms",
-                "n_configs_timed", "n_measured", "n_raw_configs",
-                "n_lattice_configs", "pool_s", "bound_s", "featurize_s",
-                "vae_s", "fit_s", "select_s", "measure_s", "timing_s")}
+                "best_cfg", "best_ms", "gflops", "host_ms", "library_ms",
+                "library_host_ms", "n_configs_timed", "n_measured",
+                "n_raw_configs", "n_lattice_configs", "pool_s", "bound_s",
+                "featurize_s", "vae_s", "fit_s", "select_s", "measure_s",
+                "timing_s")}
                 | {"wall_s": v[3], "launches": v[2][name],
                    "configs_verified": v[1].n_verified,
                    "verify_max_rel_err": v[1].verify_rel_err}
@@ -857,14 +1005,32 @@ def tuner_phases(dev, peaks, kernels):
                "vae_extent_search_tpu_torch/csrc/matmul.cu",
                "vae_extent_search_tpu/ops/matmul_pallas.py:78", mm_plain_ms,
                mm_bound, mm_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
-                                 "dtype": "bfloat16"}),
+                                 "dtype": "bfloat16"}, mm_f32, mm_sweep,
+               matmul_work(MM_DIM, MM_DIM, MM_DIM, 2)[0]),
         record("conv2d", cv_arms, cv_checks,
                "vae_extent_search_tpu_torch/csrc/conv2d.cu",
                "vae_extent_search_tpu/ops/conv2d_pallas.py:106", cv_plain_ms,
                cv_bound, cv_by, dict(zip(("N", "H", "W", "CO", "CI", "KH",
                                           "KW", "stride", "pad"), CONV),
-                                     dtype="bfloat16")),
+                                     dtype="bfloat16"), cv_f32, cv_sweep,
+               conv_work(*CONV, 2)[0]),
     ]
+
+
+def f32_times(tag, configs, launch, lib_ms, b_ms, b_by):
+    """The float32 CUDA-core kernel at the tuning shape: each of
+    ``configs`` timed on the card, the best kept, beside the library call's
+    time (TF32 off) and the f32 bound."""
+    times = {"x".join(map(str, c)): card_ms(lambda: launch(c))[0]
+             for c in configs}
+    best = min(times, key=times.get)
+    log(f"[{tag}] float32 CUDA-core kernel at the tuning shape: "
+        + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
+        + f"; best {best}; library (TF32 off) {lib_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return {"configs_ms": times, "best_cfg": best, "ms": times[best],
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
 
 # the per-store cost models: full width of the reference's MLP
 SEG = dict(hidden=256, batch=512, dim=164)
@@ -1080,12 +1246,11 @@ def segment_phases(dev, peaks, kernels):
         x, offs, ids, n_seg = cases[label]()
         R, H = x.shape
         w = torch.randn(n_seg, H, generator=gen, device=dev)
-        iters = 20 if R >= 1_000_000 else 100
         lengths = torch.cat([offs, offs.new_tensor([R])]).diff().long()
         buf = torch.zeros(n_seg + 1, H, device=dev)
         with torch.no_grad():
             (f_ms, f_host), (b_ms, b_host), (p_ms, _), (pb_ms, _), \
-                (sr_ms, _), (ia_ms, _) = (queued_ms(fn, iters) for fn in (
+                (sr_ms, _), (ia_ms, _) = (card_ms(fn) for fn in (
                     lambda: seg(x, offs),
                     lambda: tss._backward_cuda(w, offs, R, x.dtype),
                     lambda: tss.segment_sum_plain(x, ids, n_seg),
@@ -1616,6 +1781,20 @@ def main():
             f"{regs} registers; {len(spills)} spill"
             + (f" ({spills[0]})" if spills else ""))
     log(f"[1] all builds: {time.perf_counter() - t0:.2f} s wall")
+    # the bf16 instances run on the tensor cores: every one of them holds
+    # the instruction (HGMMA: wgmma; HMMA: mma.sync), no f32 instance does
+    for lib, kern, op in ((om.LIB, "mm_", "HGMMA"), (oc.LIB, "conv_", "HMMA")):
+        funcs = sass_functions(lib.library)
+        counts = {name: sum(op in ln for ln in text)
+                  for name, text in funcs.items() if kern in name}
+        bf16 = [n for n in counts if f"{kern}bf16" in n]
+        f32 = [n for n in counts if f"{kern}f32" in n]
+        log(f"[1] cuobjdump -sass {lib.library.name}: {op} in the "
+            f"{len(bf16)} bf16 instances {sorted(counts[n] for n in bf16)}, "
+            f"in the {len(f32)} f32 instances {sum(counts[n] for n in f32)}")
+        if not bf16 or not all(counts[n] for n in bf16) or any(
+                counts[n] for n in f32):
+            raise RuntimeError(f"[1] {lib.library.name}: {op} counts {counts}")
 
     kernels = {"fused_head_stats": fh.fused_head_stats, "hist": th.hist,
                "matmul": om.matmul, "conv2d": oc.conv2d,

@@ -8,6 +8,8 @@ so they also run on a machine that has only torch:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -238,15 +240,21 @@ def test_device_engine_on_card():
 
 # float32: the same f32 products summed in another order (K <= 1536);
 # bfloat16: the plain version multiplies the same bf16-rounded inputs in
-# f32, so only the order of the f32 sums differs
+# f32, so only the order of the f32 sums differs (the tensor cores add
+# exact products in f32)
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+F32, BF16 = torch.float32, torch.bfloat16
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dims,cfg", [
-    ((256, 256, 256), (128, 128, 64)), ((256, 512, 128), (64, 256, 8)),
-    ((96, 160, 72), (3, 32, 72)),       # non-square, bk = the whole K
-    ((1536, 1536, 1536), (2, 32, 8)), ((64, 24, 48), (64, 24, 48))])
+@pytest.mark.parametrize("dtype,dims,cfg", [
+    (F32, (256, 256, 256), (128, 128, 64)), (F32, (256, 512, 128), (64, 256, 8)),
+    (F32, (96, 160, 72), (3, 32, 72)),       # non-square, bk = the whole K
+    (F32, (1536, 1536, 1536), (2, 32, 8)), (F32, (64, 24, 48), (64, 24, 48)),
+    (BF16, (256, 256, 256), (128, 128, 64)), (BF16, (1536, 1536, 1536),
+                                              (128, 192, 64)),
+    (BF16, (1536, 1536, 1536), (256, 128, 32)),
+    (BF16, (96, 160, 72), (64, 64, 32)),     # ragged in M, N and K
+    (BF16, (1000, 24, 40), (64, 32, 64)), (BF16, (64, 24, 48), (64, 16, 16))])
 def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
     M, N, K = dims
     assert om.config_is_valid(M, N, K, *cfg, dtype=om.dtype_name(dtype))[0]
@@ -262,12 +270,132 @@ def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
     assert _rel(got, om.matmul_plain(a, b)) <= MM_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("params,cfg", [
-    ((2, 8, 8, 6, 256, 3, 3, 1), (4, 6, 128)),
-    ((3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
-    ((1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
-    ((1, 56, 56, 256, 256, 3, 3, 1), (8, 32, 8))])
+BF16_INSTANCES = [(bm, bn) for bm in om.BF16_BM for bn in om.BF16_BN
+                  if om.bf16_accumulators(bm, bn) <= om.ACC_REGS]
+
+
+@pytest.mark.parametrize("bm,bn", BF16_INSTANCES)
+def test_every_bf16_matmul_instance_matches_plain(dev, bm, bn):
+    # a ragged shape (no tile divides it) at each bk: all three swizzles
+    M, N, K = 2 * bm + 40, 2 * bn + 24, 200
+    g = torch.Generator(device=dev).manual_seed(bm + bn)
+    a = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    b = torch.randn(K, N, generator=g, device=dev).bfloat16()
+    want = om.matmul_plain(a, b)
+    for bk in om.BF16_BK:
+        got = om.matmul(a, b, bm, bn, bk)
+        assert torch.equal(got, om.matmul(a, b, bm, bn, bk))
+        assert _rel(got, want) <= MM_TOL[BF16]
+
+
+@pytest.mark.parametrize("bm,bn,bk", [(64, 64, 64), (128, 256, 64),
+                                      (256, 128, 32), (64, 96, 16)])
+def test_bf16_matmul_epilogue_places_every_output(dev, bm, bn, bk):
+    # A = identity: C must equal B exactly, so a wrong (row, column) of the
+    # wgmma accumulator layout or a missed mask shows up as a mismatch
+    M, N = 2 * bm - 8, 3 * bn - 16
+    a = torch.eye(M, M, device=dev).bfloat16()
+    b = torch.randn(M, N, device=dev).bfloat16()
+    assert torch.equal(om.matmul(a, b, bm, bn, bk), b.float())
+
+
+def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
+    a = torch.randn(256, 256, device=dev)
+    before = om.matmul.launches
+    for cfg in ((100, 128, 64),      # does not divide
+                (256, 128, 64),      # more than 256 threads of 8 x 8
+                (128, 128, 256)):    # f32 tiles over 227 KB
+        with pytest.raises(ValueError, match="invalid matmul config"):
+            om.matmul(a, a, *cfg)
+    ab = a.bfloat16()
+    for cfg in ((100, 128, 64),      # bm off the wgmma lattice
+                (128, 120, 64),      # no instance of that width
+                (128, 128, 128),     # bk wider than a 128-byte swizzle
+                (256, 256, 64)):     # accumulators over 128 registers
+        with pytest.raises(ValueError, match="invalid matmul config"):
+            om.matmul(ab, ab, *cfg)
+    odd = ab[:250, :250].contiguous()   # K = N = 250: rows of 500 bytes
+    with pytest.raises(ValueError, match="TMA"):
+        om.matmul(odd, odd, 64, 64, 64)
+    with pytest.raises(ValueError):
+        om.matmul(a, a.half(), 128, 128, 64)
+    assert om.matmul.launches == before
+    x = torch.randn(1, 56, 56, 256, device=dev)
+    w = torch.randn(3, 3, 256, 256, device=dev)
+    b = torch.randn(256, device=dev)
+    before = oc.conv2d.launches
+    for cfg in ((8, 128, 128), (1, 256, 256), (3, 32, 8)):
+        with pytest.raises(ValueError, match="invalid conv2d config"):
+            oc.conv2d(x, w, b, 1, *cfg)
+    for cfg in ((8, 128, 128), (1, 256, 128), (2, 6, 64), (2, 128, 8)):
+        with pytest.raises(ValueError, match="invalid conv2d config"):
+            oc.conv2d(x.bfloat16(), w.bfloat16(), b, 1, *cfg)
+    assert oc.conv2d.launches == before
+
+
+def test_shared_memory_attribute_is_set_once_per_instance(dev):
+    a = torch.randn(256, 256, device=dev).bfloat16()
+    x = torch.randn(1, 14, 14, 64, device=dev).bfloat16()
+    w = torch.randn(3, 3, 64, 64, device=dev).bfloat16()
+    bias = torch.randn(64, device=dev)
+    om.matmul(a, a, 128, 128, 64)
+    oc.conv2d(x, w, bias, 1, 2, 64, 32)
+    mm0 = om.LIB.load().matmul_attr_calls()
+    cv0 = oc.LIB.load().conv2d_attr_calls()
+    for bk in om.BF16_BK:           # one instance, three configs
+        om.matmul(a, a, 128, 128, bk)
+    for bci in (16, 32, 64):        # one warp tile, three configs
+        oc.conv2d(x, w, bias, 1, 2, 64, bci)
+    torch.cuda.synchronize()
+    assert om.LIB.load().matmul_attr_calls() == mm0
+    assert oc.LIB.load().conv2d_attr_calls() == cv0
+    # another instance sets its own, once
+    om.matmul(a, a, 64, 32, 64)
+    om.matmul(a, a, 64, 32, 32)
+    assert om.LIB.load().matmul_attr_calls() <= mm0 + 1
+
+
+def test_library_instances_are_the_lattice(dev):
+    mm = om.library_instances(om.LIB.load().matmul_instances)
+    assert {(p, q) for d, p, q in mm if d == "bfloat16"} == set(
+        BF16_INSTANCES)
+    assert {(p, q) for d, p, q in mm if d == "float32"} == {
+        (tm, tn) for tm in om.MICRO for tn in om.MICRO}
+    cv = om.library_instances(oc.LIB.load().conv2d_instances)
+    assert {(p, q) for d, p, q in cv if d == "bfloat16"} == {
+        (mt, nt) for mt in oc.BF16_MT for nt in oc.BF16_NT}
+
+
+def test_card_timer_reads_the_device_and_raises_when_the_host_falls_behind(
+        dev):
+    from vae_extent_search_tpu_torch.search.kernel_tuner import cuda_seconds
+
+    a = torch.randn(1536, 1536, device=dev).bfloat16()
+    t = cuda_seconds(lambda: om.matmul(a, a, 128, 128, 64))
+    assert 0 < t.seconds < 1e-3 and t.host_seconds > 0
+    calls = []
+
+    def slower_and_slower():
+        # from the first timed window on, the host sleeps longer each call
+        calls.append(1)
+        if len(calls) > 12:
+            time.sleep(1e-3 * (len(calls) - 12))
+        om.matmul(a, a, 128, 128, 64)
+
+    with pytest.raises(RuntimeError, match="still enqueueing"):
+        cuda_seconds(slower_and_slower, target_ms=0.5)
+
+
+@pytest.mark.parametrize("dtype,params,cfg", [
+    (F32, (2, 8, 8, 6, 256, 3, 3, 1), (4, 6, 128)),
+    (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
+    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
+    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (8, 32, 8)),
+    (BF16, (2, 8, 8, 6, 256, 3, 3, 1), (4, 16, 128)),   # CO < bco
+    (BF16, (3, 10, 7, 2, 4, 3, 3, 0), (3, 16, 16)),     # CI < 16: element loads
+    (BF16, (1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
+    (BF16, (1, 56, 56, 256, 256, 3, 3, 1), (3, 32, 16)),  # ragged OH
+    (BF16, (1, 14, 14, 40, 24, 1, 1, 0), (3, 48, 16))])   # ragged CO, CI
 def test_conv2d_kernel_matches_plain(dev, dtype, params, cfg):
     N, H, W, CO, CI, KH, KW, pad = params
     ok, why = oc.conv_config_is_valid(N, H, W, CO, CI, KH, KW, 1, pad, *cfg,
@@ -284,27 +412,6 @@ def test_conv2d_kernel_matches_plain(dev, dtype, params, cfg):
     assert oc.conv2d.launches == before + 2
     assert torch.equal(got, again)
     assert _rel(got, oc.conv2d_plain(x, w, bias, pad)) <= 1e-5
-
-
-def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
-    a = torch.randn(256, 256, device=dev)
-    before = om.matmul.launches
-    for cfg in ((100, 128, 64),      # does not divide
-                (256, 128, 64),      # more than 256 threads of 8 x 8
-                (128, 128, 256)):    # f32 tiles over 227 KB
-        with pytest.raises(ValueError, match="invalid matmul config"):
-            om.matmul(a, a, *cfg)
-    with pytest.raises(ValueError):
-        om.matmul(a, a.half(), 128, 128, 64)
-    assert om.matmul.launches == before
-    x = torch.randn(1, 56, 56, 256, device=dev)
-    w = torch.randn(3, 3, 256, 256, device=dev)
-    b = torch.randn(256, device=dev)
-    before = oc.conv2d.launches
-    for cfg in ((8, 128, 128), (1, 256, 256), (3, 32, 8)):
-        with pytest.raises(ValueError, match="invalid conv2d config"):
-            oc.conv2d(x, w, b, 1, *cfg)
-    assert oc.conv2d.launches == before
 
 
 # ---------------------------------------------------------------------------

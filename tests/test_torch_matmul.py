@@ -1,9 +1,17 @@
 """The port's matmul module (ops/matmul.py) on the CPU: its plain version
 against the JAX package's Pallas matmul in interpret mode at the JAX
-tests' configurations, and the kernel's Hopper lattice (validity,
-snapping, the thread micro-tile). The CUDA kernel itself is held against
-the plain version on the card (tests/test_torch_kernels_cuda.py,
+tests' configurations, and the Hopper lattices of its two kernels (the
+float32 CUDA-core kernel: validity, snapping, the thread micro-tile; the
+bfloat16 tensor-core kernel: each refusal, the derived stage count, the
+register and shared-memory limits, ragged tiles, and the instances the
+source is built for). The CUDA kernels themselves are held against the
+plain version on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py)."""
+
+import importlib.util
+import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +22,8 @@ from vae_extent_search_tpu_torch.ops import matmul as om
 from vae_extent_search_tpu_torch.ops.build import MAX_SMEM_BYTES
 
 torch.set_num_threads(2)
+CSRC = Path(om.__file__).resolve().parent.parent / "csrc"
+F32 = dict(dtype="float32")
 
 
 @pytest.mark.parametrize("cfg", [(128, 128, 128), (64, 256, 32),
@@ -65,49 +75,165 @@ def test_thread_tile():
 
 
 def test_config_validity():
-    ok, _ = om.config_is_valid(256, 256, 256, 128, 128, 128)
+    # the float32 CUDA-core kernel: exact tiling, threads, shared memory
+    ok, _ = om.config_is_valid(256, 256, 256, 128, 128, 128, **F32)
     assert ok
-    ok, why = om.config_is_valid(256, 256, 256, 100, 128, 64)
+    ok, why = om.config_is_valid(256, 256, 256, 100, 128, 64, **F32)
     assert not ok and "divide" in why
-    ok, why = om.config_is_valid(256, 256, 256, 0, 128, 64)
+    ok, why = om.config_is_valid(256, 256, 256, 0, 128, 64, **F32)
     assert not ok
     # more outputs than 256 threads of 8 x 8 can hold
-    ok, why = om.config_is_valid(4096, 4096, 4096, 256, 128, 64)
+    ok, why = om.config_is_valid(4096, 4096, 4096, 256, 128, 64, **F32)
     assert not ok and "threads" in why
-    # shared memory: (128 + 128) x 512 bf16 = 256 KB > 227 KB; f32 at 256
-    ok, why = om.config_is_valid(1536, 1536, 1536, 128, 128, 512)
+    # shared memory: (128 + 128) x 256 f32 = 256 KB > 227 KB; 192 fits
+    ok, why = om.config_is_valid(1536, 1536, 1536, 128, 128, 256, **F32)
     assert not ok and "shared memory" in why
-    assert om.config_is_valid(1536, 1536, 1536, 128, 128, 384)[0]
-    assert not om.config_is_valid(1536, 1536, 1536, 128, 128, 256,
-                                  dtype="float32")[0]
-    assert om.matmul_smem_bytes(128, 128, 384, 2) <= MAX_SMEM_BYTES
+    assert om.config_is_valid(1536, 1536, 1536, 128, 128, 192, **F32)[0]
+    assert om.matmul_smem_bytes(128, 128, 192, 4) <= MAX_SMEM_BYTES
     # tiny blocks predict far slower than a 128 x 128 tile
-    assert (om.predicted_seconds(1536, 1536, 1536, 2, 1, 3)
-            > om.predicted_seconds(1536, 1536, 1536, 128, 128, 64) * 100)
+    assert (om.predicted_seconds(1536, 1536, 1536, 2, 1, 3, **F32)
+            > om.predicted_seconds(1536, 1536, 1536, 128, 128, 64, **F32)
+            * 100)
 
 
 def test_snap_config_to_hw():
+    def snap(*raw, dims=(1536, 1536, 1536)):
+        return om.snap_config_to_hw(*dims, *raw, **F32)
+
     # bn up to a multiple of 32, bk up to a multiple of 8; divisors only
-    assert om.snap_config_to_hw(1536, 1536, 1536, 64, 96, 4) == (64, 96, 8)
-    assert om.snap_config_to_hw(1536, 1536, 1536, 2, 1, 3) == (2, 32, 8)
-    # ... then (24 + 256) x 512 bf16 (280 KB) is over shared memory
-    assert om.snap_config_to_hw(1536, 1536, 1536, 24, 200, 400) == \
-        (24, 256, 384)
+    assert snap(64, 96, 4) == (64, 96, 8)
+    assert snap(2, 1, 3) == (2, 32, 8)
+    # ... then (24 + 256) x 256 f32 (280 KB) is over shared memory
+    assert snap(24, 200, 400) == (24, 256, 192)
     # on the lattice and within the limits: unchanged
-    assert om.snap_config_to_hw(1536, 1536, 1536, 128, 128, 64) == \
-        (128, 128, 64)
+    assert snap(128, 128, 64) == (128, 128, 64)
     # over the thread limit: the larger of bm, bn shrinks, in turn
-    assert om.snap_config_to_hw(1536, 1536, 1536, 512, 256, 8) == \
-        (128, 128, 8)
+    assert snap(512, 256, 8) == (128, 128, 8)
     # over shared memory: bk shrinks first
-    assert om.snap_config_to_hw(1536, 1536, 1536, 128, 128, 768) == \
-        (128, 128, 384)
+    assert snap(128, 128, 768) == (128, 128, 192)
     # an axis with no multiple of the alignment: the whole axis
-    assert om.snap_config_to_hw(64, 24, 6, 3, 3, 3) == (4, 24, 6)
+    assert snap(3, 3, 3, dims=(64, 24, 6)) == (4, 24, 6)
     # a prime axis too long for one block cannot be tiled
-    cfg = om.snap_config_to_hw(8, 257 * 127, 8, 1, 1, 1)
+    cfg = snap(1, 1, 1, dims=(8, 257 * 127, 8))
     assert cfg[1] == 257 * 127 and not om.config_is_valid(
-        8, 257 * 127, 8, *cfg)[0]
+        8, 257 * 127, 8, *cfg, **F32)[0]
+
+
+@pytest.mark.parametrize("cfg,dims,reason", [
+    ((100, 128, 64), (256, 256, 256), "bm=100 not in"),
+    ((192, 128, 64), (256, 256, 256), "bm=192 not in"),
+    ((128, 120, 64), (256, 256, 256), "bn=120 not a wgmma width"),
+    ((128, 128, 128), (256, 256, 256), "bk=128 not in"),
+    ((128, 128, 8), (256, 256, 256), "bk=8 not in"),
+    ((256, 160, 64), (1536, 1536, 1536), "registers: 160 accumulators"),
+    ((256, 256, 16), (1536, 1536, 1536), "registers: 256 accumulators"),
+    ((64, 16, 16), (7, 33, 5), "TMA"),
+    ((64, 16, 16), (64, 64, 20), "TMA"),
+    ((0, 16, 16), (64, 64, 64), "bm=0 out of range"),
+])
+def test_bf16_refusals(cfg, dims, reason):
+    ok, why = om.config_is_valid(*dims, *cfg)
+    assert not ok and why.startswith(reason), why
+
+
+@pytest.mark.parametrize("dims,cfg", [
+    ((96, 160, 72), (64, 64, 32)), ((1000, 24, 40), (64, 32, 64)),
+    ((200, 88, 200), (256, 128, 64)), ((8, 8, 8), (128, 256, 64))])
+def test_bf16_ragged_tiles_are_valid(dims, cfg):
+    # tiles need not divide the axes (TMA zero-fills, stores are masked)
+    assert om.config_is_valid(*dims, *cfg) == (True, None)
+
+
+@pytest.mark.parametrize("cfg,stages", [
+    ((64, 16, 16), 6), ((128, 128, 64), 6), ((64, 256, 64), 5),
+    ((128, 256, 64), 4), ((256, 128, 64), 4), ((256, 256, 64), 3)])
+def test_bf16_stage_count_is_derived_from_shared_memory(cfg, stages):
+    assert om.bf16_stages(*cfg) == stages
+    assert om.bf16_smem_bytes(*cfg, stages) <= MAX_SMEM_BYTES
+    if stages < om.MAX_STAGES:
+        assert om.bf16_smem_bytes(*cfg, stages + 1) > MAX_SMEM_BYTES
+    # every stage starts at a 1 KB boundary (the 128-byte swizzle's period)
+    per_stage = (om.bf16_smem_bytes(*cfg, stages) - 1024) // stages - 16
+    assert per_stage % 1024 == 0
+    assert per_stage >= (cfg[0] + cfg[1]) * cfg[2] * 2
+
+
+def test_bf16_lattice_fits_the_card():
+    # every configuration of the lattice holds two stages or more, and its
+    # accumulators fit 128 registers exactly where the library has it
+    for bm in om.BF16_BM:
+        wg, atoms = om.bf16_atoms(bm)
+        assert 64 * wg * atoms == bm and wg in (1, 2)
+        for bn in om.BF16_BN:
+            for bk in om.BF16_BK:
+                assert om.bf16_stages(bm, bn, bk) >= 2
+            assert (om.bf16_accumulators(bm, bn) <= om.ACC_REGS) == (
+                bm < 256 or bn <= 128)
+
+
+def _cu_instances():
+    src = (CSRC / "matmul.cu").read_text()
+
+    def widths(name):
+        line = re.search(rf"#define {name}\(X\) (.*)", src).group(1)
+        return [int(v) for v in re.findall(r"X\((\d+)\)", line)]
+
+    return ({(bm, n) for bm in (64, 128) for n in widths("MM_WIDE")}
+            | {(256, n) for n in widths("MM_NARROW")})
+
+
+def test_the_source_holds_exactly_the_lattice():
+    want = {(bm, bn) for bm in om.BF16_BM for bn in om.BF16_BN
+            if om.bf16_accumulators(bm, bn) <= om.ACC_REGS}
+    assert _cu_instances() == want
+
+
+def test_wgmma_header_is_generated_for_the_lattice():
+    spec = importlib.util.spec_from_file_location("gen_wgmma",
+                                                  CSRC / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert gen.WIDTHS == om.BF16_BN
+    assert gen.HEADER.read_text() == gen.render()
+    # one accumulator operand per two columns
+    assert gen.op(64).count('"+f"') == 32
+    assert "m64n256k16" in gen.render()
+
+
+@pytest.mark.parametrize("raw,want", [
+    ((64, 96, 4), (64, 96, 16)), ((2, 1, 3), (64, 16, 16)),
+    ((24, 200, 400), (64, 224, 64)), ((128, 128, 64), (128, 128, 64)),
+    ((512, 256, 8), (256, 128, 16)), ((256, 160, 16), (256, 128, 16)),
+    ((96, 64, 16), (128, 64, 16))])
+def test_snap_bf16_at_1536(raw, want):
+    # each of bm, bn, bk up to the lattice, then bn narrows until the
+    # accumulators fit
+    assert om.snap_config_to_hw(1536, 1536, 1536, *raw) == want
+
+
+def test_snap_bf16_is_capped_by_the_axes():
+    # a raw tile is first cut to the axis, so a small axis takes the
+    # smallest lattice value that covers it
+    assert om.snap_config_to_hw(96, 24, 1000, 96, 24, 1000) == (128, 32, 64)
+    assert om.snap_config_to_hw(1000, 24, 40, 8, 24, 40) == (64, 32, 64)
+    assert om.snap_config_to_hw(96, 160, 72, 3, 32, 72) == (64, 32, 64)
+    # K or N off TMA's alignment: on the lattice, refused for TMA alone
+    cfg = om.snap_config_to_hw(7, 33, 5, 7, 33, 5)
+    assert cfg == (64, 64, 16)
+    assert om.config_is_valid(7, 33, 5, *cfg)[1].startswith("TMA")
+
+
+def test_predicted_seconds_bf16_counts_ragged_tiles():
+    p = om.predicted_seconds
+    # wider tiles keep the tensor cores busier
+    assert p(1536, 1536, 1536, 128, 256, 64) < p(1536, 1536, 1536, 64, 64, 64)
+    # a K of 1544 pads to whole bk steps: one more step of every tile
+    assert p(1536, 1536, 1544, 128, 128, 64) > p(1536, 1536, 1536, 128, 128,
+                                                 64)
+    # within a factor of the tensor-core bound at the tuning shape
+    bound = 2 * 1536 ** 3 / om.PEAK_FLOPS["bfloat16"]
+    assert bound < p(1536, 1536, 1536, 128, 128, 64) < 20 * bound
+    assert math.isfinite(p(7, 8, 8, 64, 16, 16))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -125,8 +251,14 @@ def test_every_snap_lands_on_the_lattice(dims, dtype):
         raw = (divisor(M), divisor(N), divisor(K))
         cfg = om.snap_config_to_hw(M, N, K, *raw, dtype=dtype)
         ok, why = om.config_is_valid(M, N, K, *cfg, dtype=dtype)
-        assert ok or M == cfg[0] or N == cfg[1] or K == cfg[2], (raw, cfg,
-                                                                 why)
+        if dtype == "bfloat16":
+            # on the lattice; refused only where TMA cannot take the axes
+            assert (cfg[0] in om.BF16_BM and cfg[1] in om.BF16_BN
+                    and cfg[2] in om.BF16_BK), cfg
+            assert ok or (why.startswith("TMA") and (N % 8 or K % 8)), why
+        else:
+            assert ok or M == cfg[0] or N == cfg[1] or K == cfg[2], (
+                raw, cfg, why)
         assert om.snap_config_to_hw(M, N, K, *cfg, dtype=dtype) == cfg
 
 

@@ -171,13 +171,15 @@ def test_runner_rejects_invalid_and_slow_configs():
     res = r3.run(t3, [t3.compute_dag.init_state.copy()])
     assert res[0].error_no == ERROR_INSTANTIATION and r3.n_timed == 0
     # too slow: on the timing path, the prediction guard rejects the
-    # config before any kernel is built or launched
+    # config before any kernel is built or launched (bf16: the raw (1, 1,
+    # 8) snaps to the narrowest tile, 64 x 16 x 16, predicted at ~26 ms)
     task = _task(8192, 8192, 8192)
     st = task.compute_dag.init_state.copy()
     cid = next(i for i, s in enumerate(st.stages) if s.op.name == "C")
     state_split(st, cid, st.stages[cid].iters[2], [8])
     assert state_to_matmul_config(st)[0] == (1, 1, 8)
-    r = MatmulRunner(max_seconds=0.5, device="cuda")  # no time_fn
+    assert om.predicted_seconds(8192, 8192, 8192, 64, 16, 16) > 0.01
+    r = MatmulRunner(max_seconds=0.01, device="cuda")  # no time_fn
     assert r.run(task, [st])[0].error_no == ERROR_BUILD_TIMEOUT
     assert r.launches_per_config == {}
 

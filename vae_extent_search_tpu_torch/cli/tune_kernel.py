@@ -5,8 +5,8 @@ card (counterpart of ``scripts/tune_pallas_kernel.py``).
     -> bound inference, extent features                 ir/, features/extent.py
     -> VAE pretrain + online active selection           search/active_loop.py
     -> each selected schedule quotiented onto a block   search/kernel_tuner.py
-       config and the CUDA kernel timed at it           ops/matmul.py,
-       with CUDA events                                 ops/conv2d.py
+       config and the CUDA kernel timed at it on the    ops/matmul.py,
+       card (device time, queued behind a blocker)      ops/conv2d.py
     -> an NDJSON record log; the best config against cuBLAS / cuDNN
 
     python -m vae_extent_search_tpu_torch.cli.tune_kernel --workload matmul --dim 1536
@@ -207,17 +207,23 @@ def tune(argv=None):
           f"{sum(res.fit_seconds):.1f}s, selection "
           f"{sum(res.select_seconds):.2f}s, measurement "
           f"{sum(res.measure_seconds):.1f}s)")
+    host_sec = runner.host_seconds.get(best_cfg)
+    host_s = "" if host_sec is None else (
+        f"; the host takes {host_sec*1e3:.4f} ms per call to enqueue it")
     print("best config "
           + " ".join(f"{n}={v}" for n, v in zip(names, best_cfg))
-          + f": {best_sec*1e3:.4f} ms  ({gflops:.0f} GFLOP/s)")
+          + f": {best_sec*1e3:.4f} ms  ({gflops:.0f} GFLOP/s) "
+          + ("by the stand-in timer" if args.fake_timer else "on the card")
+          + host_s)
 
-    lib_sec = None
+    lib_sec = lib_host = None
     if not (args.skip_library_baseline or args.fake_timer):
         lib_name, lib_fn = library
-        lib_sec = lib_fn()
+        lib_sec, lib_host = lib_fn()
         print(f"{lib_name} same shape/dtype: {lib_sec*1e3:.4f} ms "
-              f"({flops/lib_sec/1e9:.0f} GFLOP/s) -> tuned kernel at "
-              f"{lib_sec/best_sec:.3f}x {lib_name}")
+              f"({flops/lib_sec/1e9:.0f} GFLOP/s) on the card, "
+              f"{lib_host*1e3:.4f} ms per call on the host -> tuned kernel "
+              f"at {lib_sec/best_sec:.3f}x {lib_name}")
 
     ok = [s for _, s, e in runner.measured_configs() if e == ERROR_NO_ERROR]
     if ok:
@@ -236,7 +242,9 @@ def tune(argv=None):
         "best_cfg": "x".join(str(v) for v in best_cfg),
         "best_ms": best_sec * 1e3,
         "gflops": gflops,
+        "host_ms": None if host_sec is None else host_sec * 1e3,
         "library_ms": None if lib_sec is None else lib_sec * 1e3,
+        "library_host_ms": None if lib_host is None else lib_host * 1e3,
         "wall_s": res.used_time,
         "pool_s": pool_s, "bound_s": bound_s, "featurize_s": featurize_s,
         "vae_s": res.vae_seconds,

@@ -52,11 +52,14 @@ class CudaLibrary:
 
     def build(self, force: bool = False) -> Tuple[Path, str, float]:
         """Compile the source if the library is missing or older than it
-        (or always, with ``force``). Returns (library path, compiler
-        output, seconds spent compiling; 0.0 when nothing was rebuilt).
+        or than a header in ``csrc/`` (or always, with ``force``). Returns
+        (library path, compiler output, seconds spent compiling; 0.0 when
+        nothing was rebuilt).
         Builds of different libraries may run at the same time."""
+        newest = max(p.stat().st_mtime
+                     for p in [self.source, *CSRC.glob("*.cuh")])
         if (not force and self.library.exists()
-                and self.library.stat().st_mtime >= self.source.stat().st_mtime):
+                and self.library.stat().st_mtime >= newest):
             return self.library, "", 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

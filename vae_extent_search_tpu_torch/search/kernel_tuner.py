@@ -9,11 +9,15 @@
   bci)`` for ``ops/conv2d.py`` (``state_to_matmul_config``,
   ``state_to_conv_config``), snapped onto the kernel's Hopper lattice.
 - ``MatmulRunner`` and ``Conv2dRunner`` time that kernel on the card with
-  CUDA events: warm-up launches, then ``iters`` back-to-back launches
-  between two events with ``iters`` chosen so that the window reaches
-  ``target_ms``, the minimum over ``repeats`` windows. Operands stay the
-  same across launches, so at the benchmark shapes (which fit in the 50 MB
-  L2) the kernel runs warm, as on the TPU.
+  :func:`cuda_seconds`: device time, read by CUDA events around calls that
+  were all enqueued behind a blocking matrix product, so that what the host
+  spends per call (the wrapper, ctypes, ``torch.empty``) cannot hide in the
+  window. At the tuning shapes one call of the tensor-core kernels runs in
+  tens of microseconds, about what the host takes to enqueue it; timed
+  back to back, every config would read the host. The host's own ms per
+  call is kept beside. Operands stay the same across launches, so at the
+  benchmark shapes (which fit in the 50 MB L2) the kernel runs warm, as on
+  the TPU, after the first call of each window.
 
 Many states collapse onto one configuration; the runners time each novel
 configuration once and answer the rest from a cache (the reference's
@@ -32,7 +36,7 @@ from __future__ import annotations
 import math
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,29 +183,133 @@ def state_to_conv_config(
 # timing on the card
 # ---------------------------------------------------------------------------
 
-def cuda_seconds(fn: Callable[[], object], target_ms: float, repeats: int,
-                 warmup: int = 2) -> float:
-    """Seconds per call of ``fn`` (which launches work on the current CUDA
-    stream): ``warmup`` calls, one timed call to size the window, then the
-    minimum over ``repeats`` windows of ``iters`` back-to-back calls
-    between two CUDA events, ``iters`` chosen so that a window lasts about
-    ``target_ms``."""
+class Timing(NamedTuple):
+    seconds: float        # device seconds per call
+    host_seconds: float   # host seconds per call to enqueue it
+
+
+class CudaClock:
+    """What :func:`cuda_seconds` needs from the card: timing events on the
+    current stream, a blocking product of known device time, a sync, and
+    the host's clock. Tests hand the timer a simulated clock instead."""
+
+    BLOCKER_N = 4096   # an f32 [4096, 4096] product, ~2.7 ms on an H100
+
+    def __init__(self, device=None):
+        self.device = torch.device("cuda") if device is None else device
+        self._mat = None
+        self._blocker_ms = None
+
+    host = staticmethod(time.perf_counter)
+
+    def event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    @staticmethod
+    def elapsed_ms(a, b) -> float:
+        return a.elapsed_time(b)
+
+    def sync(self):
+        torch.cuda.synchronize(self.device)
+
+    def block(self, n: int):
+        if self._mat is None:
+            g = torch.Generator(device=self.device).manual_seed(0)
+            self._mat = torch.rand(self.BLOCKER_N, self.BLOCKER_N, generator=g,
+                                   device=self.device)
+            self._out = torch.empty_like(self._mat)
+        for _ in range(n):
+            torch.mm(self._mat, self._mat, out=self._out)
+
+    def blocker_ms(self) -> float:
+        """Device ms of one blocking product (measured once)."""
+        if self._blocker_ms is None:
+            self.block(2)
+            a = self.event()
+            self.block(3)
+            b = self.event()
+            self.sync()
+            self._blocker_ms = self.elapsed_ms(a, b) / 3
+        return self._blocker_ms
+
+
+_CLOCKS: Dict[str, CudaClock] = {}
+PROBE_CALLS = 5        # calls that estimate the host's and device's ms
+MAX_HOST_MS = 40.0     # host enqueueing per window, at most
+# calls per window, at most: the stream's queue of pending launches is
+# finite (about a thousand), and a call may launch several kernels (a
+# library call or a plain version); once the queue is full the host waits
+# for the device and the blocker no longer hides it
+MAX_CALLS = 200
+BLOCK_MARGIN = 2.0     # the blocker lasts this many times the host's estimate
+BLOCK_SLACK_MS = 1.0   # ... plus this
+
+
+def cuda_seconds(fn: Callable[[], object], target_ms: float = 10.0,
+                 repeats: int = 3, warmup: int = 2,
+                 clock: Optional[CudaClock] = None) -> Timing:
+    """Device seconds per call of ``fn`` (which launches work on the current
+    CUDA stream), and the host's seconds per call beside.
+
+    ``warmup`` calls; ``PROBE_CALLS`` calls back to back on the host's
+    clock give the host's cost per call; then each window enqueues a
+    blocking product (:class:`CudaClock`) long enough to outlast the host's
+    enqueueing of the window's calls, records an event, enqueues the calls
+    and records another, so that the calls wait in the stream while the
+    host enqueues them and the two events see the device alone. A first
+    window of ``PROBE_CALLS`` sizes the rest: ``iters`` calls, enough for
+    ``target_ms`` of device time but at most ``MAX_HOST_MS`` of host time
+    and ``MAX_CALLS`` calls; the minimum over ``repeats`` windows is
+    returned. A window whose enqueueing outlasted its blocker is retried
+    once with a blocker sized to the host time it measured; if the host is
+    behind again, this raises.
+    """
+    clock = clock or _CLOCKS.setdefault(str(torch.cuda.current_device()),
+                                        CudaClock())
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    clock.sync()
+    t0 = clock.host()
+    for _ in range(PROBE_CALLS):
+        fn()
+    host_ms = (clock.host() - t0) * 1e3 / PROBE_CALLS
+    clock.sync()
+    blocker = clock.blocker_ms()
 
-    def window(iters):
-        start.record()
+    def window(iters, per_call_ms):
+        need = iters * per_call_ms * BLOCK_MARGIN + BLOCK_SLACK_MS
+        start = clock.event()
+        clock.block(max(1, math.ceil(need / blocker)))
+        mid = clock.event()
+        t = clock.host()
         for _ in range(iters):
             fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+        host = (clock.host() - t) * 1e3
+        end = clock.event()
+        clock.sync()
+        blocked = clock.elapsed_ms(start, mid)
+        dev = clock.elapsed_ms(mid, end) / iters
+        return dev, host / iters, host < blocked, (host, blocked)
 
-    est = window(1)
-    iters = max(1, math.ceil(target_ms / max(est, 1e-4)))
-    return min(window(iters) for _ in range(repeats)) / 1e3
+    def covered(iters):
+        dev, host, ok, (h, b) = window(iters, host_ms)
+        if not ok:
+            dev, host, ok, (h, b) = window(iters, h / iters)
+        if not ok:
+            raise RuntimeError(
+                f"the host was still enqueueing when the blocking product "
+                f"ended: {iters} calls took {h:.3f} ms to enqueue, the "
+                f"blocker {b:.3f} ms")
+        return dev, host
+
+    est, _ = covered(PROBE_CALLS)
+    iters = max(1, min(math.ceil(target_ms / max(est, 1e-4)),
+                       int(MAX_HOST_MS / max(host_ms, 1e-6)), MAX_CALLS))
+    runs = [covered(iters) for _ in range(repeats)]
+    return Timing(min(d for d, _ in runs) / 1e3,
+                  float(np.median([h for _, h in runs])) / 1e3)
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -270,7 +378,7 @@ class _KernelRunner(Runner):
     kernel: Callable = None      # the wrapper whose ``launches`` count
     n_shape: int = 0             # length of a cache key's shape part
 
-    def __init__(self, dtype: str = "bfloat16", target_ms: float = 50.0,
+    def __init__(self, dtype: str = "bfloat16", target_ms: float = 10.0,
                  repeats: int = 3, max_seconds: float = 2.0,
                  time_fn: Optional[Callable] = None, verbose: bool = False,
                  device="cuda"):
@@ -289,6 +397,8 @@ class _KernelRunner(Runner):
         # kernel launches made while timing each config (verification
         # launches not counted)
         self.launches_per_config: Dict[tuple, int] = {}
+        # the host's seconds per call of each timed config
+        self.host_seconds: Dict[tuple, float] = {}
         # configs held against the plain version, and the largest relative
         # error among them
         self.n_verified = 0
@@ -300,7 +410,8 @@ class _KernelRunner(Runner):
                        call: Callable[[], torch.Tensor],
                        plain: Callable[[], torch.Tensor]) -> float:
         """Hold ``call`` (the kernel at ``cfg``) against the plain version
-        on the operands of ``shape``, then time it."""
+        on the operands of ``shape``, then time it on the card: device
+        seconds per call (the host's go to ``host_seconds``)."""
         got = call()
         torch.cuda.synchronize(self.device)
         want = self._plain_out.get(shape)
@@ -312,9 +423,10 @@ class _KernelRunner(Runner):
         self.n_verified += 1
         self.verify_rel_err = max(err, self.verify_rel_err or 0.0)
         before = type(self).kernel.launches
-        sec = cuda_seconds(call, self.target_ms, self.repeats)
+        timing = cuda_seconds(call, self.target_ms, self.repeats)
         self.launches_per_config[cfg] = type(self).kernel.launches - before
-        return sec
+        self.host_seconds[cfg] = timing.host_seconds
+        return timing.seconds
 
     def _check_device(self):
         if self.time_fn is None and self.device.type != "cuda":
@@ -477,10 +589,11 @@ class Conv2dRunner(_KernelRunner):
 # ---------------------------------------------------------------------------
 
 def time_library_matmul(M: int, N: int, K: int, dtype: str = "bfloat16",
-                        target_ms: float = 50.0, repeats: int = 3,
-                        device="cuda") -> float:
-    """Seconds per ``torch.matmul`` (cuBLAS) at the same shapes and input
-    dtype, on the same operands as the runner and with the same timing —
+                        target_ms: float = 10.0, repeats: int = 3,
+                        device="cuda") -> Timing:
+    """Device (and host) seconds per ``torch.matmul`` (cuBLAS) at the same
+    shapes and input dtype, on the same operands as the runner and with the
+    same timing —
     the line the tuned kernel is judged against. cuBLAS accumulates in
     float32 but writes its result in the input dtype (bf16: half the
     kernel's output bytes)."""
@@ -490,9 +603,9 @@ def time_library_matmul(M: int, N: int, K: int, dtype: str = "bfloat16",
 
 def time_library_conv2d(N: int, H: int, W: int, CO: int, CI: int,
                         KH: int, KW: int, stride: int, pad: int,
-                        dtype: str = "bfloat16", target_ms: float = 50.0,
-                        repeats: int = 3, device="cuda") -> float:
-    """Seconds per cuDNN convolution (``F.conv2d`` on channels-last
+                        dtype: str = "bfloat16", target_ms: float = 10.0,
+                        repeats: int = 3, device="cuda") -> Timing:
+    """Device (and host) seconds per cuDNN convolution (``F.conv2d`` on channels-last
     tensors, TF32 off) + bias + ReLU at the same shapes and dtype, on the
     same operands as the runner and with the same timing."""
     import torch.nn.functional as F
