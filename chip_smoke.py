@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      five kernels from csrc/ for sm_90a, one nvcc per source, started
      together; cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
      instance and HMMA (mma.sync) in every bf16 conv2d instance, and
-     neither in the f32 instances
+     neither in the f32 instances; it prints the histogram kernel's atomic
+     instructions, which must all be 32-bit shared-memory adds (ATOMS.ADD):
+     no compare-and-swap loop and no global atomic or reduction
   2. kernel vs plain torch version with injected dropout bits, at the
      main path's shape (the committed pool: N=773, D=17) and at the bench
      shape (N=262,144, D=24, H=256, L=64, T=10, rate 0.1), float32 and
@@ -25,11 +27,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
   7. the histogram kernel vs its plain version in float64 at the
      pretraining shape (the corpus of data/boost_corpus.py: 1,000,000 rows
      x 164 features, 256 bins, the first round's gradient, a non-constant
-     hessian) at every level (m = 1, 2, ..., 32 nodes) and at an odd shape
-     (n 700, d 9, m 4, nb 40): within 1e-5 of max |H|, and two launches
-     bit-identical
+     hessian) at every level (m = 1, 2, ..., 32 nodes), at an odd shape
+     (n 700, d 9, m 4, nb 40) and at one feature whose rows lie in 2 bins
+     (m 1 and 32): equal bit for bit to the plain fixed-point version,
+     within 1e-5 of max |H| of the plain version in float64, and two
+     launches bit-identical
   8. histogram times with CUDA events at every level (m = 1 ... 32) beside
-     the byte bound, the plain version and the index_add_ yardstick
+     the earlier 64-bit-atomic kernel's recorded times, the byte bound, the
+     plain version and the index_add_
+     yardstick; and with every feature's rows in 2 bins at m = 1 and 32
   9. GBDT pretraining at full width: GBDTModelInternal.fit_base on that
      corpus (depth 6, eta 0.2, pack-sum objective, tr-rmse and a-peak@1)
      on the device engine for 50 rounds (cut from 300 with early stopping
@@ -37,7 +43,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      50,000-row subset agree with the numpy grower (pack-prediction
      correlation > 0.999). fit_base is timed whole, and its rounds alone
      by a second run of the device engine, which must grow the same
-     trees, on phase 7's binned corpus. At ~20 rows per
+     trees, on phase 7's binned corpus; the kernel is held and timed on
+     the first tree's own six launches (skewed node sizes). At ~20 rows per
      program the protocol's rmse grows on either engine
      (data/boost_corpus.py says why), so the same fit on the generator's
      4-rows-per-program corpus, with engine "auto", must go through the
@@ -50,10 +57,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
  11. the matmul kernels (csrc/matmul.cu) vs their plain version: every
      template instance the library lists (each bf16 wgmma instance at each
      bk on a shape no tile divides, each f32 thread micro-tile), lattice
-     configs of 1536^3 and of odd shapes, in float32 (rel tol 1e-5) and
-     bfloat16 (rel 1e-5 against the f32 plain version of the same bf16
-     inputs); two launches bit-identical; A = identity gives C == B exactly
-     at every bf16 instance; the plain version's time beside the bound at
+     configs of 1536^3 and of odd shapes, K or N off a multiple of 8 in
+     bf16 (7 x 33 x 5, 64 x 64 x 20: staged zero-padded), in float32 (rel
+     tol 1e-5) and bfloat16 (rel 1e-5 against the f32 plain version of the
+     same bf16 inputs); two launches bit-identical; A = identity gives
+     C == B exactly at every bf16 instance and at the two unaligned shapes;
+     the plain version's time beside the bound at
      1536^3 bf16 (the kernel's and cuBLAS's come from phase 13), and the f32
      CUDA-core kernel at 1536^3 at a few configs beside torch.matmul in f32
  12. the same for the conv2d kernels (csrc/conv2d.cu): every bf16 mma.sync
@@ -177,6 +186,18 @@ def sass_functions(library):
     return funcs
 
 
+def atomic_census(lines):
+    """{opcode: count} of the atomic and reduction instructions (ATOM*,
+    RED*, *CAS*) among a function's SASS lines."""
+    ops = {}
+    for line in lines:
+        m = re.search(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and any(k in m.group(1) for k in ("ATOM", "RED", "CAS")):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ops
+
+
 def peaks_for(name):
     for key, val in PEAKS.items():
         if key in name:
@@ -249,6 +270,12 @@ def card_ms(fn, target_ms=10.0):
 # early stopping, for the time limit)
 PRETRAIN = dict(n=1_000_000, d=164, rounds=50, depth=6)
 HIST_TOL = 1e-5       # of max |H|, against the plain version in float64
+# the earlier histogram kernel, which added with 64-bit shared atomics (a
+# compare-and-swap loop on Hopper), at the pretraining shape: ms per level
+# by m (PERF.md, from this script on an NVIDIA H100 80GB HBM3 at 700 W;
+# the levels between were not recorded). Logged for a reader beside this
+# run's times, never put into the kernels line
+HIST_CAS_MS = {1: 1.509, 32: 3.669}
 ARM_SEEDS = (2000, 2001, 2002)
 
 
@@ -264,26 +291,35 @@ def hist_bound_ms(n, d, m, nb, peaks):
 
 
 def check_hist(th, checks, label, b, nd, g, h, m, nb):
-    """Two kernel launches against the plain version in float64: finite,
-    of shape [d, m, nb], bit-identical, and within HIST_TOL of max |H|.
-    Records the errors in checks[label]; raises where one fails."""
+    """Two kernel launches against the plain versions: finite, of shape
+    [d, m, nb], bit-identical, equal bit for bit to the plain fixed-point
+    version (the same integers, summed exactly), and within HIST_TOL of
+    max |H| of the plain version in float64. Records the errors in
+    checks[label]; raises where one fails."""
     got = th.hist(b, nd, g, h, m, nb)
     again = th.hist(b, nd, g, h, m, nb)
     torch.cuda.synchronize()
+    fixed = th.hist_plain_fixed(b, nd, g, h, m, nb)
     ref = th.hist_plain(b, nd, g.double(), h.double(), m, nb)
     errs, scales = [], []
-    for a, a2, r in zip(got, again, ref):
+    for a, a2, x, r in zip(got, again, fixed, ref):
         if a.shape != (b.shape[0], m, nb) or not torch.isfinite(a).all():
             raise RuntimeError(f"[hist] {label}: histogram not finite or of "
                                f"shape {tuple(a.shape)}")
         if not torch.equal(a, a2):
             raise RuntimeError(f"[hist] {label}: two launches differ")
+        if not torch.equal(a, x):
+            raise RuntimeError(
+                f"[hist] {label}: kernel != hist_plain_fixed, max abs "
+                f"{float((a - x).abs().max()):.3e}")
         errs.append(float((a.double() - r).abs().max()))
         scales.append(float(r.abs().max()))
-    checks[label] = {"max_abs_err": errs, "max_abs_ref": scales}
+    checks[label] = {"max_abs_err": errs, "max_abs_ref": scales,
+                     "equals_plain_fixed": True}
     log(f"[hist] {label} (n={b.shape[1]} d={b.shape[0]} m={m} nb={nb}): "
-        f"max abs err g/h {errs[0]:.3e}/{errs[1]:.3e} of max |H| "
-        f"{scales[0]:.4g}/{scales[1]:.4g} (tol {HIST_TOL:g} of max |H|); "
+        f"equal bit for bit to hist_plain_fixed; max abs err g/h "
+        f"{errs[0]:.3e}/{errs[1]:.3e} of max |H| {scales[0]:.4g}/"
+        f"{scales[1]:.4g} against float64 (tol {HIST_TOL:g} of max |H|); "
         f"two launches bit-identical")
     if any(e > HIST_TOL * sc for e, sc in zip(errs, scales)):
         raise RuntimeError(f"[hist] kernel disagrees with plain: {label}: "
@@ -336,6 +372,12 @@ def gbdt_phases(dev, peaks, fh, th):
                torch.randn(odd["n"], generator=gen, device=dev),
                torch.rand(odd["n"], generator=gen, device=dev),
                odd["m"], odd["nb"])
+    # the worst contention: one feature whose rows lie in 2 bins, at the
+    # root (every row in one node) and at depth
+    two = (bins[:1] & 1).contiguous()
+    for m in (1, 32):
+        check_hist(th, checks, f"two_bins_m{m}", two, nodes(n, m), grad, hess,
+                   m, nb)
 
     # ---- 8. times per level ----
     levels = {}
@@ -344,12 +386,16 @@ def gbdt_phases(dev, peaks, fh, th):
         nd = nodes(n, m)
         k_ms = cuda_ms(lambda: th.hist(bins, nd, grad, hess, m, nb), 10)
         b_ms, b_by = hist_bound_ms(n, d, m, nb, peaks)
+        F, per_block = th.launch_plan(d, n, m, nb, th.sm_count(dev))
         levels[m] = dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by)
         if m in (1, 32):
             # the plain version, and the index_add_ yardstick: the same two
             # index_add_ calls on precomputed keys and values
             p_ms = cuda_ms(lambda: th.hist_plain(bins, nd, grad, hess, m, nb),
                            3, warmup=1)
+            levels[m]["plain_fixed_ms"] = cuda_ms(
+                lambda: th.hist_plain_fixed(bins, nd, grad, hess, m, nb), 3,
+                warmup=1)
             key = th.hist_keys(bins, nd, m, nb)
             vg, vh = grad.expand(d, n).reshape(-1), hess.expand(d, n).reshape(-1)
             og = torch.zeros(d * m * nb, device=dev)
@@ -358,11 +404,32 @@ def gbdt_phases(dev, peaks, fh, th):
                                     oh.index_add_(0, key, vh)), 3, warmup=1)
             levels[m].update(plain_ms=p_ms, library_ms=l_ms)
             del key, vg, vh, og, oh
-        log(f"[8] level {level} (m={m}): kernel {k_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of "
-            f"bound" + (f"; plain {levels[m]['plain_ms']:.4f} ms, index_add_ "
-                        f"{levels[m]['library_ms']:.4f} ms"
-                        if m in (1, 32) else ""))
+        cas = HIST_CAS_MS.get(m)
+        log(f"[8] level {level} (m={m}): kernel {k_ms:.4f} ms (the 64-bit-"
+            f"atomic kernel: " + (f"{cas:.3f} ms" if cas else "not recorded")
+            + f"), bound {b_ms:.4f} ms ({b_by}), kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of bound; plan {F} features x "
+            f"{per_block} rows per block, "
+            f"{-(-d // F) * -(-n // per_block)} blocks"
+            + (f"; plain {levels[m]['plain_ms']:.4f} ms (fixed point "
+               f"{levels[m]['plain_fixed_ms']:.4f} ms), index_add_ "
+               f"{levels[m]['library_ms']:.4f} ms" if m in (1, 32) else ""))
+    # the worst contention at full width: every feature's rows in 2 bins;
+    # at m = 32 also with 256 bins per node, where the kernel's odd node
+    # stride in shared memory (257 words) keeps the nodes' bin 0 in
+    # different banks
+    two = bins & 1
+    for m in (1, 32):
+        nd = nodes(n, m)
+        levels[m]["two_bins_ms"] = cuda_ms(
+            lambda: th.hist(two, nd, grad, hess, m, nb), 10)
+        log(f"[8] m={m}, every feature in 2 bins: kernel "
+            f"{levels[m]['two_bins_ms']:.4f} ms")
+    levels[32]["two_bins_nb256_ms"] = cuda_ms(
+        lambda: th.hist(two, nd, grad, hess, 32, 256), 10)
+    log(f"[8] m=32, every feature in 2 bins, nb=256: kernel "
+        f"{levels[32]['two_bins_nb256_ms']:.4f} ms")
+    del two
     per_round = sum(v["ms"] for v in levels.values())
     log(f"[8] the six levels of one tree: {per_round:.4f} ms of kernel time")
     del bins, grad, hess
@@ -408,16 +475,28 @@ def gbdt_phases(dev, peaks, fh, th):
         rows, pack_ids, labels, "device", "20 rows/program")
     # the rounds alone: the device engine's entry point with fit_base's
     # arguments on phase 7's binned copy of the same rows (launches not
-    # counted); a run repeats bit for bit, so it grows fit_base's trees
+    # counted); a run repeats bit for bit, so it grows fit_base's trees.
+    # The tap keeps the node, grad and hess of the first tree's launches
+    # (bins is the same tensor throughout)
+    tree = []
+
+    def keep_tree(b, nd, g, h, m, nbb):
+        if len(tree) < depth:
+            tree.append((b, nd.clone(), g.clone(), h.clone(), m, nbb))
+
+    th.hist.tap = keep_tree
     torch.cuda.synchronize()
     t = time.perf_counter()
-    again = boost_device.train(
-        model._native_params(), dm, num_boost_round=rounds,
-        obj=boost.pack_sum_square_error,
-        fevals=[boost.pack_sum_rmse, boost.pack_sum_average_peak_score(1)],
-        evals=[(dm, "tr")], metric="tr-rmse", stopping_rounds=100,
-        verbose_eval=0, device=dev)
-    torch.cuda.synchronize()
+    try:
+        again = boost_device.train(
+            model._native_params(), dm, num_boost_round=rounds,
+            obj=boost.pack_sum_square_error,
+            fevals=[boost.pack_sum_rmse, boost.pack_sum_average_peak_score(1)],
+            evals=[(dm, "tr")], metric="tr-rmse", stopping_rounds=100,
+            verbose_eval=0, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        th.hist.tap = None
     ms_round = 1e3 * (time.perf_counter() - t) / rounds
     log(f"[9] 20 rows/program: {rounds} rounds timed alone: {ms_round:.2f} "
         f"ms per round ({per_round / ms_round * 100:.0f}% of it kernel time "
@@ -425,6 +504,19 @@ def gbdt_phases(dev, peaks, fh, th):
     if not np.array_equal(again.predict(rows[:4096]),
                           model.model.predict(rows[:4096])):
         raise RuntimeError("[9] a second run grew other trees")
+    # the kernel on the first tree's own launches: real trees put skewed
+    # numbers of rows in their nodes, which uniform random nodes do not
+    tree_ms = {}
+    for b, nd, g, h, m, nbb in tree:
+        check_hist(th, checks, f"tree_m{m}", b, nd, g, h, m, nbb)
+        tree_ms[m] = cuda_ms(lambda: th.hist(b, nd, g, h, m, nbb), 10)
+        sizes = torch.bincount(nd.long(), minlength=m)
+        log(f"[9] first tree, level m={m}: kernel {tree_ms[m]:.4f} ms (phase "
+            f"8, uniform nodes: {levels[m]['ms']:.4f} ms); rows per node "
+            f"{int(sizes.min())} ... {int(sizes.max())}")
+    if sorted(tree_ms) != sorted(levels):
+        raise RuntimeError(f"[9] first tree: levels {sorted(tree_ms)}")
+    del tree
     if not all(np.isfinite(rmse_a)):
         raise RuntimeError(f"[9] tr-rmse not finite: {rmse_a}")
     # (b) the same generator at 4 rows per program, where the pack-sum
@@ -539,10 +631,12 @@ def gbdt_phases(dev, peaks, fh, th):
         "levels": {str(m): v for m, v in levels.items()},
         "checks": {**checks, "tolerance_of_max_abs": HIST_TOL,
                    "bit_identical_launches": True,
+                   "equals_plain_fixed": True,
                    "subset_engine_corr": corr},
         "launches_by_path": {"pretrain": pre_launches,
                              "pretrain_4_rows": launches_b,
                              "gbdt_arm": arm_launches},
+        "first_tree_ms": {str(m): v for m, v in tree_ms.items()},
         "pretrain": {"rounds": rounds, "ms_per_round": ms_round,
                      "bin_s": bin_s, "fit_base_s": fit_s,
                      "launches_per_round": pre_launches / rounds,
@@ -572,6 +666,9 @@ GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 # float32 CUDA-core configs timed at the tuning shapes (PR 3's best bf16
 # tiles and their neighbours on the f32 lattice)
 MM_F32_CONFIGS = ((96, 64, 16), (128, 64, 16), (64, 128, 8), (128, 128, 8))
+# bf16 products whose K or N is not a multiple of 8 (TMA's 16-byte rows),
+# at a config of the lattice each
+MM_UNALIGNED = (((7, 33, 5), (64, 64, 16)), ((64, 64, 20), (64, 16, 16)))
 CONV_F32_CONFIGS = ((2, 32, 32), (1, 64, 32), (2, 64, 16), (4, 32, 16))
 # the grids of phases 13-14's lattice sweeps at the tuning shapes: every
 # (bm, bn) of the bf16 matmul at bk 64, and the conv2d's at the two widest
@@ -839,7 +936,9 @@ def tuner_phases(dev, peaks, kernels):
         (F32, (96, 160, 72), (3, 32, 72)), (F32, (1000, 24, 40), (8, 24, 40)),
         # ragged: no tile divides M, N or K
         (BF16, (96, 160, 72), (64, 64, 32)), (BF16, (1000, 24, 40),
-                                              (64, 32, 64))] + mm_inst
+                                              (64, 32, 64))] + [
+        # K or N off a multiple of 8: the wrapper stages zero-padded copies
+        (BF16, dims, cfg) for dims, cfg in MM_UNALIGNED] + mm_inst
     operands = {}
     for dtype, dims, cfg in mm_cases:
         M, N, K = dims
@@ -863,7 +962,17 @@ def tuner_phases(dev, peaks, kernels):
         got = om.matmul(torch.eye(M, device=dev, dtype=BF16), b, *cfg)
         if not torch.equal(got, b.float()):
             raise RuntimeError(f"[11] identity A at {cfg}: C != B")
-    log(f"[11] identity A: C == B exactly at every bf16 instance")
+    # and where K or N is off a multiple of 8: A = eye(M, K) gives C = B
+    # in its first min(M, K) rows and zeros below, exactly
+    launches = om.matmul.launches
+    for (M, N, K), cfg in MM_UNALIGNED:
+        a, b = torch.eye(M, K, device=dev, dtype=BF16), randn(K, N, dtype=BF16)
+        if not torch.equal(om.matmul(a, b, *cfg), a.float() @ b.float()):
+            raise RuntimeError(f"[11] identity A at {(M, N, K)} {cfg}: C != B")
+    if om.matmul.launches != launches + len(MM_UNALIGNED):
+        raise RuntimeError("[11] an unaligned bf16 product did not launch")
+    log(f"[11] identity A: C == B exactly at every bf16 instance and at "
+        f"{[d for d, _ in MM_UNALIGNED]} (K or N off 8, staged)")
     del operands, a, b
     a = randn(MM_DIM, MM_DIM, dtype=BF16)
     b = randn(MM_DIM, MM_DIM, dtype=BF16)
@@ -1795,6 +1904,20 @@ def main():
         if not bf16 or not all(counts[n] for n in bf16) or any(
                 counts[n] for n in f32):
             raise RuntimeError(f"[1] {lib.library.name}: {op} counts {counts}")
+
+    # the histogram kernel adds with 32-bit shared-memory atomics: its only
+    # atomic instructions are ATOMS.ADD, with no compare-and-swap loop
+    # (which is what a 64-bit shared add compiles to) and no global atomic
+    # or reduction (ATOMG, RED): partial sums are stored, not added
+    hist_sass = {name: atomic_census(text) for name, text in
+                 sass_functions(th.LIB.library).items()
+                 if "hist_kernel" in name}
+    log(f"[1] cuobjdump -sass {th.LIB.library.name}: atomic instructions "
+        f"of the {len(hist_sass)} hist_kernel instances {hist_sass}")
+    if not hist_sass or any(
+            not ops or any(not op.startswith("ATOMS.ADD") or "CAS" in op
+                           for op in ops) for ops in hist_sass.values()):
+        raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
     kernels = {"fused_head_stats": fh.fused_head_stats, "hist": th.hist,
                "matmul": om.matmul, "conv2d": oc.conv2d,

@@ -121,3 +121,165 @@ def test_launch_plan(d, n, m, nb):
 def test_launch_plan_rejects_what_does_not_fit():
     with pytest.raises(ValueError):
         th.launch_plan(10, 1000, 64, 256)  # 256 KB for one feature
+
+
+# ---------------------------------------------------------------------------
+# the plain fixed-point version: what the kernel computes, bit for bit
+# ---------------------------------------------------------------------------
+
+HIST_TOL = 1e-5  # of max |H|, as the card holds the kernel to float64
+
+
+def _fixed(bins, node, g, h, m, nb):
+    return [t.numpy() for t in th.hist_plain_fixed(
+        torch.as_tensor(bins), torch.as_tensor(node), torch.as_tensor(g),
+        torch.as_tensor(h), m, nb)]
+
+
+@pytest.mark.parametrize("n,d,m,nb,zero_rows,g_scale", [
+    (700, 9, 4, 40, 0, 1.0), (700, 9, 1, 256, 0, 1.0),
+    (600, 5, 32, 256, 57, 1.0), (513, 3, 32, 17, 100, 1e-30),
+    (4000, 2, 2, 2, 0, 1e6), (1, 1, 1, 1, 0, 1.0)])
+def test_fixed_matches_float64_plain(n, d, m, nb, zero_rows, g_scale):
+    bins, node, g, h = _inputs(n, d, m, nb, zero_rows)
+    g = (g * g_scale).astype(np.float32)
+    got = _fixed(bins, node, g, h, m, nb)
+    ref = th.hist_plain(torch.as_tensor(bins), torch.as_tensor(node),
+                        torch.as_tensor(g).double(),
+                        torch.as_tensor(h).double(), m, nb)
+    for gt, rf in zip(got, ref):
+        rf = rf.numpy()
+        assert gt.shape == (d, m, nb) and gt.dtype == np.float32
+        assert np.abs(gt - rf).max() <= HIST_TOL * np.abs(rf).max()
+
+
+@pytest.mark.parametrize("n,d,m,nb,zero_rows", [
+    (700, 9, 4, 40, 0), (600, 5, 32, 256, 57), (513, 3, 32, 17, 100),
+    (700, 9, 1, 256, 0), (1024, 4, 2, 2, 24), (257, 6, 8, 255, 0)])
+def test_fixed_matches_jax_pallas(n, d, m, nb, zero_rows):
+    bins, node, g, h = _inputs(n, d, m, nb, zero_rows, seed=4)
+    got = _fixed(bins, node, g, h, m, nb)
+    ref = _jax("pallas", bins, node, g, h, m, nb)
+    for gt, rf in zip(got, ref):
+        # the tolerance of test_plain_matches_jax (f32 sums in another
+        # order on the JAX side)
+        assert np.abs(gt - rf).max() <= 1e-5 * np.abs(rf).max()
+
+
+def test_fixed_is_invariant_to_row_order():
+    bins, node, g, h = _inputs(5000, 6, 8, 64, 300, seed=5)
+    perm = np.random.default_rng(6).permutation(5000)
+    a = _fixed(bins, node, g, h, 8, 64)
+    b = _fixed(bins[:, perm], node[perm], g[perm], h[perm], 8, 64)
+    for x, y in zip(a, b):
+        assert np.array_equal(x, y)
+
+
+def test_fixed_skips_inert_rows_and_out_of_range_nodes_and_bins():
+    """Rows with g = h = 0, rows whose node is outside [0, m) and
+    (feature, row) pairs whose bin is >= nb add nothing, bit for bit: the
+    result does not change when such rows move to other nodes and bins,
+    when out-of-range rows are made inert instead, or when out-of-range
+    bins take other out-of-range values (row 0 holds the largest |g| and
+    |h|, so the exponents stay the same); and it agrees with a float64
+    loop."""
+    m, nb = 4, 10
+    rng = np.random.default_rng(8)
+    bins, node, g, h = _inputs(3000, 5, m, 16, 200, seed=7)  # bins to 15
+    g[0], h[0], node[0], bins[:, 0] = 8.0, 8.0, 1, 3
+    node[1::7] = m
+    node[3::11] = -1
+    out = (node < 0) | (node >= m)
+    got = _fixed(bins, node, g, h, m, nb)
+    inert = np.zeros(3000, bool)
+    inert[-200:] = True
+    moved_b, moved_n = bins.copy(), node.copy()
+    moved_b[:, inert] = rng.integers(0, 16, (5, int(inert.sum())))
+    moved_n[inert] = rng.integers(-2, m + 2, int(inert.sum()))
+    moved_b[moved_b >= nb] = rng.integers(nb, 256, int((moved_b >= nb).sum()))
+    variants = [
+        (moved_b, moved_n, g, h),
+        (bins, np.where(out, 0, node).astype(np.int32),
+         np.where(out, 0, g).astype(np.float32),
+         np.where(out, 0, h).astype(np.float32))]
+    for args in variants:
+        for a, b in zip(got, _fixed(*args, m, nb)):
+            assert np.array_equal(a, b)
+    ref = [np.zeros((5, m, nb)), np.zeros((5, m, nb))]
+    for f in range(5):
+        for r in range(3000):
+            if 0 <= node[r] < m and bins[f, r] < nb:
+                ref[0][f, node[r], bins[f, r]] += g[r]
+                ref[1][f, node[r], bins[f, r]] += h[r]
+    for a, r in zip(got, ref):
+        assert np.abs(a - r).max() <= 1e-6 * np.abs(r).max()
+
+
+# the plan at the pretraining shape (1M rows x 164 features, 256 bins):
+# one block per SM (each takes over 114 KB of shared memory), so the grid
+# is a near multiple of 132 blocks; the row ranges grow with m
+@pytest.mark.parametrize("m,F,rows,blocks", [
+    (1, 55, 22728, 132), (2, 28, 45456, 132), (4, 14, 90912, 132),
+    (8, 7, 200000, 120), (16, 3, 142860, 385), (32, 1, 333336, 492)])
+def test_launch_plan_at_the_pretraining_shape(m, F, rows, blocks):
+    d, n = 164, 1_000_000
+    assert th.launch_plan(d, n, m, 256) == (F, rows)
+    groups, chunks = -(-d // F), -(-n // rows)
+    assert groups * chunks == blocks
+    assert F * th.feature_smem_bytes(m, 256) <= th.HIST_SMEM_BYTES
+    assert th.feature_smem_bytes(m, 256) == 16 * m * 257  # odd node stride
+    assert rows % 4 == 0 and rows >= th.MIN_ROWS
+    # the last wave of 132 one-block-per-SM slots is at least FILL full
+    assert blocks / (-(-blocks // th.NUM_SMS) * th.NUM_SMS) >= th.FILL
+
+
+@pytest.mark.parametrize("sms", [114, 132, 144])
+@pytest.mark.parametrize("m", [1, 32])
+def test_launch_plan_fills_the_cards_own_sms(m, sms):
+    """The plan follows the SM count it is given (an H100 PCIe has 114,
+    an SXM 132): at the pretraining shape the last wave of one-block-per-SM
+    slots is at least FILL full on each."""
+    d, n = 164, 1_000_000
+    F, rows = th.launch_plan(d, n, m, 256, sms)
+    blocks = -(-d // F) * -(-n // rows)
+    assert blocks / (-(-blocks // sms) * sms) >= th.FILL
+    assert th.launch_plan(d, n, m, 256) == th.launch_plan(d, n, m, 256, 132)
+
+
+def test_launch_plan_small_inputs_take_one_row_range():
+    # the gbdt arm's pool (773 rows) and the cost-model split (5,477 rows)
+    for d, n, m in ((17, 773, 32), (164, 773, 1), (164, 5477, 4)):
+        F, rows = th.launch_plan(d, n, m, 256)
+        assert rows == n
+
+
+@pytest.mark.parametrize("amax,n,want", [
+    (1.0, 1_000_000, 62 - 20 - 1),     # 1.0 < 2^1
+    (0.75, 1_000_000, 62 - 20 - 0),    # 0.75 < 2^0
+    (3.0e-30, 700, 62 - 10 + 98),      # 3e-30 < 2^-98
+    (1.0e6, 1, 62 - 0 - 20),           # 1e6 < 2^20, one row
+    (0.0, 5000, 0)])                   # all zero: e = 0
+def test_fixed_exponent(amax, n, want):
+    """e = 62 - ceil(log2 n) - ex with max |v| < 2^ex (frexp), as the
+    kernel's fixed_exponent; the sign of the largest value does not
+    matter."""
+    v = torch.tensor([0.5 * amax, -amax, 0.25 * amax], dtype=torch.float32)
+    assert th.fixed_exponent(v, n) == want
+    _, ex = np.frexp(np.float32(amax))
+    assert amax == 0 or want == 62 - (n - 1).bit_length() - int(ex)
+
+
+@pytest.mark.parametrize("d,n,m,nb", [
+    (164, 1_000_000, 1, 255), (164, 1_000_000, 32, 255), (17, 50_000, 8, 64),
+    (9, 700, 4, 40), (200, 2_000_003, 16, 256), (3, 200_000, 8, 2)])
+def test_launch_plan_invariants(d, n, m, nb):
+    """Any plan: F fits shared memory, rows are a multiple of 4 (the
+    kernel's four rows per thread) unless one range covers all n, every
+    range but the last holds at least MIN_ROWS rows, and the ranges cover
+    the rows."""
+    F, rows = th.launch_plan(d, n, m, nb)
+    assert 1 <= F <= d
+    assert F * th.feature_smem_bytes(m, nb) <= th.HIST_SMEM_BYTES
+    chunks = -(-n // rows)
+    assert (chunks - 1) * rows < n <= chunks * rows
+    assert rows == n or (rows % 4 == 0 and rows >= th.MIN_ROWS)

@@ -184,6 +184,42 @@ def test_hist_kernel_matches_plain(dev, n, d, m, nb, zero_rows, g_scale):
         assert err <= 1e-5 * float(r.abs().max()), err
 
 
+# the kernel's contract: the integers of hist_plain_fixed, summed exactly,
+# so the two are equal bit for bit; with one launch covering the rows
+# (C = 1) or several blocks' partial sums (C > 1), at the worst contention
+# (every row of a feature in 2 bins) and with inert and out-of-range rows
+@pytest.mark.parametrize("n,d,m,nb,zero_rows,g_scale,two_bins", [
+    (700, 9, 4, 40, 0, 1.0, False), (1003, 5, 1, 256, 0, 1.0, False),
+    (20_000, 7, 32, 256, 3000, 1.0, False),
+    (5000, 3, 16, 100, 0, 1e-30, False),
+    (70_000, 20, 8, 2, 0, 1e6, False), (1, 1, 1, 1, 0, 1.0, False),
+    (200_000, 12, 1, 256, 0, 1.0, True), (200_000, 12, 32, 256, 10, 1.0, True),
+    (1_000_000, 164, 32, 256, 0, 1.0, False),
+    (1_000_000, 164, 1, 256, 0, 1.0, False)])
+def test_hist_kernel_equals_plain_fixed(dev, n, d, m, nb, zero_rows, g_scale,
+                                        two_bins):
+    bins, node, g, h = _hist_inputs(dev, n, d, m, nb, zero_rows, g_scale)
+    if two_bins:
+        bins = bins % 2
+    node[::97] = m          # out of range: adds nothing
+    got = th.hist(bins, node, g, h, m, nb)
+    torch.cuda.synchronize()
+    ref = th.hist_plain_fixed(bins, node, g, h, m, nb)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r), float((a - r).abs().max())
+
+
+def test_hist_sets_attributes_once_and_reuses_scratch(dev):
+    bins, node, g, h = _hist_inputs(dev, 50_000, 6, 8, 64)
+    th.hist(bins, node, g, h, 8, 64)
+    calls = th.LIB.load().hist_attr_calls()
+    cached = len(th._SCRATCH)
+    for _ in range(3):
+        th.hist(bins, node, g, h, 8, 64)
+    assert th.LIB.load().hist_attr_calls() == calls
+    assert len(th._SCRATCH) == cached
+
+
 def test_hist_kernel_skips_out_of_range_like_plain(dev):
     """Nodes outside [0, m) and bins >= nb add nothing in the kernel and in
     the plain version alike (within 1e-5 of max |H|)."""
@@ -254,7 +290,9 @@ F32, BF16 = torch.float32, torch.bfloat16
                                               (128, 192, 64)),
     (BF16, (1536, 1536, 1536), (256, 128, 32)),
     (BF16, (96, 160, 72), (64, 64, 32)),     # ragged in M, N and K
-    (BF16, (1000, 24, 40), (64, 32, 64)), (BF16, (64, 24, 48), (64, 16, 16))])
+    (BF16, (1000, 24, 40), (64, 32, 64)), (BF16, (64, 24, 48), (64, 16, 16)),
+    # K or N off a multiple of 8: the operands are staged zero-padded
+    (BF16, (7, 33, 5), (64, 64, 16)), (BF16, (64, 64, 20), (64, 16, 16))])
 def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
     M, N, K = dims
     assert om.config_is_valid(M, N, K, *cfg, dtype=om.dtype_name(dtype))[0]
@@ -297,6 +335,9 @@ def test_bf16_matmul_epilogue_places_every_output(dev, bm, bn, bk):
     a = torch.eye(M, M, device=dev).bfloat16()
     b = torch.randn(M, N, device=dev).bfloat16()
     assert torch.equal(om.matmul(a, b, bm, bn, bk), b.float())
+    # K and N off a multiple of 8 (staged operands, C cut back)
+    a, b = a[:M - 3, :M - 3].contiguous(), b[:M - 3, :N - 5].contiguous()
+    assert torch.equal(om.matmul(a, b, bm, bn, bk), b.float())
 
 
 def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
@@ -314,12 +355,15 @@ def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
                 (256, 256, 64)):     # accumulators over 128 registers
         with pytest.raises(ValueError, match="invalid matmul config"):
             om.matmul(ab, ab, *cfg)
-    odd = ab[:250, :250].contiguous()   # K = N = 250: rows of 500 bytes
-    with pytest.raises(ValueError, match="TMA"):
-        om.matmul(odd, odd, 64, 64, 64)
     with pytest.raises(ValueError):
         om.matmul(a, a.half(), 128, 128, 64)
     assert om.matmul.launches == before
+    # K = N = 250 (rows of 500 bytes, off TMA's 16): staged, not refused
+    odd = ab[:250, :250].contiguous()
+    got = om.matmul(odd, odd, 64, 64, 64)
+    assert om.matmul.launches == before + 1 and got.shape == (250, 250)
+    assert got.is_contiguous()
+    assert _rel(got, om.matmul_plain(odd, odd)) <= MM_TOL[BF16]
     x = torch.randn(1, 56, 56, 256, device=dev)
     w = torch.randn(3, 3, 256, 256, device=dev)
     b = torch.randn(256, device=dev)

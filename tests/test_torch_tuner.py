@@ -158,16 +158,36 @@ def test_runner_times_each_config_once(family):
     assert m.best_cost[task.workload_key] == best.costs[0]
 
 
+@pytest.mark.parametrize("dims", [(7, 33, 5), (64, 64, 20)])
+def test_ragged_bf16_task_is_not_refused_by_shape(dims):
+    """A bf16 matmul task whose K or N is off a multiple of 8 (TMA's
+    16-byte rows): every state maps onto a valid config and is timed, none
+    is refused (the wrapper stages the operands)."""
+    task = _task(*dims)
+    runner = MatmulRunner(time_fn=_fake_mm, device="cpu")
+    assert runner.dtype == "bfloat16"
+    states = _bound(task, 30, 3)
+    res = ProgramMeasurer(EmptyBuilder(), runner,
+                          max_continuous_error=10**9).measure(task, states)
+    assert len(res) == len(states)
+    assert all(r.error_no == ERROR_NO_ERROR for r in res)
+    assert runner.n_timed >= 1
+    for cfg, _, err in runner.measured_configs():
+        assert err == ERROR_NO_ERROR
+        assert om.config_is_valid(*dims, *cfg) == (True, None)
+
+
 def test_runner_rejects_invalid_and_slow_configs():
     # a stride-2 conv maps onto a config but never fits the stride-1 kernel
     t2 = _conv_task(CO=64, CI=64, stride=2)
     res = Conv2dRunner(time_fn=_fake_conv, device="cpu").run(
         t2, [t2.compute_dag.init_state.copy()])
     assert res[0].error_no == ERROR_INSTANTIATION
-    # an axis with no tiling on the lattice (a prime N, too wide for one
-    # block's threads)
+    # an axis with no tiling on the float32 lattice (a prime N, too wide
+    # for one block's threads; the bf16 kernel masks ragged tiles and
+    # takes it)
     t3 = _task(8, 32639, 8)
-    r3 = MatmulRunner(time_fn=_fake_mm, device="cpu")
+    r3 = MatmulRunner(dtype="float32", time_fn=_fake_mm, device="cpu")
     res = r3.run(t3, [t3.compute_dag.init_state.copy()])
     assert res[0].error_no == ERROR_INSTANTIATION and r3.n_timed == 0
     # too slow: on the timing path, the prediction guard rejects the

@@ -20,11 +20,18 @@ The dtype chooses the kernel, and with it the lattice of configurations
   in ``BF16_BK`` (an A row of bk * 2 bytes fills a 32/64/128-byte swizzle);
   the accumulators, (bm / 64 / warpgroups) * bn / 2 per consumer thread,
   at most ``ACC_REGS``; the stage count is derived, as many stages (up to
-  ``MAX_STAGES``) as fit 227 KB, and must be at least two; K and N multiples
-  of 8 (TMA needs 16-byte row strides). Tiles need not divide M, N or K:
-  TMA zero-fills out-of-range loads and the kernel masks its stores. The
-  snap moves each of bm, bn, bk up to the lattice (from at most the axis
-  length), then narrows bn until the accumulators fit.
+  ``MAX_STAGES``) as fit 227 KB, and must be at least two. Tiles need not
+  divide M, N or K: TMA zero-fills out-of-range loads and the kernel masks
+  its stores. TMA needs 16-byte row strides, so where K or N is not a
+  multiple of 8 the wrapper stages A and B into zero-padded copies with K
+  and N rounded up to multiples of 8 (:func:`bf16_staged`), runs the kernel
+  unchanged on them and cuts C back to [M, N]. The padded K terms are exact
+  zeros, so every f32 sum is the unpadded product's; the padded N columns
+  are computed and dropped. The copies are part of the call, so a tuner
+  timing such a shape times them too, as its caller pays for them; aligned
+  shapes take no copy. The snap moves each of bm, bn, bk up to the lattice
+  (from at most the axis length), then narrows bn until the accumulators
+  fit; its result is always valid.
 - **float32, CUDA cores**: exact tiling (bm | M, bn | N, bk | K); a thread
   micro-tile from {1, 2, 4, 8}^2 leaving at most 256 threads per block (the
   kernel's launch bound, which caps its registers); the two staged tiles
@@ -164,9 +171,6 @@ def bf16_stages(bm: int, bn: int, bk: int) -> int:
 
 
 def _bf16_why(M, N, K, bm, bn, bk) -> Optional[str]:
-    if N % TMA_ALIGN or K % TMA_ALIGN:
-        return (f"TMA: rows of A (K={K}) and B (N={N}) must be multiples of "
-                f"{TMA_ALIGN} elements (16-byte strides)")
     if bm not in BF16_BM:
         return (f"bm={bm} not in {BF16_BM}: 64-row wgmma atoms, one or two "
                 f"consumer warpgroups")
@@ -242,9 +246,10 @@ def up_to(v: int, dim: int, choices) -> int:
 def snap_config_to_hw(M: int, N: int, K: int, bm: int, bn: int, bk: int,
                       dtype="bfloat16") -> Tuple[int, int, int]:
     """Snap a raw (bm, bn, bk) onto the kernel's lattice (module
-    docstring). bf16: the result is valid unless K or N breaks TMA's
-    alignment. f32: the result is valid unless an axis has no divisor on the
-    lattice that fits, and then it holds that axis whole."""
+    docstring). bf16: the result is always valid (K or N off TMA's
+    alignment is staged by the wrapper). f32: the result is valid unless
+    an axis has no divisor on the lattice that fits, and then it holds
+    that axis whole."""
     if dtype_name(dtype) == "bfloat16":
         bm, bn, bk = (up_to(bm, M, BF16_BM), up_to(bn, N, BF16_BN),
                       up_to(bk, K, BF16_BK))
@@ -313,6 +318,19 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def bf16_staged(a: torch.Tensor, b: torch.Tensor):
+    """(a, b) for the bf16 kernel: the inputs themselves when K and N are
+    multiples of ``TMA_ALIGN`` (no copy), else zero-padded copies with K
+    and N rounded up to multiples of it (16-byte row strides for TMA)."""
+    K, N = b.shape
+    pad_k, pad_n = -K % TMA_ALIGN, -N % TMA_ALIGN
+    if pad_k:
+        a = torch.nn.functional.pad(a, (0, pad_k))
+    if pad_k or pad_n:
+        b = torch.nn.functional.pad(b, (0, pad_n, 0, pad_k))
+    return a, b
+
+
 # the bf16 kernel's two TMA descriptors (2 x 128 bytes, 64-byte aligned) per
 # (pointers, shape, tile); a descriptor holds only the address, shape and box
 _MAPS = {}
@@ -359,22 +377,25 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     if not ok:
         raise ValueError(f"invalid matmul config ({bm}, {bn}, {bk}): {why}")
     lib = LIB.load()
-    c = torch.empty(M, N, dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if name == "bfloat16":
+        a, b = bf16_staged(a, b)
+        Kp, Np = b.shape
         if a.data_ptr() % 16 or b.data_ptr() % 16:
             raise ValueError("a and b must be 16-byte aligned (TMA)")
-        maps = _tensor_maps(lib, a.data_ptr(), b.data_ptr(), M, N, K, bm, bn,
-                            bk)
-        err = lib.matmul_bf16_launch(maps, c.data_ptr(), M, N, K, bm, bn, bk,
-                                     bf16_stages(bm, bn, bk), stream)
+        c = torch.empty(M, Np, dtype=torch.float32, device=a.device)
+        maps = _tensor_maps(lib, a.data_ptr(), b.data_ptr(), M, Np, Kp, bm,
+                            bn, bk)
+        err = lib.matmul_bf16_launch(maps, c.data_ptr(), M, Np, Kp, bm, bn,
+                                     bk, bf16_stages(bm, bn, bk), stream)
     else:
+        c = torch.empty(M, N, dtype=torch.float32, device=a.device)
         tm, tn = thread_tile(bm, bn)
         err = lib.matmul_f32_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                     M, N, K, bm, bn, bk, tm, tn, stream)
     check_launch(err, "matmul")
     matmul.launches += 1
-    return c
+    return c if c.shape[1] == N else c[:, :N].contiguous()
 
 
 matmul.launches = 0
