@@ -1,24 +1,33 @@
 """On-card smoke test of the PyTorch/CUDA port (needs one NVIDIA GPU).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase; ends with the result line
+    python3 chip_smoke.py --only head  # phases 1-6 alone, for work on the
+                                       # fused head; ends {"partial": "head"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
      five kernels from csrc/ for sm_90a, one nvcc per source, started
-     together; cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
+     together; no fused_head_kernel instance may spill registers (ptxas);
+     cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
      instance and HMMA (mma.sync) in every bf16 conv2d instance, and
      neither in the f32 instances; it prints the histogram kernel's atomic
      instructions, which must all be 32-bit shared-memory adds (ATOMS.ADD):
      no compare-and-swap loop and no global atomic or reduction
   2. kernel vs plain torch version with injected dropout bits, at the
-     main path's shape (the committed pool: N=773, D=17) and at the bench
-     shape (N=262,144, D=24, H=256, L=64, T=10, rate 0.1), float32 and
-     bfloat16
+     main path's shape (the committed pool: N=773, D=17, T=10; the launch
+     plan splits the passes over grid groups) and at the bench shape
+     (N=262,144, D=24, H=256, L=64, T=10, rate 0.1; one group), float32
+     and bfloat16, and at the main shape with T=7, whose plan gives pass
+     groups of unequal length; two launches bit-identical at G > 1
   3. the in-kernel Philox path: cost and gnorm equal the injected-bits
-     run bit for bit; the mean MC variance and the mean MC offset
-     (mc_mean - cost) are within 5% of the plain version fed
+     run bit for bit (bench and main shapes); the mean MC variance and the
+     mean MC offset (mc_mean - cost) are within 5% of the plain version fed
      torch-Generator bits
-  4. timing with CUDA events: kernel, plain version and the bound
+  4. the kernel's device time by the card timer
+     (search/kernel_tuner.py::cuda_seconds; the host's ms per call beside),
+     the plain version's by back-to-back CUDA events, and the bound,
+     and at the main shape in float32 the kernel at every G from 1 to T
+     (G = 1: the grid of 25 tiles alone)
   5. one full select_programs phase at the bench shape (bfloat16)
   6. end to end: the active search on the committed pool at full width
      (hidden 256, latent 64, T 10, measure size 32, 500 VAE epochs, 1000
@@ -136,6 +145,7 @@ The last three lines are the card's name and power limit, a JSON object
 with each kernel's check and times, then {"ok": true, "device": {...}}.
 """
 
+import argparse
 import contextlib
 import io
 import json
@@ -196,6 +206,27 @@ def atomic_census(lines):
         if m and any(k in m.group(1) for k in ("ATOM", "RED", "CAS")):
             ops[m.group(1)] = ops.get(m.group(1), 0) + 1
     return ops
+
+
+def ptxas_report(out):
+    """{kernel function: (registers, spill store + load bytes)} from the
+    ``-Xptxas -v`` lines of an nvcc build."""
+    rep, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = m.group(1)
+            rep.setdefault(cur, [0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            rep[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            rep[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in rep.items()}
 
 
 def peaks_for(name):
@@ -1694,11 +1725,28 @@ def head_phases(dev, peaks, fh, th):
                              generator=g, device=dev,
                              dtype=torch.int32).view(torch.uint32)
 
+    def plan(shape):
+        """(G, pass bounds, blocks) of the wrapper's launch plan."""
+        G, bounds = fh.launch_plan(shape["n"], shape["T"], fh.sm_count(dev))
+        return G, bounds, -(-shape["n"] // fh.BM) * G
+
+    def log_plan(label, shape, dtype):
+        G, bounds, blocks = plan(shape)
+        passes = [b - a for a, b in zip(bounds, bounds[1:])]
+        log(f"[2] {label} N={shape['n']} T={shape['T']} {dtype_name(dtype)}:"
+            f" plan G={G}, {blocks} blocks, passes per group {passes}")
+        return G
+
     # ---- 2. kernel vs plain, injected bits ----
     names = ("cost", "gnorm", "mc_mean", "mc_var")
+    uneven = dict(main_shape, T=7)
     errors = {}
-    for label, shape in (("main", main_shape), ("bench", BENCH)):
-        for dtype in (torch.float32, torch.bfloat16):
+    for label, shape, dtypes in (
+            ("main", main_shape, (torch.float32, torch.bfloat16)),
+            ("bench", BENCH, (torch.float32, torch.bfloat16)),
+            ("uneven", uneven, (torch.float32,))):
+        for dtype in dtypes:
+            G = log_plan(label, shape, dtype)
             p, x = setup(shape, dtype, 1)
             bits = words(shape, 2)
             got = call(p, x, shape, bits=bits)
@@ -1718,14 +1766,22 @@ def head_phases(dev, peaks, fh, th):
             if max(rel.values()) > TOL[dtype]:
                 raise RuntimeError(f"kernel disagrees with plain: {label} "
                                    f"{dtype}: {rel}")
+            if G > 1:
+                again = call(p, x, shape, bits=bits)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise RuntimeError(f"{label} {dtype}: two launches at "
+                                       f"G={G} differ")
+                log(f"[2] {label} {dtype_name(dtype)}: two launches at G={G} "
+                    f"bit-identical")
             del bits, got, ref
 
     # ---- 3. Philox path ----
-    p, x = setup(BENCH, torch.float32, 3)
-    inj = call(p, x, BENCH, bits=words(BENCH, 4))
-    ph = call(p, x, BENCH, seed=11)
-    if not (torch.equal(ph[0], inj[0]) and torch.equal(ph[1], inj[1])):
-        raise RuntimeError("Philox run changed cost/gnorm")
+    for label, shape in (("main", main_shape), ("bench", BENCH)):
+        p, x = setup(shape, torch.float32, 3)
+        inj = call(p, x, shape, bits=words(shape, 4))
+        ph = call(p, x, shape, seed=11)
+        if not (torch.equal(ph[0], inj[0]) and torch.equal(ph[1], inj[1])):
+            raise RuntimeError(f"{label}: Philox run changed cost/gnorm")
     k_var, k_off, r_var, r_off = [], [], [], []
     for s in range(4):
         k = call(p, x, BENCH, seed=100 + s)
@@ -1737,30 +1793,45 @@ def head_phases(dev, peaks, fh, th):
         r_off.append(float((r[2] - r[0]).mean()))
     k_var, k_off = np.mean(k_var), np.mean(k_off)
     r_var, r_off = np.mean(r_var), np.mean(r_off)
-    log(f"[3] Philox: cost/gnorm bit-equal to injected run; mean mc_var "
-        f"{k_var:.6e} vs plain {r_var:.6e}; mean mc offset {k_off:.6e} vs "
-        f"plain {r_off:.6e} (4 seeds each)")
+    log(f"[3] Philox: cost/gnorm bit-equal to injected run (main, bench); "
+        f"mean mc_var {k_var:.6e} vs plain {r_var:.6e}; mean mc offset "
+        f"{k_off:.6e} vs plain {r_off:.6e} (bench, 4 seeds each)")
     if abs(k_var - r_var) > 0.05 * r_var or abs(k_off - r_off) > \
             0.05 * abs(r_off):
         raise RuntimeError("Philox MC statistics outside the 5% band")
 
-    # ---- 4. timing ----
+    # ---- 4. timing (device time; the host's ms per call beside) ----
     times = {}
-    for label, shape, iters in (("main", main_shape, 50),
-                                ("bench", BENCH, 5)):
+    # (the plain version's ~100 launches per call outlast the card
+    # timer's blocker at the main shape: it is timed by back-to-back
+    # events, host included, as before)
+    for label, shape, iters in (("main", main_shape, 10), ("bench", BENCH, 2)):
         for dtype in (torch.float32, torch.bfloat16):
             p, x = setup(shape, dtype, 5)
             gen = torch.Generator(device=dev).manual_seed(6)
-            k_ms = cuda_ms(lambda: call(p, x, shape, seed=7), iters)
-            p_ms = cuda_ms(lambda: plain(p, x, shape, gen=gen),
-                           max(2, iters // 5))
+            k_ms, k_host = card_ms(lambda: call(p, x, shape, seed=7))
+            p_ms = cuda_ms(lambda: plain(p, x, shape, gen=gen), iters)
             b_ms, b_by = bound_ms(shape["n"], shape["d"], shape["hid"],
                                   shape["lat"], shape["hp"], shape["T"],
                                   dtype, peaks)
-            times[(label, dtype)] = (k_ms, p_ms, b_ms, b_by)
+            times[(label, dtype)] = (k_ms, p_ms, b_ms, b_by, k_host)
             log(f"[4] {label} N={shape['n']} {dtype_name(dtype)}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"{k_ms:.4f} ms (host {k_host:.4f} ms per call), plain "
+                f"{p_ms:.4f} ms (events), bound {b_ms:.4f} ms "
                 f"({b_by}); kernel at {100 * b_ms / k_ms:.1f}% of bound")
+    # the split alone: the main shape at every G up to T (from G = 6 on
+    # 132 SMs, some SMs hold two blocks)
+    p, x = setup(main_shape, torch.float32, 5)
+    G_plan, _, _ = plan(main_shape)
+    tiles = -(-main_shape["n"] // fh.BM)
+    by_g = {}
+    for G in range(1, main_shape["T"] + 1):
+        by_g[G] = card_ms(lambda: fh.fused_head_stats(
+            p["cost_predictor"], x, 7, T=main_shape["T"], rate=0.1,
+            encoder=(p["encoder"], p["fc_mu"]), groups=G))
+        log(f"[4] main N={main_shape['n']} float32 at G={G} ({tiles * G} "
+            f"blocks{', the plan' if G == G_plan else ''}): "
+            f"{by_g[G][0]:.4f} ms (host {by_g[G][1]:.4f})")
 
     # ---- 5. one select_programs phase at the bench shape ----
     cfg = SelectionConfig(num_select=64, T_mc=10, topk_factor=5, grad_num=2,
@@ -1823,9 +1894,9 @@ def head_phases(dev, peaks, fh, th):
         raise RuntimeError(f"{launches} kernel launches for {phases} phases"
                            f" ({th.hist.launches} histogram launches)")
 
-    k_ms, p_ms, b_ms, b_by = times[("main", torch.float32)]
-    bk, bp, bb, _ = times[("bench", torch.bfloat16)]
-    fk, fp, fb, _ = times[("bench", torch.float32)]
+    k_ms, p_ms, b_ms, b_by, k_host = times[("main", torch.float32)]
+    bk, bp, bb, _, _ = times[("bench", torch.bfloat16)]
+    fk, fp, fb, _, _ = times[("bench", torch.float32)]
     return {
         "name": "fused_head_stats",
         "route": "cuda",
@@ -1835,6 +1906,8 @@ def head_phases(dev, peaks, fh, th):
         "max_abs_err": errors[("main", torch.float32)][1],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
+        "host_ms": k_host,
+        "one_group_ms": by_g[1][0],
         "checks": {
             "max_rel_err": {f"{lbl}_{dtype_name(dt)}": max(r.values())
                             for (lbl, dt), (r, _) in errors.items()},
@@ -1854,6 +1927,12 @@ def head_phases(dev, peaks, fh, th):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("head",),
+                    help="run phases 1-6 alone (the fused cost head) and end "
+                         "with {\"partial\": \"head\"} instead of the result "
+                         "line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "script needs an NVIDIA GPU")
@@ -1890,6 +1969,14 @@ def main():
             f"{regs} registers; {len(spills)} spill"
             + (f" ({spills[0]})" if spills else ""))
     log(f"[1] all builds: {time.perf_counter() - t0:.2f} s wall")
+    # the fused head's register tile and its staged next chunk must stay
+    # in registers: no instance may spill
+    head_regs = {name: rs for name, rs in ptxas_report(builds[0][1]).items()
+                 if "fused_head_kernel" in name}
+    log(f"[1] fused_head_kernel instances (registers, spill bytes): "
+        f"{sorted(head_regs.values())}")
+    if not head_regs or any(sp for _, sp in head_regs.values()):
+        raise RuntimeError(f"[1] fused_head_kernel spills: {head_regs}")
     # the bf16 instances run on the tensor cores: every one of them holds
     # the instruction (HGMMA: wgmma; HMMA: mma.sync), no f32 instance does
     for lib, kern, op in ((om.LIB, "mm_", "HGMMA"), (oc.LIB, "conv_", "HMMA")):
@@ -1922,10 +2009,16 @@ def main():
     kernels = {"fused_head_stats": fh.fused_head_stats, "hist": th.hist,
                "matmul": om.matmul, "conv2d": oc.conv2d,
                "segment_sum": tss.segment_sum}
-    records = [head_phases(dev, peaks, fh, th),
-               gbdt_phases(dev, peaks, fh, th),
-               *tuner_phases(dev, peaks, kernels),
-               segment_phases(dev, peaks, kernels)]
+    records = [head_phases(dev, peaks, fh, th)]
+    if args.only == "head":
+        log(f"total {time.time() - t_start:.1f} s")
+        log(card)
+        print(json.dumps({"kernels": records}, default=float), flush=True)
+        print(json.dumps({"partial": "head"}), flush=True)
+        return
+    records += [gbdt_phases(dev, peaks, fh, th),
+                *tuner_phases(dev, peaks, kernels),
+                segment_phases(dev, peaks, kernels)]
 
     log(f"total {time.time() - t_start:.1f} s")
     log(card)

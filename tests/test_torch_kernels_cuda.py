@@ -135,6 +135,70 @@ def test_fused_head_philox_path(dev):
     assert abs(k_off - r_off) <= 4 * se, (k_off, r_off, se)
 
 
+# the grid split: the plan's G (None) and forced ones, at the main path's
+# N = 773 (24 full tiles and one of 5 candidates, in every group) and at
+# N = 2,000 (a last tile of 16); (7, 4), (10, 4) and at N = 773 (7, None)
+# give pass groups of unequal length, (10, 1) is the unsplit grid
+@pytest.mark.parametrize("n", [773, 2000])
+@pytest.mark.parametrize("T,groups", [(10, None), (10, 1), (10, 4), (2, None),
+                                      (7, None), (7, 4), (1, None)])
+def test_fused_head_grid_split_matches_plain(dev, n, T, groups):
+    p, x, bits = _setup(dev, n, torch.float32, d=17, T=T, seed=4)
+    head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+    G, bounds = fh.launch_plan(n, T, fh.sm_count(dev))
+    if groups is None and T > 1:
+        assert G > 1, (G, bounds)
+        if T == 10:
+            assert -(-n // fh.BM) * G >= 125, (G, bounds)
+    before = fh.fused_head_stats.launches
+    got = fh.fused_head_stats(head, x, 0, T=T, rate=0.1, mask_bits=bits,
+                              encoder=enc, groups=groups)
+    again = fh.fused_head_stats(head, x, 0, T=T, rate=0.1, mask_bits=bits,
+                                encoder=enc, groups=groups)
+    torch.cuda.synchronize()
+    assert fh.fused_head_stats.launches == before + 2
+    ref = fh.fused_head_stats_plain(head, x, T, 0.1, mask_bits=bits,
+                                    encoder=enc)
+    for name, g, a, r in zip(("cost", "gnorm", "mc_mean", "mc_var"), got,
+                             again, ref):
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), name  # two launches bit-identical
+        assert _rel(g, r) <= 1e-4, (name, _rel(g, r))
+    if T == 1:
+        assert torch.count_nonzero(got[3]) == 0
+
+
+def test_fused_head_cost_and_gnorm_do_not_depend_on_the_split(dev):
+    """Every group computes cost with the same code on the same data, and
+    group 0 the gradient: both equal the unsplit grid's bit for bit, in
+    both dtypes and on the Philox path."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p, x, _ = _setup(dev, 773, dtype, d=17, seed=5)
+        head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+        one = fh.fused_head_stats(head, x, 9, encoder=enc, groups=1)
+        for G in (2, 6, 11):
+            split = fh.fused_head_stats(head, x, 9, encoder=enc, groups=G)
+            assert torch.equal(split[0], one[0]) and torch.equal(
+                split[1], one[1]), (dtype, G)
+            # the same Philox words, summed in another grouping
+            assert _rel(split[3], one[3]) <= 1e-4, (dtype, G)
+
+
+def test_fused_head_sets_attributes_once_and_reuses_scratch(dev):
+    p, x, bits = _setup(dev, 773, torch.float32, d=17, seed=6)
+    head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+    fh.fused_head_stats(head, x, 0, mask_bits=bits, encoder=enc)
+    calls = fh.LIB.load().fused_head_attr_calls()
+    cached = len(fh._SCRATCH)
+    for _ in range(3):
+        fh.fused_head_stats(head, x, 0, mask_bits=bits, encoder=enc)
+    assert fh.LIB.load().fused_head_attr_calls() == calls
+    assert len(fh._SCRATCH) == cached
+    # at the bench shape's tile count the plan keeps one group: no scratch
+    G, _ = fh.launch_plan(262_144, 10, fh.sm_count(dev))
+    assert G == 1
+
+
 def test_fused_head_rejects_bad_inputs(dev):
     p, x, bits = _setup(dev, 64, torch.float32, T=4)
     head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])

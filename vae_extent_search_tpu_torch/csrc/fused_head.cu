@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel vae_extent_search_tpu/ops/fused_head_pallas.py
 // (_body, launched by fused_head_stats through pl.pallas_call). For every
-// candidate row x [D] it runs, in one launch:
+// candidate row x [D] it computes:
 //   encoder   h = ReLU MLP(x); z = h . W_mu + b_mu                    [L]
 //   cost head a0 = z.W0+b0, h0 = relu(a0); a1 = h0.W1+b1, h1 = relu(a1);
 //             cost = h1.w2 + b2
@@ -18,30 +18,44 @@
 // byte of device memory — far right of the ridge. At N = 262,144 that is
 // ~0.51 TFLOP per launch: ~7.6 ms at the 67 TFLOP/s f32 CUDA-core peak.
 //
-// What the design does about it: nothing but the input row and the four
+// What the design does about it: nothing but the input row and the
 // outputs touch device memory. A block owns BM candidates; their hidden
 // activations live transposed ([feature][candidate]) in shared memory for
-// the whole launch, so the T dropout passes reuse h0 without re-running
+// the whole launch, so the dropout passes reuse h0 without re-running
 // the encoder or the first head layer (the input row streams in KC
 // features at a time, so any D fits; hidden widths up to ~560 fit, the
-// wrapper checks). Every layer is the same
-// register-blocked product: weight chunks of KC rows are staged in shared
-// memory once per block and each thread accumulates a 4 x 8 tile in
-// registers (two float4 weight loads and one float4 activation load per
-// 32 FMAs), so the inner loop is bound by the FMA pipes rather than by
-// shared-memory bandwidth. The arithmetic is f32 FMA on the CUDA cores in
-// both dtypes: bf16 operands are widened (their products are exact in
-// f32), which reproduces the reference's bf16-in / f32-accumulate
-// numerics. Tensor cores (wgmma) would raise the bf16 ceiling ~15x; that
-// is later work.
+// wrapper checks). Every layer is the same register-blocked product:
+// weight chunks of KC rows are staged in shared memory once per block and
+// each thread accumulates a 4 x 8 tile in registers (two float4 weight
+// loads and one float4 activation load per 32 FMAs). The next chunk's
+// global loads are issued into registers before the FMAs over the current
+// one and stored after them, so their L2 latency hides behind the FMA
+// loop even when a block is alone on its SM (a second shared-memory slot
+// would cost the second block per SM). The arithmetic is f32 FMA on the
+// CUDA cores in both dtypes: bf16 operands are widened (their products
+// are exact in f32), which reproduces the reference's bf16-in /
+// f32-accumulate numerics.
+//
+// The grid is tiles x G. Where the tiles alone fill the card (the bench
+// shape) G = 1 and one launch writes all four outputs. At the main path's
+// few hundred candidates the T passes are split over G - 1 pass groups,
+// as many as give each block an SM of its own
+// (ops/fused_head.py::launch_plan): every group runs the encoder and the
+// forward itself (the same code on the same data, so its cost is
+// bit-identical to the others') and centres its passes [t_bound[g],
+// t_bound[g+1]) on it; group 0 also runs the backward and writes cost and
+// gnorm. Each group stores its sums s_g, s2_g to a [G, N] scratch pair and
+// mc_finish_kernel adds them in the fixed order g = 0 .. G-1, so a launch
+// repeats bit for bit. No atomics.
 //
 // Numerics follow _body: each matmul operand is rounded to the compute
 // dtype at the same points (encoder activations and g0 where they are
 // stored, h0 where it enters a product, h0 * scale before masking),
-// accumulation and biases are f32, and b2 is never rounded. Dropout bits come either from an injected [T, N, H0]
-// uint32 array (candidate-major, for exact comparisons) or from Philox
-// 4x32-10 with counter (unit / 4, t, candidate) and key = seed, so the
-// bits of a candidate do not depend on the launch shape.
+// accumulation and biases are f32, and b2 is never rounded. Dropout bits
+// come either from an injected [T, N, H0] uint32 array (candidate-major,
+// for exact comparisons) or from Philox 4x32-10 with counter (unit / 4,
+// t, candidate) and key = seed, so the bits of a candidate do not depend
+// on the launch shape or on the plan.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +68,10 @@ constexpr int NT = 256;   // threads per block: 2 row halves x 4 column quarters
 constexpr int KC = 16;    // weight rows staged in shared memory per step
 constexpr int CW = 256;   // output columns per pass (4 warps x 64)
 constexpr int MAX_ENC = 8;
+constexpr int MAX_GROUPS = 32;  // grid rows (ops/fused_head.py::MAX_GROUPS)
+constexpr int XPT = KC * BM / NT;  // input features a thread stages per chunk
+static_assert(CW == NT, "each thread stages one weight column of a chunk");
+static_assert(KC * BM % NT == 0, "the input chunk splits evenly over the threads");
 
 struct Params {
   const void* x;
@@ -79,6 +97,9 @@ struct Params {
   float* gnorm;
   float* mean;
   float* var;
+  float* s_part;   // [G, N] (G > 1 only)
+  float* s2_part;  // [G, N]
+  int t_bound[MAX_GROUPS + 1];  // group g runs passes [t_bound[g], t_bound[g+1])
   int width;  // rows of each activation buffer (max hidden width)
 };
 
@@ -125,6 +146,11 @@ struct GlobalIn {
 // buffers hold values already rounded to the compute dtype, except h0,
 // which the MC passes need in f32: ROUND rounds `in` at load. (Both are
 // template flags so the common products carry no extra registers.)
+//
+// Thread tid stages column c0 + tid of each chunk of KC weight rows (and
+// XPT of its input features with GLOBAL). The chunk after the current one
+// is loaded into registers (in the storage dtype; out-of-range elements
+// are zero) before the FMA loop and widened into shared memory after it.
 template <typename T, bool ROUND, bool GLOBAL, typename Epi>
 __device__ __forceinline__ void tile_mm(const float* __restrict__ in, const GlobalIn<T> g,
                                         int K, const T* __restrict__ W, int OUT,
@@ -132,7 +158,24 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ in, const Glob
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = warp >> 2, wc = warp & 3, rg = lane >> 3, cg = lane & 7;
   const int r0 = wr * 16 + rg * 4;
+  const long long n0 = (long long)blockIdx.x * BM;
   for (int c0 = 0; c0 < OUT; c0 += CW) {
+    const int c = c0 + tid;
+    T wv[KC];
+    T xv[GLOBAL ? XPT : 1];
+    auto fetch = [&](int k0) {
+#pragma unroll
+      for (int i = 0; i < KC; ++i)
+        wv[i] = (c < OUT && k0 + i < K) ? W[(size_t)(k0 + i) * OUT + c] : T();
+      if constexpr (GLOBAL) {
+#pragma unroll
+        for (int j = 0; j < XPT; ++j) {
+          const int e = tid + j * NT, r = e / KC, k = k0 + e % KC;
+          xv[j] = (n0 + r < g.n && k < K) ? g.x[(n0 + r) * K + k] : T();
+        }
+      }
+    };
+    fetch(0);
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -140,19 +183,17 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ in, const Glob
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < K; k0 += KC) {
       __syncthreads();  // earlier readers of wbuf (and writers of `in`) done
-      for (int e = tid; e < KC * CW; e += NT) {
-        const int k = k0 + e / CW, c = c0 + e % CW;
-        wbuf[e] = (k < K && c < OUT) ? to_f<T>(W[(size_t)k * OUT + c]) : 0.f;
-      }
+#pragma unroll
+      for (int i = 0; i < KC; ++i) wbuf[i * CW + tid] = to_f<T>(wv[i]);
       if constexpr (GLOBAL) {
-        const long long n0 = (long long)blockIdx.x * BM;
-        for (int e = tid; e < KC * BM; e += NT) {
-          const int r = e / KC, k = k0 + e % KC;
-          const long long row = n0 + r;
-          g.buf[(e % KC) * BM + r] = (row < g.n && k < K) ? to_f<T>(g.x[row * K + k]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < XPT; ++j) {
+          const int e = tid + j * NT;
+          g.buf[(e % KC) * BM + e / KC] = to_f<T>(xv[j]);
         }
       }
       __syncthreads();
+      if (k0 + KC < K) fetch(k0 + KC);  // in flight during the FMAs below
       const int kn = min(KC, K - k0);
       const float* ip = GLOBAL ? g.buf + r0 : in + (size_t)k0 * BM + r0;
       const float* wp = wbuf + wc * 64 + cg * 4;
@@ -172,10 +213,10 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ in, const Glob
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = c0 + wc * 64 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + (j - 4));
-      if (c < OUT) {
+      const int cc = c0 + wc * 64 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + (j - 4));
+      if (cc < OUT) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) epi(r0 + i, c, acc[i][j], i);
+        for (int i = 0; i < 4; ++i) epi(r0 + i, cc, acc[i][j], i);
       }
     }
   }
@@ -221,6 +262,7 @@ __global__ void __launch_bounds__(NT, 2) fused_head_kernel(const Params p) {
   const GlobalIn<T> xin{static_cast<const T*>(p.x), p.n, p.n_enc ? bufB : bufA};
   const int tid = threadIdx.x;
   const long long n0 = (long long)blockIdx.x * BM;
+  const int group = blockIdx.y;
 
   // encoder: ReLU after every layer but fc_mu (the last); the first
   // layer reads x from device memory, the rest ping-pong bufA/bufB
@@ -261,25 +303,28 @@ __global__ void __launch_bounds__(NT, 2) fused_head_kernel(const Params p) {
              });
   const float cost = row_total(part, red) + b2;
 
-  // g0 = (g1 W1^T) 1[a0 > 0]
-  float* g0 = bufB;
-  tile_mm<T, false, false>(g1, none, p.H1, static_cast<const T*>(p.w1t), p.H0, wbuf,
-             [&](int r, int c, float v, int) {
-               g0[c * BM + r] = h0[c * BM + r] > 0.f ? rnd<T>(v) : 0.f;
-             });
-  // gz = g0 W0^T; gnorm = |gz|
+  float gnorm = 0.f;
+  if (group == 0) {
+    // g0 = (g1 W1^T) 1[a0 > 0]
+    float* g0 = bufB;
+    tile_mm<T, false, false>(g1, none, p.H1, static_cast<const T*>(p.w1t), p.H0, wbuf,
+               [&](int r, int c, float v, int) {
+                 g0[c * BM + r] = h0[c * BM + r] > 0.f ? rnd<T>(v) : 0.f;
+               });
+    // gz = g0 W0^T; gnorm = |gz|
 #pragma unroll
-  for (int i = 0; i < 4; ++i) part[i] = 0.f;
-  tile_mm<T, false, false>(g0, none, p.H0, static_cast<const T*>(p.w0t), p.L, wbuf,
-             [&](int r, int c, float v, int i) { part[i] = fmaf(v, v, part[i]); });
-  const float gnorm = sqrtf(row_total(part, red));
+    for (int i = 0; i < 4; ++i) part[i] = 0.f;
+    tile_mm<T, false, false>(g0, none, p.H0, static_cast<const T*>(p.w0t), p.L, wbuf,
+               [&](int r, int c, float v, int i) { part[i] = fmaf(v, v, part[i]); });
+    gnorm = sqrtf(row_total(part, red));
+  }
 
-  // T MC-dropout passes on h0; thread r < BM accumulates row r
+  // this group's MC-dropout passes on h0; thread r < BM accumulates row r
   float s = 0.f, s2 = 0.f;
   float* hd = bufB;
-  const int groups = (p.H0 + 3) / 4;
-  for (int t = 0; t < p.T; ++t) {
-    __syncthreads();  // readers of hd from the previous pass are done
+  const int quads = (p.H0 + 3) / 4;
+  for (int t = p.t_bound[group]; t < p.t_bound[group + 1]; ++t) {
+    __syncthreads();  // readers of hd (or g0) from before are done
     if (p.bits) {
       for (int e = tid; e < BM * p.H0; e += NT) {
         const int r = e / p.H0, u = e % p.H0;
@@ -289,15 +334,15 @@ __global__ void __launch_bounds__(NT, 2) fused_head_kernel(const Params p) {
       }
     } else {
       const uint2 key = make_uint2((unsigned)p.seed, (unsigned)(p.seed >> 32));
-      for (int e = tid; e < BM * groups; e += NT) {
-        const int r = e % BM, g = e / BM;
+      for (int e = tid; e < BM * quads; e += NT) {
+        const int r = e % BM, q4 = e / BM;
         const unsigned long long n = (unsigned long long)(n0 + r);
         const uint4 b = philox4x32_10(
-            make_uint4((unsigned)g, (unsigned)t, (unsigned)n, (unsigned)(n >> 32)), key);
+            make_uint4((unsigned)q4, (unsigned)t, (unsigned)n, (unsigned)(n >> 32)), key);
         const unsigned bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int u = 4 * g + q;
+          const int u = 4 * q4 + q;
           if (u < p.H0)
             hd[u * BM + r] = bv[q] >= p.thresh ? rnd<T>(h0[u * BM + r] * p.scale) : 0.f;
         }
@@ -316,12 +361,61 @@ __global__ void __launch_bounds__(NT, 2) fused_head_kernel(const Params p) {
 
   if (tid < BM && n0 + tid < p.n) {
     const long long n = n0 + tid;
-    const float T_ = (float)p.T;
-    p.cost[n] = cost;
-    p.gnorm[n] = gnorm;
-    p.mean[n] = cost + s / T_;
-    p.var[n] = p.T > 1 ? (s2 - s * s / T_) / (T_ - 1.f) : 0.f;
+    if (gridDim.y == 1) {
+      const float T_ = (float)p.T;
+      p.cost[n] = cost;
+      p.gnorm[n] = gnorm;
+      p.mean[n] = cost + s / T_;
+      p.var[n] = p.T > 1 ? (s2 - s * s / T_) / (T_ - 1.f) : 0.f;
+    } else {
+      if (group == 0) {
+        p.cost[n] = cost;
+        p.gnorm[n] = gnorm;
+      }
+      p.s_part[(long long)group * p.n + n] = s;
+      p.s2_part[(long long)group * p.n + n] = s2;
+    }
   }
+}
+
+// mean and var of candidate n from the G groups' sums, added in the order
+// g = 0 .. G-1 (ops/fused_head.py::mc_finish_plain)
+__global__ void mc_finish_kernel(const float* __restrict__ cost,
+                                 const float* __restrict__ s_part,
+                                 const float* __restrict__ s2_part, long long n, int groups,
+                                 int T, float* __restrict__ mean, float* __restrict__ var) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f, s2 = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    s += s_part[g * n + i];
+    s2 += s2_part[g * n + i];
+  }
+  const float T_ = (float)T;
+  mean[i] = cost[i] + s / T_;
+  var[i] = T > 1 ? (s2 - s * s / T_) / (T_ - 1.f) : 0.f;
+}
+
+size_t smem_bytes(int width) {
+  return sizeof(float) * ((size_t)3 * width * BM + KC * CW + 4 * BM);
+}
+
+int g_attr_calls = 0;  // cudaFuncSetAttribute calls made
+
+// the most shared memory a launch may ask for (it asks for what it uses),
+// and the L1/shared split, set once per instance
+template <typename T>
+cudaError_t set_attributes_once() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  g_attr_calls += 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_head_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  done = err == cudaSuccess;
+  return err;
 }
 
 }  // namespace
@@ -329,20 +423,26 @@ __global__ void __launch_bounds__(NT, 2) fused_head_kernel(const Params p) {
 // shared memory per block: three [width][BM] activation buffers, the
 // weight chunk and the row-reduction scratch (115,200 bytes at width 256:
 // two blocks per SM)
-extern "C" size_t fused_head_smem_bytes(int width) {
-  return sizeof(float) * ((size_t)3 * width * BM + KC * CW + 4 * BM);
-}
+extern "C" size_t fused_head_smem_bytes(int width) { return smem_bytes(width); }
+
+extern "C" int fused_head_attr_calls() { return g_attr_calls; }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Host
-// arrays enc_w/enc_b hold n_enc device pointers, enc_dims n_enc + 1 widths.
+// arrays enc_w/enc_b hold n_enc device pointers, enc_dims n_enc + 1
+// widths. The grid has `groups` rows; group g runs passes [t_bound[g],
+// t_bound[g + 1]). With groups > 1, s_part and s2_part hold groups * n
+// f32 each and mc_finish_kernel writes mean and var after the kernel.
 extern "C" int fused_head_stats_launch(
     int bf16, const void* x, long long n, int d, int n_enc, const void* const* enc_w,
     const void* const* enc_b, const int* enc_dims, const void* w0, const void* b0,
     const void* w1, const void* b1, const void* w2, const void* b2, const void* w0t,
     const void* w1t, int L, int H0, int H1, int T, unsigned int thresh, float scale,
-    const void* bits, unsigned long long seed, void* cost, void* gnorm, void* mean,
-    void* var, void* stream) {
-  if (n_enc < 0 || n_enc > MAX_ENC || n <= 0) return (int)cudaErrorInvalidValue;
+    const void* bits, unsigned long long seed, int groups, const int* t_bound, void* s_part,
+    void* s2_part, void* cost, void* gnorm, void* mean, void* var, void* stream) {
+  if (n_enc < 0 || n_enc > MAX_ENC || n <= 0 || groups < 1 || groups > MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
+  if (t_bound[0] != 0 || t_bound[groups] != T) return (int)cudaErrorInvalidValue;
+  if (groups > 1 && (!s_part || !s2_part)) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
   p.n = n;
@@ -377,26 +477,29 @@ extern "C" int fused_head_stats_launch(
   p.gnorm = static_cast<float*>(gnorm);
   p.mean = static_cast<float*>(mean);
   p.var = static_cast<float*>(var);
+  p.s_part = static_cast<float*>(s_part);
+  p.s2_part = static_cast<float*>(s2_part);
+  for (int g = 0; g <= MAX_GROUPS; ++g) p.t_bound[g] = g <= groups ? t_bound[g] : T;
+  for (int g = 0; g < groups; ++g)
+    if (p.t_bound[g] > p.t_bound[g + 1]) return (int)cudaErrorInvalidValue;
   width = width > KC ? width : KC;  // a buffer also stages KC input features
   p.width = (width + 3) / 4 * 4;
-  const size_t smem = fused_head_smem_bytes(p.width);
-  const unsigned grid = (unsigned)((n + BM - 1) / BM);
+  const size_t smem = smem_bytes(p.width);
+  const dim3 grid((unsigned)((n + BM - 1) / BM), (unsigned)groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    err = cudaFuncSetAttribute(fused_head_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = set_attributes_once<__nv_bfloat16>();
     if (err != cudaSuccess) return (int)err;
-    cudaFuncSetAttribute(fused_head_kernel<__nv_bfloat16>,
-                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     fused_head_kernel<__nv_bfloat16><<<grid, NT, smem, s>>>(p);
   } else {
-    err = cudaFuncSetAttribute(fused_head_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = set_attributes_once<float>();
     if (err != cudaSuccess) return (int)err;
-    cudaFuncSetAttribute(fused_head_kernel<float>,
-                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     fused_head_kernel<float><<<grid, NT, smem, s>>>(p);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return (int)err;
+  mc_finish_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      p.cost, p.s_part, p.s2_part, n, groups, T, p.mean, p.var);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,11 @@ import subprocess
 import tempfile
 import threading
 import time
+from functools import lru_cache
 from pathlib import Path
 from typing import Callable, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,3 +95,9 @@ def check_launch(err: int, name: str) -> None:
     """Raise if a C launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+@lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The number of SMs of the CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count

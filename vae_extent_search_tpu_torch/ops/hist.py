@@ -41,7 +41,7 @@ from functools import lru_cache
 
 import torch
 
-from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch
+from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch, sm_count
 
 # shared memory a block's histograms may take: 227 KB less 1 KB for the
 # kernel's static shared variables (csrc/hist.cu::kMaxDynSmem)
@@ -199,12 +199,6 @@ def hist(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
 
 hist.launches = 0
 hist.tap = None
-
-
-@lru_cache(maxsize=None)
-def sm_count(dev: torch.device) -> int:
-    """The number of SMs of the CUDA device ``dev``."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # scratch per (device, stream, d, m, nb, row ranges): the absmax kernel's
