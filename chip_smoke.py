@@ -3,6 +3,9 @@
     python3 chip_smoke.py              # every phase; ends with the result line
     python3 chip_smoke.py --only head  # phases 1-6 alone, for work on the
                                        # fused head; ends {"partial": "head"}
+    python3 chip_smoke.py --only arms  # phases 1 and 20 alone, for work on
+                                       # the experiment's other arms; ends
+                                       # {"partial": "arms"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -31,7 +34,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   5. one full select_programs phase at the bench shape (bfloat16)
   6. end to end: the active search on the committed pool at full width
      (hidden 256, latent 64, T 10, measure size 32, 500 VAE epochs, 1000
-     predictor epochs) for seeds 2000-2002; every seed must find the
+     predictor epochs) for seed 2002 (2000 and 2001 cut for the time
+     limit, PHASE6_SEEDS); every seed must find the
      optimum, and every selection phase must have gone through the kernel
   7. the histogram kernel vs its plain version in float64 at the
      pretraining shape (the corpus of data/boost_corpus.py: 1,000,000 rows
@@ -141,12 +145,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
      throughputs; then one seed of cli.vae_extent_search --features
      per_store on the whole log (4,000 candidates x 820 features) must find
      the optimum
-The last three lines are the card's name and power limit, a JSON object
-with each kernel's check and times, then {"ok": true, "device": {...}}.
+ 20. the headline experiment's other arms on the committed pool at full
+     width (hidden 256, latent 64, T 10, measure size 32, 500 VAE epochs,
+     1000 predictor epochs): SelectionConfig(fused_head="off") takes the
+     unfused path on the card (no kernel launch) and "auto" the kernel;
+     then three processes side by side (arm_job): run_active_search with
+     init_mode "diversity" and "kmeans" over one shared pretrain, and
+     encoder_mode "vib": each seed must find the optimum from 32 distinct
+     initial candidates, one kernel launch per selection phase;
+     cli.vae_extent_search --arm grid with the average CSV pre-filled with
+     every (measure_size, weights) pair of DEFAULT_GRID but one
+     (ARMS["grid_pair"]): exactly that pair's 4 configs run, over one
+     pretrain, each finding the optimum; then, alone, one seed of the vae
+     arm through the command line with --profile-dir and --max-phases
+     ARMS["profile_phases"] and a 20-epoch pretrain (depth cut): the
+     torch.profiler trace must hold CUDA kernel events and one
+     fused_head_kernel event per launch, and cli.trace_summary prints the
+     device busy time (the union of kernel intervals), the idle share of
+     the traced window and of the pretrain, each predictor fit and each
+     selection phase, and the top kernels
+The last lines are a JSON object with phase 20's results, the card's name
+and power limit, a JSON object with each kernel's check and times, then
+{"ok": true, "device": {...}}.
 """
 
 import argparse
 import contextlib
+import csv
 import io
 import json
 import os
@@ -155,7 +180,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import torch
@@ -171,6 +197,22 @@ PEAKS = {
     "H200": {"float32": 67e12, "bfloat16": 989e12, "bytes": 4.8e12},
 }
 BENCH = dict(n=262_144, d=24, hid=256, lat=64, hp=256, T=10)
+# phase 6's seeds, cut from 2000-2002 for the time limit when phase 20
+# came (phase 20 runs the same path for three more seeds; the 20-seed band
+# is PERF.md's, from the command line)
+PHASE6_SEEDS = (2002,)
+# phase 20's seeds and cuts (the arms themselves run at full width): the
+# grid arm runs the one (measure_size, weights) pair of DEFAULT_GRID left
+# out of its pre-filled average CSV, i.e. that pair's 4 configs; the
+# profiled run is the shortest that holds one whole predictor fit, its
+# pretrain cut to 20 epochs: a predictor epoch leaves ~1,300 trace events,
+# and the trace of a 500-epoch pretrain and two fits (1.7 GB) took 64 s to
+# write and 42 s to read
+ARMS = dict(measure_size=32, diversity=(2000,), kmeans=(2000,), vib=(2000,),
+            grid_pair=(64, (0.5, 0.3, 0.2)), profile_seed=2000,
+            profile_phases=1, profile_vae_epochs=20,
+            width=dict(latent_dim=64, hidden_dim=256, vae_epochs=500,
+                       reg_epochs=1000))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -1681,6 +1723,299 @@ def segment_phases(dev, peaks, kernels):
     }
 
 
+def kernel_wrappers():
+    """The five kernels' wrappers by name (each counts its launches)."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+    from vae_extent_search_tpu_torch.ops import fused_head as fh
+    from vae_extent_search_tpu_torch.ops import hist as th
+    from vae_extent_search_tpu_torch.ops import matmul as om
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+
+    return {"fused_head_stats": fh.fused_head_stats, "hist": th.hist,
+            "matmul": om.matmul, "conv2d": oc.conv2d,
+            "segment_sum": tss.segment_sum}
+
+
+def cli_width(device):
+    """cli.vae_extent_search's options for ARMS["width"] on ``device``."""
+    args = ["--device", device]
+    for k, v in ARMS["width"].items():
+        args += ["--" + k.replace("_", "-"), str(v)]
+    return args
+
+
+def count_checks(kernels):
+    """(reset, others): set every launch count to 0; the nonzero counts
+    of the kernels other than the fused head."""
+    fh = kernels["fused_head_stats"]
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def others():
+        return {nm: k.launches for nm, k in kernels.items()
+                if k is not fh and k.launches}
+
+    return reset, others
+
+
+def arm_job(job, device):
+    """One of phase 20's arms: "inits" (one pretrain, then the diversity
+    and kmeans initial sets), "vib" or "grid". Phase 20 runs each in a
+    process of its own, side by side: each is bound by its host's eager
+    launches (the card idles ~0.94 of a search, PERF.md), so a process per
+    arm shortens the phase without changing what the card does for any
+    arm. Each process has its own launch counts; they are set to 0 just
+    before an arm runs and read just after. Returns (results, log lines,
+    failures)."""
+    import vae_extent_search_tpu_torch.cli.vae_extent_search as cli
+    from vae_extent_search_tpu_torch.data.pool import load_pool
+    from vae_extent_search_tpu_torch.device import resolve_device
+    from vae_extent_search_tpu_torch.search.active_loop import (
+        expand_hyper_grid,
+        pretrain_pool_vae,
+        run_active_search,
+    )
+
+    resolve_device(device)
+    kernels = kernel_wrappers()
+    fh = kernels["fused_head_stats"]
+    feats, labels, _ = load_pool()
+    width = ARMS["width"]
+    out, lines, bad = {}, [], []
+    reset, others = count_checks(kernels)
+    if job in ("inits", "vib"):
+        vae = None
+        if job == "inits":
+            t = time.perf_counter()
+            vae = pretrain_pool_vae(feats, latent_dim=width["latent_dim"],
+                                    hidden_dim=width["hidden_dim"],
+                                    vae_epochs=width["vae_epochs"],
+                                    device=device)
+            out["vae_pretrain_s"] = time.perf_counter() - t
+            runs = [("diversity", "vae", s) for s in ARMS["diversity"]]
+            runs += [("kmeans", "vae", s) for s in ARMS["kmeans"]]
+        else:
+            runs = [("random", "vib", s) for s in ARMS["vib"]]
+        for init_mode, enc, seed in runs:
+            reset()
+            t = time.perf_counter()
+            r = run_active_search(
+                feats, labels, measure_size=ARMS["measure_size"],
+                max_phases=60, sampling_seed=seed, init_mode=init_mode,
+                encoder_mode=enc, pretrained_vae_params=vae, device=device,
+                **width)
+            wall = time.perf_counter() - t
+            init = [int(i) for i in r.selected_order[:ARMS["measure_size"]]]
+            label = f"{enc} {init_mode}" if enc == "vae" else enc
+            row = {"found": r.found, "phases": r.phase,
+                   "train_size": r.train_size, "wall_s": wall,
+                   "fit_s": sum(r.fit_seconds),
+                   "select_s": sum(r.select_seconds),
+                   "launches": fh.launches, "init_distinct": len(set(init))}
+            out.setdefault(label, {})[str(seed)] = row
+            lines.append(
+                f"{label} seed {seed}: found={r.found} phases={r.phase} "
+                f"train_size={r.train_size} wall {wall:.1f} s (predictor "
+                f"fits {row['fit_s']:.1f} s, selection {row['select_s']:.3f}"
+                f" s); initial set {len(set(init))} distinct of {len(init)};"
+                f" fused-head launches {fh.launches}")
+            if not r.found or fh.launches != r.phase or others() or \
+                    len(set(init)) != ARMS["measure_size"]:
+                bad.append(f"{label} seed {seed}: {row}, {others()}")
+        return out, lines, bad
+
+    # the grid arm through the command line: the average CSV pre-filled
+    # with every (measure_size, weights) pair of DEFAULT_GRID but one
+    left = ARMS["grid_pair"]
+    pairs = {(c["measure_size"], str(tuple(c["weights"])))
+             for c in expand_hyper_grid(cli.DEFAULT_GRID)}
+    pretrains = []
+    orig = cli.pretrain_pool_vae
+
+    def counted(*a, **kw):
+        pretrains.append(1)
+        return orig(*a, **kw)
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        avg_csv = os.path.join(out_dir, "vae_extent_total_avg.csv")
+        with open(avg_csv, "w") as f:
+            f.write("measure_size,weights,phase,train_size,used_time,top-1,"
+                    "found,n_seeds\n")
+            for ms, w in sorted(pairs - {(left[0], str(left[1]))}):
+                f.write(f'{ms},"{w}",0,0,0,0,1,0\n')
+        reset()
+        cli.pretrain_pool_vae = counted
+        buf = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--arm", "grid", "--out-dir", out_dir, "--seeds",
+                          "2000", *cli_width(device)])
+        finally:
+            cli.pretrain_pool_vae = orig
+        wall = time.perf_counter() - t
+        with open(avg_csv) as f:
+            rows = list(csv.DictReader(f))[len(pairs) - 1:]
+    phases = sum(int(float(r["phase"])) for r in rows)
+    out["grid"] = {"pair": [left[0], str(left[1])], "configs": len(rows),
+                   "pretrains": len(pretrains), "wall_s": wall,
+                   "phases": [float(r["phase"]) for r in rows],
+                   "train_size": [float(r["train_size"]) for r in rows],
+                   "found": [float(r["found"]) for r in rows],
+                   "launches": fh.launches}
+    lines.append(
+        f"grid arm, pair {left}: {buf.getvalue().splitlines()[0]}; "
+        f"{len(rows)} configs, {len(pretrains)} pretrain, phases "
+        f"{out['grid']['phases']}, train_size {out['grid']['train_size']}, "
+        f"found {out['grid']['found']}; {wall:.1f} s wall; fused-head "
+        f"launches {fh.launches}")
+    if (len(rows) != 4 or len(pretrains) != 1
+            or any(r["measure_size"] != str(left[0])
+                   or r["weights"] != str(left[1]) or r["found"] != "1.0"
+                   for r in rows)
+            or fh.launches != phases or others()):
+        bad.append(f"grid arm: {rows}, {len(pretrains)} pretrains, "
+                   f"launches {fh.launches}, {others()}")
+    return out, lines, bad
+
+
+def arms_phases(dev, kernels):
+    """Phase 20: the headline experiment's other arms on the committed
+    pool at full width: SelectionConfig(fused_head="off") on the card;
+    then side by side, a process each (``arm_job``), the diversity and
+    kmeans initial sets, the vib encoder and the grid arm through the
+    command line; then, alone on the card, a --profile-dir run whose
+    trace gives the device idle share. Returns the arms' results."""
+    import vae_extent_search_tpu_torch.cli.vae_extent_search as cli
+    from vae_extent_search_tpu_torch.cli.trace_summary import (
+        report,
+        summarize,
+    )
+    from vae_extent_search_tpu_torch.convert import params_from_numpy
+    from vae_extent_search_tpu_torch.data.pool import load_pool
+    from vae_extent_search_tpu_torch.search.active_loop import standardize
+    from vae_extent_search_tpu_torch.search.select import (
+        SelectionConfig,
+        select_programs,
+    )
+
+    fh = kernels["fused_head_stats"]
+    feats, _, _ = load_pool()
+    n = feats.shape[0]
+    width = ARMS["width"]
+    out = {}
+    reset, others = count_checks(kernels)
+
+    # ---- fused_head="off" forces the unfused path on the card ----
+    rng = np.random.default_rng(20)
+    p = params_from_numpy(rand_params(rng, feats.shape[1],
+                                      width["hidden_dim"], width["latent_dim"],
+                                      width["hidden_dim"]),
+                          dev, torch.float32)
+    x = torch.as_tensor(standardize(feats)[0], device=dev)
+    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    used[:32] = True
+    picks = {}
+    for mode in ("off", "auto"):
+        reset()
+        with torch.no_grad():
+            sel, val, _, _ = select_programs(
+                p, x, used, ~used, torch.Generator(device=dev).manual_seed(21),
+                SelectionConfig(num_select=32, fused_head=mode))
+        picks[mode] = (fh.launches, int(val.sum()),
+                       len(set(sel[val].tolist())))
+    log(f"[20] select_programs at N={n}: fused_head='off' {picks['off'][0]} "
+        f"kernel launches, 'auto' {picks['auto'][0]}; valid / distinct picks "
+        f"{picks['off'][1:]} / {picks['auto'][1:]}")
+    if picks["off"] != (0, 32, 32) or picks["auto"] != (1, 32, 32):
+        raise RuntimeError(f"[20] fused_head off/auto: {picks}")
+    out["fused_head_off_launches"] = picks["off"][0]
+
+    # ---- the inits, vib and grid arms, a process each, side by side ----
+    jobs = ("grid", "inits", "vib")
+    t = time.perf_counter()
+    with ProcessPoolExecutor(len(jobs), mp_context=get_context(
+            "spawn")) as pool:
+        futures = [pool.submit(arm_job, job, dev.type) for job in jobs]
+        done = [f.result() for f in futures]
+    out["side_by_side_s"] = time.perf_counter() - t
+    bad = []
+    for res, lines, failed in done:
+        out.update(res)
+        for line in lines:
+            log(f"[20] {line}")
+        bad += failed
+    log(f"[20] the three processes took {out['side_by_side_s']:.1f} s wall "
+        f"side by side (each arm's wall above is its own, beside the other "
+        f"two)")
+    if bad:
+        raise RuntimeError(f"[20] {bad}")
+
+    # ---- --profile-dir: a torch.profiler trace and the idle share ----
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        done = []
+        orig = cli._dispatch
+
+        def timed(args):
+            orig(args)
+            torch.cuda.synchronize()
+            done.append(time.perf_counter())
+
+        reset()
+        cli._dispatch = timed
+        buf = io.StringIO()
+        t_run = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--out-dir", os.path.join(tmp, "out"), "--seeds",
+                          str(ARMS["profile_seed"]), "--measure-size",
+                          str(ARMS["measure_size"]), "--max-phases",
+                          str(ARMS["profile_phases"]), "--profile-dir",
+                          trace_dir, *cli_width(dev.type), "--vae-epochs",
+                          str(ARMS["profile_vae_epochs"])])
+        finally:
+            cli._dispatch = orig
+        t_end = time.perf_counter()
+        files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        if len(files) != 1:
+            raise RuntimeError(f"[20] --profile-dir wrote {files}")
+        size = os.path.getsize(files[0])
+        t = time.perf_counter()
+        tr = summarize(files[0])
+        parse_s = time.perf_counter() - t
+    head = sum(c[0] for n, c in tr["kernels_by_name"].items()
+               if "fused_head_kernel" in n)
+    finish = sum(c[0] for n, c in tr["kernels_by_name"].items()
+                 if "mc_finish_kernel" in n)
+    fits = tr["spans"].get("fit_predictor", [])
+    lines = report(tr)
+    del tr["kernels_by_name"]
+    tr.update(run_s=done[0] - t_run, write_s=t_end - done[0], bytes=size,
+              parse_s=parse_s, launches=fh.launches,
+              fused_head_kernel=head, mc_finish_kernel=finish)
+    out["profile"] = tr
+    seed_line = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("seed ")]
+    log(f"[20] --profile-dir, seed {ARMS['profile_seed']}, --max-phases "
+        f"{ARMS['profile_phases']}, --vae-epochs "
+        f"{ARMS['profile_vae_epochs']}: {seed_line}; run {tr['run_s']:.1f} s "
+        f"traced, trace written in {tr['write_s']:.1f} s, {size / 2**20:.1f} "
+        f"MiB, read in {parse_s:.1f} s")
+    for line in lines:
+        log(f"[20] {line}")
+    log(f"[20] fused_head_kernel events {head}, mc_finish_kernel {finish}; "
+        f"the wrapper's launches {fh.launches}")
+    if (not tr["kernel_events"] or not head or head != fh.launches
+            or len(fits) != ARMS["profile_phases"] or others()):
+        raise RuntimeError(f"[20] trace: {tr['kernel_events']} kernel events,"
+                           f" {head} fused-head for {fh.launches} launches, "
+                           f"{len(fits)} fits; {others()}")
+    return out
+
+
 def head_phases(dev, peaks, fh, th):
     """Phases 2-6: the fused cost head against its plain version, its
     times, one selection phase at the bench shape and the search end to
@@ -1874,7 +2209,7 @@ def head_phases(dev, peaks, fh, th):
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
         rows, avg = run_experiment(
-            None, out_dir, measure_size=32, seeds=(2000, 2001, 2002),
+            None, out_dir, measure_size=32, seeds=PHASE6_SEEDS,
             max_phases=60, vae_epochs=500, reg_epochs=1000, latent_dim=64,
             hidden_dim=256, device="cuda")
     e2e_s = time.time() - t0
@@ -1928,10 +2263,11 @@ def head_phases(dev, peaks, fh, th):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("head",),
-                    help="run phases 1-6 alone (the fused cost head) and end "
-                         "with {\"partial\": \"head\"} instead of the result "
-                         "line")
+    ap.add_argument("--only", choices=("head", "arms"),
+                    help="head: run phases 1-6 alone (the fused cost head); "
+                         "arms: phases 1 and 20 (the experiment's other "
+                         "arms); either ends with {\"partial\": ...} instead "
+                         "of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2006,9 +2342,14 @@ def main():
                            for op in ops) for ops in hist_sass.values()):
         raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
-    kernels = {"fused_head_stats": fh.fused_head_stats, "hist": th.hist,
-               "matmul": om.matmul, "conv2d": oc.conv2d,
-               "segment_sum": tss.segment_sum}
+    kernels = kernel_wrappers()
+    if args.only == "arms":
+        arms = arms_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"arms": arms}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "arms"}), flush=True)
+        return
     records = [head_phases(dev, peaks, fh, th)]
     if args.only == "head":
         log(f"total {time.time() - t_start:.1f} s")
@@ -2019,8 +2360,10 @@ def main():
     records += [gbdt_phases(dev, peaks, fh, th),
                 *tuner_phases(dev, peaks, kernels),
                 segment_phases(dev, peaks, kernels)]
+    arms = arms_phases(dev, kernels)
 
     log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"arms": arms}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,9 +36,10 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "search.kernel_tuner", "ops.matmul", "ops.conv2d",
          "cli.tune_kernel", "ops.segment_sum", "models.segment",
          "models.embedding", "features.per_store", "data.dataset",
-         "cli.make_dataset", "cli.train_model", "cli.eval_model_on_dataset"}}
+         "cli.make_dataset", "cli.train_model", "cli.eval_model_on_dataset",
+         "utils", "utils.misc", "cli.trace_summary"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 53, (missing, mods)
+assert not missing and len(mods) >= 56, (missing, mods)
 """
 
 
@@ -69,3 +71,22 @@ def test_cli_needs_cuda_unless_told_cpu(tmp_path):
     assert rows[0] == ("measure_size,weights,phase,train_size,used_time,"
                        "top-1,found,n_seeds")
     assert len(rows) == 2
+
+
+@pytest.mark.parametrize("opts", [
+    ["--arm", "grid"], ["--encoder", "vib"], ["--init-mode", "kmeans"],
+    ["--init-mode", "diversity"], ["--profile-dir", "trace"]],
+    ids=["grid", "vib", "kmeans", "diversity", "profile-dir"])
+def test_new_cli_options_need_cuda(tmp_path, opts):
+    """Each of the experiment's other options asks for CUDA unless given
+    --device cpu (their CPU runs: tests/test_torch_arms_cli.py); the
+    profiler does not turn the failure into a CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot show")
+    opts = [str(tmp_path / o) if o == "trace" else o for o in opts]
+    proc = _run(["-m", f"{PKG}.cli.vae_extent_search", "--seeds", "2000",
+                 "--out-dir", str(tmp_path / "out"), "--vae-epochs", "1",
+                 "--reg-epochs", "1", *opts])
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not (tmp_path / "out" / "vae_extent_total_avg.csv").exists()

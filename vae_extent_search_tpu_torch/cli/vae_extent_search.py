@@ -1,16 +1,23 @@
 """The VAE-extent-search experiment, offline record-replay arm
-(counterpart of ``scripts/vae_extent_search.py``: the ``vae``/``ae``
-encoder arms and the ``gbdt`` tree-model baseline arm).
+(counterpart of ``scripts/vae_extent_search.py``: the ``vae``/``ae``/``vib``
+encoder arms with a random, diversity or kmeans initial set, the ``gbdt``
+tree-model baseline arm and the ``grid`` sweep).
 
 Loads a featurized candidate pool (``--pool``, an npz) or featurises a
 record log (``--record-file``: each record replayed, its extent vector, or
 with ``--features per_store`` its flattened per-store rows, and -log(mean
-cost), as ``scripts/vae_extent_search.py`` does). The ``vae``
-arm pretrains the pool VAE once, then runs the active search for each
-sampling seed until the recorded-optimal schedule is found; it writes a
-per-run CSV and appends the seed average to ``vae_extent_total_avg.csv``.
-The ``gbdt`` arm fits the pack-sum GBDT on the measured set each phase and
-writes ``gbdt_search_<time>.csv``. Columns are the JAX script's.
+cost), as ``scripts/vae_extent_search.py`` does). The ``vae`` arm
+pretrains the pool VAE once (not for ``--encoder vib``, which has no
+pretrain), then runs the active search for each sampling seed until the
+recorded-optimal schedule is found; it writes a per-run CSV and appends
+the seed average to ``vae_extent_total_avg.csv``. The ``gbdt`` arm fits
+the pack-sum GBDT on the measured set each phase and writes
+``gbdt_search_<time>.csv``. The ``grid`` arm runs the ``vae`` arm for
+every config of ``DEFAULT_GRID`` whose (measure_size, weights) is not in
+``<out-dir>/vae_extent_total_avg.csv`` yet, over one shared VAE pretrain.
+Columns are the JAX script's. ``--profile-dir`` (default
+``$VES_TRACE_DIR``) writes a ``torch.profiler`` Chrome trace of the run
+there (``utils/misc.py::trace_profile``).
 
     python -m vae_extent_search_tpu_torch.cli.vae_extent_search \\
         --measure-size 32 --seeds 2000 2001 --out-dir result/torch
@@ -29,14 +36,27 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..data.pool import load_pool, pool_from_records
 from ..search.active_loop import (
+    expand_hyper_grid,
+    filter_already_measured,
     pretrain_pool_vae,
     run_active_search,
     run_gbdt_baseline_search,
 )
 from ..search.select import SelectionConfig
+from ..utils import trace_profile
+
+# the default sweep grid of the grid arm
+DEFAULT_GRID = {
+    "measure_size": [32, 64],
+    "weights": [(0.5, 0.3, 0.2), (0.4, 0.3, 0.3), (0.7, 0.2, 0.1)],
+    "grad_num": [2, 4],
+    "rand_num": [0],
+    "uncertainty_topk": [64, 128],
+}
 
 
 def _load(pool=None, record_file=None, features="extent"):
@@ -56,10 +76,12 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
                    rand_num=0, uncertainty_topk=128, max_phases=60,
                    vae_epochs=500, reg_epochs=1000, latent_dim=64,
                    hidden_dim=256, verbose=False, encoder_mode="vae",
-                   device="cuda", record_file=None, features="extent"):
+                   device="cuda", record_file=None, features="extent",
+                   init_mode="random", pretrained_vae_params=None):
     """Run the search for every seed in ``seeds`` on the pool at ``pool``
     (an npz of features/labels; default: the committed conv2d pool) or on
     ``record_file`` featurised as ``features`` ("extent" or "per_store").
+    ``pretrained_vae_params`` skips the pretrain (the grid arm shares one).
     Returns (per-seed rows, seed-average row)."""
     feats, labels, _ = _load(pool, record_file, features)
     print(f"pool: {feats.shape[0]} candidates x {feats.shape[1]} features")
@@ -67,13 +89,16 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
     tag = time.strftime("%m%d_%H%M")
 
     # the pool VAE is pretrained once and shared across sampling seeds
-    t_vae = time.time()
-    vae_params = pretrain_pool_vae(
-        feats, latent_dim=latent_dim, hidden_dim=hidden_dim,
-        vae_epochs=vae_epochs, vae_beta=0.0 if encoder_mode == "ae" else 0.01,
-        deterministic=encoder_mode == "ae", device=device)
-    print(f"{encoder_mode.upper()} pretrain ({vae_epochs} epochs): "
-          f"{time.time() - t_vae:.1f}s (shared across seeds)")
+    if pretrained_vae_params is None and encoder_mode != "vib":
+        t_vae = time.time()
+        with torch.profiler.record_function("vae_pretrain"):
+            pretrained_vae_params = pretrain_pool_vae(
+                feats, latent_dim=latent_dim, hidden_dim=hidden_dim,
+                vae_epochs=vae_epochs,
+                vae_beta=0.0 if encoder_mode == "ae" else 0.01,
+                deterministic=encoder_mode == "ae", device=device)
+        print(f"{encoder_mode.upper()} pretrain ({vae_epochs} epochs): "
+              f"{time.time() - t_vae:.1f}s (shared across seeds)")
 
     rows = []
     for seed in seeds:
@@ -85,8 +110,9 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
                 num_select=measure_size, w_cost=weights[0],
                 w_unc=weights[1], w_div=weights[2], grad_num=grad_num,
                 rand_num=rand_num, uncertainty_topk=uncertainty_topk),
-            sampling_seed=seed, encoder_mode=encoder_mode, verbose=verbose,
-            pretrained_vae_params=vae_params, device=device)
+            sampling_seed=seed, init_mode=init_mode,
+            encoder_mode=encoder_mode, verbose=verbose,
+            pretrained_vae_params=pretrained_vae_params, device=device)
         rows.append({
             "measure_size": measure_size,
             "weights": str(tuple(weights)),
@@ -174,6 +200,40 @@ def run_gbdt_arm(pool=None, out_dir="result", measure_size=64, seeds=(2000,),
     return rows
 
 
+def run_grid(pool=None, out_dir="result", seeds=(2000,), max_phases=60,
+             vae_epochs=500, reg_epochs=1000, latent_dim=64, hidden_dim=256,
+             verbose=False, device="cuda", record_file=None,
+             features="extent"):
+    """Run the ``vae`` arm for every config of ``DEFAULT_GRID`` whose
+    (measure_size, weights) is not in ``<out_dir>/vae_extent_total_avg.csv``
+    yet, each appending its seed average there. No grid axis touches the
+    VAE, so it is pretrained once for the sweep. Returns the configs
+    run."""
+    os.makedirs(out_dir, exist_ok=True)
+    avg_csv = os.path.join(out_dir, "vae_extent_total_avg.csv")
+    rows = filter_already_measured(expand_hyper_grid(DEFAULT_GRID), avg_csv,
+                                   ["measure_size", "weights"])
+    print(f"{len(rows)} grid configs to run")
+    if not rows:
+        return rows
+    feats, _, _ = _load(pool, record_file, features)
+    with torch.profiler.record_function("vae_pretrain"):
+        vae_params = pretrain_pool_vae(feats, latent_dim=latent_dim,
+                                       hidden_dim=hidden_dim,
+                                       vae_epochs=vae_epochs, device=device)
+    for cfg in rows:
+        print("config:", cfg)
+        run_experiment(
+            pool, out_dir, cfg["measure_size"], seeds, cfg["weights"],
+            cfg["grad_num"], cfg["rand_num"], cfg["uncertainty_topk"],
+            max_phases=max_phases, vae_epochs=vae_epochs,
+            reg_epochs=reg_epochs, latent_dim=latent_dim,
+            hidden_dim=hidden_dim, verbose=verbose, device=device,
+            record_file=record_file, features=features,
+            pretrained_vae_params=vae_params)
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--pool", type=str, default=None,
@@ -190,9 +250,11 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--out-dir", type=str, default="result")
-    p.add_argument("--arm", type=str, default="vae", choices=["vae", "gbdt"],
-                   help="the encoder search (see --encoder) or the GBDT "
-                        "baseline arm")
+    p.add_argument("--arm", type=str, default="vae",
+                   choices=["vae", "gbdt", "grid"],
+                   help="the encoder search (see --encoder), the GBDT "
+                        "baseline arm, or the vae arm over DEFAULT_GRID's "
+                        "configs not yet in the out-dir's average CSV")
     p.add_argument("--engine", type=str, default="auto",
                    choices=["auto", "device", "host"],
                    help="gbdt arm: grow trees on the device, with the numpy "
@@ -209,25 +271,48 @@ def main(argv=None):
     p.add_argument("--reg-epochs", type=int, default=1000)
     p.add_argument("--latent-dim", type=int, default=64)
     p.add_argument("--hidden-dim", type=int, default=256)
-    p.add_argument("--encoder", type=str, default="vae", choices=["vae", "ae"],
-                   help="VAE pretrain + cost predictor, or the plain-AE "
-                        "ablation (reconstruction-only pretrain, no KL)")
+    p.add_argument("--init-mode", type=str, default="random",
+                   choices=["random", "diversity", "kmeans"],
+                   help="initial measured set: random, farthest-point "
+                        "latent diversity, or k-means++ representatives")
+    p.add_argument("--encoder", type=str, default="vae",
+                   choices=["vae", "ae", "vib"],
+                   help="VAE pretrain + cost predictor, the plain-AE "
+                        "ablation (reconstruction-only pretrain, no KL), "
+                        "or the variational information bottleneck (no "
+                        "pretrain; sampled z, smooth-L1, cosine KL warm-up)")
+    p.add_argument("--profile-dir", type=str,
+                   default=os.environ.get("VES_TRACE_DIR"),
+                   help="write a torch.profiler Chrome trace of the run "
+                        "(CPU ops and CUDA kernels) under this directory; "
+                        "also settable via VES_TRACE_DIR")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
+    with trace_profile(args.profile_dir):
+        _dispatch(args)
+
+
+def _dispatch(args):
     if args.arm == "gbdt":
         run_gbdt_arm(args.pool, args.out_dir, args.measure_size,
                      tuple(args.seeds), args.max_phases, engine=args.engine,
                      device=args.device, record_file=args.record_file,
                      features=args.features)
-        return
-    run_experiment(
-        args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
-        tuple(args.weights), args.grad_num, args.rand_num,
-        args.uncertainty_topk, max_phases=args.max_phases,
-        vae_epochs=args.vae_epochs, reg_epochs=args.reg_epochs,
-        latent_dim=args.latent_dim, hidden_dim=args.hidden_dim,
-        verbose=args.verbose, encoder_mode=args.encoder, device=args.device,
-        record_file=args.record_file, features=args.features)
+    elif args.arm == "grid":
+        run_grid(args.pool, args.out_dir, tuple(args.seeds), args.max_phases,
+                 args.vae_epochs, args.reg_epochs, args.latent_dim,
+                 args.hidden_dim, verbose=args.verbose, device=args.device,
+                 record_file=args.record_file, features=args.features)
+    else:
+        run_experiment(
+            args.pool, args.out_dir, args.measure_size, tuple(args.seeds),
+            tuple(args.weights), args.grad_num, args.rand_num,
+            args.uncertainty_topk, max_phases=args.max_phases,
+            vae_epochs=args.vae_epochs, reg_epochs=args.reg_epochs,
+            latent_dim=args.latent_dim, hidden_dim=args.hidden_dim,
+            verbose=args.verbose, encoder_mode=args.encoder,
+            device=args.device, record_file=args.record_file,
+            features=args.features, init_mode=args.init_mode)
 
 
 if __name__ == "__main__":

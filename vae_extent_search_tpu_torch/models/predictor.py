@@ -8,17 +8,24 @@ epistemic variance; training loss
           + beta * KL
 with dual-learning-rate AdamW (encoder 1e-5, head 1e-4) and global-norm
 gradient clipping at 1.0.
+
+The VIB arm's fields of ``PredictorConfig`` (all off by default) sample
+z by reparameterisation during training (``stochastic_z``), swap the
+squared error for a smooth-L1 term (``huber_reg``) and schedule the KL
+weight per epoch with a linear warm-up and a cosine decay
+(``kld_cosine_warmup``, ``kld_beta``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
 from ..convert import clone_params, tree_leaves
 from .modules import dense, dense_init, dropout, mlp_apply, mlp_init
-from .vae import kld_loss
+from .vae import kld_loss, reparameterize
 
 ENCODER_KEYS = ("encoder", "fc_mu", "fc_logvar")
 
@@ -68,12 +75,16 @@ def predict_cost(params: Dict, z: torch.Tensor, dropout_gen=None,
 
 
 def pred_forward(params: Dict, x: torch.Tensor, dropout_gen=None,
-                 dropout_rate: float = 0.1):
-    """(cost, mu, logvar, z) with z = mu (the VAE arm never samples z in
-    the predictor)."""
+                 dropout_rate: float = 0.1, z_gen=None, eps=None):
+    """(cost, mu, logvar, z): z = mu, or with ``z_gen`` (or injected
+    noise ``eps``) z = mu + eps * exp(logvar / 2), drawn before the
+    dropout masks."""
     mu, logvar = pred_encode(params, x)
-    cost = predict_cost(params, mu, dropout_gen, dropout_rate)
-    return cost, mu, logvar, mu
+    z = mu
+    if z_gen is not None or eps is not None:
+        z = reparameterize(z_gen, mu, logvar, eps)
+    cost = predict_cost(params, z, dropout_gen, dropout_rate)
+    return cost, mu, logvar, z
 
 
 def mc_predict(params: Dict, x: torch.Tensor, gen, T: int = 20,
@@ -124,13 +135,23 @@ def smooth_loss(params: Dict, z: torch.Tensor, gen, noise_std: float = 0.1,
 
 def compute_total_loss(params: Dict, x: torch.Tensor, labels: torch.Tensor,
                        gen, config: Dict,
-                       sample_mask: Optional[torch.Tensor] = None):
+                       sample_mask: Optional[torch.Tensor] = None, eps=None):
     """total = l_reg*reg + l_pair*pair + gamma*smooth + beta*KL, optionally
-    over a masked subset of rows. ``gen`` draws the dropout masks, then
-    the smoothness noise."""
+    over a masked subset of rows. ``gen`` draws, in this order, the
+    reparameterisation noise (``stochastic_z`` only), the dropout masks
+    and the smoothness noise; ``eps`` injects the first (a test seam).
+    With ``huber_reg`` the regression term is smooth-L1 with
+    ``huber_delta``; the smoothness term sees the sampled z."""
+    stochastic = bool(config.get("stochastic_z", False))
     cost_pred, mu, logvar, z = pred_forward(
-        params, x, dropout_gen=gen, dropout_rate=config.get("dropout", 0.1))
-    errs = (cost_pred - labels) ** 2
+        params, x, dropout_gen=gen, dropout_rate=config.get("dropout", 0.1),
+        z_gen=gen if stochastic else None, eps=eps if stochastic else None)
+    if config.get("huber_reg", False):
+        delta = config.get("huber_delta", 1.0)
+        d = (cost_pred - labels).abs()
+        errs = torch.where(d < delta, 0.5 * d ** 2, delta * (d - 0.5 * delta))
+    else:
+        errs = (cost_pred - labels) ** 2
     if sample_mask is None:
         reg = errs.mean()
         kld = kld_loss(mu, logvar)
@@ -172,9 +193,30 @@ class PredictorConfig(NamedTuple):
     # linear warm-up of the pair-ranking weight over the first N epochs:
     # lambda_pair(e) = lambda_pair * min(e + 1, N) / N
     rank_warmup_epochs: int = 200
+    # the VIB arm (all off for the vae/ae arms): sampled z, smooth-L1
+    # regression, and the KL weight on kld_beta's schedule
+    stochastic_z: bool = False
+    huber_reg: bool = False
+    huber_delta: float = 1.0
+    kld_cosine_warmup: bool = False
+    kld_beta_start: float = 0.0
+    kld_warmup_epochs: int = 50
 
     def as_dict(self) -> Dict:
         return self._asdict()
+
+
+def kld_beta(epoch: int, epochs: int, beta: float, beta_start: float,
+             warmup: int) -> float:
+    """The VIB arm's KL weight at 0-based ``epoch``: linear from
+    ``beta_start`` to ``beta`` over ``warmup`` epochs, then a cosine decay
+    from ``beta`` towards 0 over the remaining ``epochs - warmup``,
+    floored at ``beta_start``."""
+    if epoch < warmup:
+        return beta_start + (beta - beta_start) * epoch / max(warmup, 1)
+    progress = (epoch - warmup) / max(epochs - warmup, 1)
+    return max(beta * 0.5 * (1.0 + math.cos(math.pi * progress)),
+               beta_start)
 
 
 def make_predictor_optimizer(params: Dict, encoder_lr: float = 1e-5,
@@ -216,7 +258,8 @@ def fit_predictor(params: Dict, X: torch.Tensor, y: torch.Tensor,
     loss is incomparable across epochs (a tiny early lambda_pair would
     make near-init params look best forever). It is copied, never
     aliased, when an epoch's loss is strictly lower than every earlier
-    one."""
+    one. It keeps the maximum beta as well: only the gradient step sees
+    ``kld_beta``'s schedule."""
     params = clone_params(params, requires_grad=True)
     leaves = tree_leaves(params)
     opt = make_predictor_optimizer(params, config.encoder_lr, config.head_lr,
@@ -229,9 +272,12 @@ def fit_predictor(params: Dict, X: torch.Tensor, y: torch.Tensor,
     for epoch in range(epochs):
         lam = (lambda_pair_max * min(epoch + 1.0, warmup) / warmup
                if warmup > 0 else lambda_pair_max)
-        loss, aux = compute_total_loss(params, X, y, gen,
-                                       {**cfg, "lambda_pair": lam},
-                                       sample_mask)
+        cfg_e = {**cfg, "lambda_pair": lam}
+        if config.kld_cosine_warmup:
+            cfg_e["beta"] = kld_beta(epoch, epochs, config.beta,
+                                     config.kld_beta_start,
+                                     config.kld_warmup_epochs)
+        loss, aux = compute_total_loss(params, X, y, gen, cfg_e, sample_mask)
         opt.zero_grad(set_to_none=False)
         loss.backward()
         clip_by_global_norm_([t.grad for t in leaves], config.grad_clip)

@@ -41,10 +41,13 @@ def vae_decode(params: Dict, z: torch.Tensor) -> torch.Tensor:
 
 
 def reparameterize(gen: torch.Generator, mu: torch.Tensor,
-                   logvar: torch.Tensor) -> torch.Tensor:
+                   logvar: torch.Tensor, eps=None) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2), eps standard normal from ``gen`` unless
+    injected."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(std.shape, generator=gen, device=gen.device,
-                      dtype=std.dtype).to(std.device)
+    if eps is None:
+        eps = torch.randn(std.shape, generator=gen, device=gen.device,
+                          dtype=std.dtype).to(std.device)
     return mu + eps * std
 
 

@@ -1,28 +1,37 @@
 """The VAE-extent active-learning search loop, offline record-replay arm
 (counterpart of ``vae_extent_search_tpu/search/active_loop.py``).
 
-Init with ``measure_size`` random candidates, then per phase: retrain the
-latent cost predictor on the measured set, select the next batch
+Init with ``measure_size`` candidates (random, or representatives of the
+VAE's latent space), then per phase: retrain the latent cost predictor on
+the measured set, select the next batch
 (``select_programs``), reveal the recorded costs, and stop once the
 true-best candidate is in the measured set. ``run_gbdt_baseline_search``
 is the tree-model baseline arm of the same experiment, and
 ``run_active_search_online`` the live-measurement arm that the self-tuning
 path (``cli/tune_kernel.py``) drives.
 
-Randomness: the initial measured set and the VAE's train/validation
-split are numpy draws (``default_rng(sampling_seed)`` and
-``default_rng(train_seed)``), exactly as in the JAX package, so both
+Randomness: the random initial measured set and the VAE's
+train/validation split are numpy draws (``default_rng(sampling_seed)``
+and ``default_rng(train_seed)``), exactly as in the JAX package, so both
 packages start from the same measured set. Everything else draws from
 explicit torch Generators on the run's device, seeded from
 ``train_seed`` (VAE pretraining; predictor init and training) and
-``sampling_seed`` (selection).
+``sampling_seed`` (selection; the diversity and kmeans inits, on a stream
+of their own).
+
+The JAX loop's ``bucket_shapes`` (padding the pool so that XLA compiles
+once per bucket) has no counterpart: eager torch does not recompile per
+shape. Its ``mesh`` (a pool sharded over devices) is not ported yet.
 """
 
 from __future__ import annotations
 
+import csv
+import itertools
+import os
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,11 +46,16 @@ from ..models.predictor import (
     load_pretrained_encoder,
     pred_forward,
 )
-from ..models.vae import train_vae
-from .select import SelectionConfig, select_programs
+from ..models.vae import train_vae, vae_encode
+from .select import (
+    SelectionConfig,
+    farthest_point_init,
+    kmeans_representative_init,
+    select_programs,
+)
 
 # Generator streams derived from one seed (numpy SeedSequence spawn keys)
-_VAE_STREAM, _PHASE_STREAM, _SELECT_STREAM = 0, 1, 2
+_VAE_STREAM, _PHASE_STREAM, _SELECT_STREAM, _INIT_STREAM = 0, 1, 2, 3
 
 
 def standardize(X: np.ndarray):
@@ -140,21 +154,25 @@ class _ModelPhase:
 
     def fit(self, measured, y):
         """Predictor parameters fitted to labels ``y`` of rows
-        ``measured``, from a fresh init with the pretrained encoder."""
+        ``measured``, from a fresh init with the pretrained encoder (none
+        in the VIB arm). A profiler trace shows it as "fit_predictor"."""
         X = self.X
-        params = init_predictor_params(self.g_phase, X.shape[1],
-                                       self.hidden_dim, self.latent_dim,
-                                       device=X.device)
-        params = load_pretrained_encoder(params, self.vae_params)
-        midx = torch.as_tensor(np.asarray(measured), device=X.device)
-        params, _ = fit_predictor(params, X[midx], y, None, self.g_phase,
-                                  self.pred_cfg, self.reg_epochs)
+        with torch.profiler.record_function("fit_predictor"):
+            params = init_predictor_params(self.g_phase, X.shape[1],
+                                           self.hidden_dim, self.latent_dim,
+                                           device=X.device)
+            if self.vae_params is not None:
+                params = load_pretrained_encoder(params, self.vae_params)
+            midx = torch.as_tensor(np.asarray(measured), device=X.device)
+            params, _ = fit_predictor(params, X[midx], y, None, self.g_phase,
+                                      self.pred_cfg, self.reg_epochs)
         return params
 
     def select(self, params, used, remaining, n_measured):
         """(pool indices to measure next, the new ``remaining`` mask)."""
         cfg = self.sel_cfg
-        with torch.no_grad():
+        with torch.no_grad(), torch.profiler.record_function(
+                "select_programs"):
             sel_idx, sel_valid, remaining, _ = select_programs(
                 params, self.X, used, remaining, self.g_sel, cfg,
                 gate_uncertainty_to_remaining=n_measured
@@ -187,6 +205,7 @@ def run_active_search(
     train_seed: int = 2023,
     stop_top_k: int = 1,
     pretrained_vae_params=None,
+    init_mode: str = "random",
     encoder_mode: str = "vae",
     verbose: bool = False,
     device="cuda",
@@ -194,13 +213,26 @@ def run_active_search(
     """Search until the true-best schedule is measured.
 
     features: [N, D] raw extent features; labels: [N] (-log mean cost,
-    higher is better). ``encoder_mode``: "vae" (VAE pretrain + cost
-    predictor, the headline experiment) or "ae" (plain-autoencoder
-    ablation: deterministic reconstruction-only pretrain, no KL
-    anywhere). The initial measured set is ``measure_size`` random
-    candidates."""
-    if encoder_mode not in ("vae", "ae"):
+    higher is better). ``encoder_mode``:
+      - "vae": VAE pretrain + cost predictor (the headline experiment);
+      - "ae": plain-autoencoder ablation, a deterministic
+        reconstruction-only pretrain and no KL anywhere;
+      - "vib": variational information bottleneck, no pretrain: encoder
+        and head train jointly each phase from a fresh init, with a
+        sampled z, the smooth-L1 term and the cosine KL warm-up, the
+        encoder at the head's learning rate.
+    ``init_mode`` picks the initial ``measure_size`` candidates: "random"
+    (numpy, as the JAX package draws them), "diversity"
+    (``farthest_point_init``) or "kmeans" (``kmeans_representative_init``)
+    on the pretrained VAE's mean latents, in pick order. "vib" takes
+    "random" only: it has no pretrained latent space."""
+    if encoder_mode not in ("vae", "ae", "vib"):
         raise ValueError(f"unknown encoder_mode {encoder_mode!r}")
+    if init_mode not in ("random", "diversity", "kmeans"):
+        raise ValueError(f"unknown init_mode {init_mode!r}")
+    if encoder_mode == "vib" and init_mode != "random":
+        raise ValueError("vib has no pretrained latent space for "
+                         "diversity/kmeans init; use init_mode='random'")
     device = resolve_device(device)
     t0 = time.time()
     N = features.shape[0]
@@ -209,7 +241,9 @@ def run_active_search(
     true_best = int(np.argmax(labels))
     true_top_set = set(np.argsort(-labels)[:stop_top_k].tolist())
 
-    if pretrained_vae_params is None:
+    if encoder_mode == "vib":
+        vae_params = None
+    elif pretrained_vae_params is None:
         vae_params = _train_pool_vae(
             X, make_generator(train_seed, _VAE_STREAM, device), train_seed,
             latent_dim, hidden_dim, vae_lr,
@@ -218,8 +252,24 @@ def run_active_search(
     else:
         vae_params = pretrained_vae_params
 
-    rng = np.random.default_rng(sampling_seed)
-    init_idx = rng.choice(N, size=min(measure_size, N), replace=False)
+    k = min(measure_size, N)
+    if init_mode == "random":
+        init_idx = np.random.default_rng(sampling_seed).choice(
+            N, size=k, replace=False)
+    else:
+        g_init = make_generator(sampling_seed, _INIT_STREAM, device)
+        with torch.no_grad():
+            mu_all, _ = vae_encode(vae_params, X)
+            if init_mode == "diversity":
+                pick = farthest_point_init(
+                    g_init, mu_all, torch.ones(N, dtype=torch.bool,
+                                               device=device), k)
+            else:
+                pick = kmeans_representative_init(g_init, mu_all, k)
+        init_idx = pick.cpu().numpy()
+        if len(set(init_idx.tolist())) != k:
+            raise RuntimeError(f"{init_mode} init picked a candidate twice: "
+                               f"{init_idx.tolist()}")
     used_mask = np.zeros(N, bool)
     used_mask[init_idx] = True
     selected_order = list(init_idx)
@@ -244,11 +294,14 @@ def run_active_search(
         pred_cfg = PredictorConfig(**reg_config)
     if encoder_mode == "ae":
         pred_cfg = pred_cfg._replace(beta=0.0)  # no KL in the AE arm
+    elif encoder_mode == "vib":
+        pred_cfg = pred_cfg._replace(
+            stochastic_z=True, huber_reg=True, kld_cosine_warmup=True,
+            encoder_lr=pred_cfg.head_lr)
 
-    step = _ModelPhase(X, vae_params, pred_cfg,
-                       selection or SelectionConfig(num_select=measure_size),
-                       hidden_dim, latent_dim, reg_epochs, train_seed,
-                       sampling_seed, selected_order)
+    step = _ModelPhase(X, vae_params, pred_cfg, sel_cfg, hidden_dim,
+                       latent_dim, reg_epochs, train_seed, sampling_seed,
+                       selected_order)
     labels_np = np.asarray(labels)
     for phase in range(1, max_phases + 1):
         t_fit = time.perf_counter()
@@ -482,3 +535,29 @@ def run_gbdt_baseline_search(
     result.train_size = int(measured.sum())
     result.used_time = time.time() - t0
     return result
+
+
+def expand_hyper_grid(grid: Dict, filters=None) -> List[Dict]:
+    """Cartesian product of a dict-of-lists hyperparameter grid, in the
+    grid's key order, keeping the rows every filter accepts."""
+    keys = list(grid.keys())
+    rows = []
+    for values in itertools.product(*(grid[k] for k in keys)):
+        row = dict(zip(keys, values))
+        if filters and not all(f(row) for f in filters):
+            continue
+        rows.append(row)
+    return rows
+
+
+def filter_already_measured(rows: List[Dict], total_csv: str,
+                            key_fields: List[str]) -> List[Dict]:
+    """Drop the rows whose ``key_fields`` (compared as strings) already
+    appear in the accumulated result CSV ``total_csv``."""
+    if not os.path.exists(total_csv):
+        return rows
+    with open(total_csv, newline="") as f:
+        seen = {tuple(str(rec.get(k)) for k in key_fields)
+                for rec in csv.DictReader(f)}
+    return [row for row in rows
+            if tuple(str(row.get(k)) for k in key_fields) not in seen]

@@ -6,7 +6,10 @@ is a masked top-k or argmax: predicted-cost top-k, z-gradient-norm
 top-k, MC-dropout-variance top-k, k-center-greedy latent diversity and
 eps-greedy random, unioned. On a CUDA tensor the scoring block (encoder,
 cost head, z-gradient norm, T MC-dropout passes) is one launch of the
-fused-head kernel (``ops/fused_head.py``).
+fused-head kernel (``ops/fused_head.py``). ``farthest_point_init`` and
+``kmeans_representative_init`` pick the search's initial set instead of
+a random draw (plain torch: the JAX package runs them as XLA ops, not a
+kernel).
 
 Ties: ``jax.lax.top_k`` puts the lowest index first among equal scores,
 while ``torch.topk`` promises no order. Every top-k here is a stable
@@ -85,6 +88,85 @@ def random_select(gen: torch.Generator, remaining_mask: torch.Tensor,
     return masked_top_k(noise, remaining_mask, k)
 
 
+def _sq_dist_to(z: torch.Tensor, j) -> torch.Tensor:
+    """[N] squared distances from every row of z to row j."""
+    return ((z - z[j]) ** 2).sum(-1)
+
+
+def farthest_point_init(gen: torch.Generator, z: torch.Tensor,
+                        remaining_mask: torch.Tensor, k: int, first=None):
+    """Farthest-point-first init selection [k]: the first pick uniform
+    over ``remaining_mask`` (or ``first``, injected), then greedily the
+    remaining point farthest from every pick so far, on un-normalised
+    squared distances. The min-distance vector is updated per pick, so no
+    [N, N] matrix exists. Ties go to the lowest index (``torch.argmax``,
+    like ``jnp.argmax``)."""
+    if first is None:
+        first = torch.multinomial(remaining_mask.float().to(gen.device), 1,
+                                  generator=gen)[0].to(z.device)
+    first = torch.as_tensor(first, device=z.device)
+    sel = torch.zeros(k, dtype=torch.int64, device=z.device)
+    sel[0] = first
+    min_sq = _sq_dist_to(z, first)
+    avail = remaining_mask.clone()
+    avail[first] = False
+    neg = torch.tensor(NEG_INF, dtype=min_sq.dtype, device=z.device)
+    for i in range(1, k):
+        j = torch.argmax(torch.where(avail, min_sq, neg))
+        sel[i] = j
+        avail[j] = False
+        min_sq = torch.minimum(min_sq, _sq_dist_to(z, j))
+    return sel
+
+
+def kmeans_representative_init(gen: torch.Generator, z: torch.Tensor,
+                               k: int, iters: int = 10, seed_idx=None):
+    """k-means++ seeding, ``iters`` Lloyd steps, then per centre the
+    nearest data point not yet taken: the representative init selection
+    [k] of distinct indices. It clusters ALL points, not only the
+    remaining ones.
+
+    Seeding draws the first centre uniformly, then each next one with
+    probability proportional to max(d^2, 1e-12), d^2 the squared distance
+    to the nearest centre so far; ``seed_idx`` [k] injects the seeds.
+    Lloyd distances use |z|^2 + |c|^2 - 2 z.c; an empty cluster keeps its
+    centre. Each argmin takes the lowest index on ties."""
+    n = z.shape[0]
+    if seed_idx is None:
+        cidx = torch.zeros(k, dtype=torch.int64, device=z.device)
+        cidx[0] = torch.randint(0, n, (), generator=gen,
+                                device=gen.device).to(z.device)
+        dist = _sq_dist_to(z, cidx[0])
+        for i in range(1, k):
+            w = torch.clamp(dist, min=1e-12).to(gen.device)
+            cidx[i] = torch.multinomial(w, 1, generator=gen)[0].to(z.device)
+            dist = torch.minimum(dist, _sq_dist_to(z, cidx[i]))
+    else:
+        cidx = torch.as_tensor(seed_idx, dtype=torch.int64, device=z.device)
+    centers = z[cidx]
+    zz = (z * z).sum(-1)
+
+    def sq_d(c):
+        return zz[:, None] + (c * c).sum(-1)[None, :] - 2.0 * z @ c.T
+
+    for _ in range(iters):
+        assign = torch.argmin(sq_d(centers), dim=1)
+        sums = torch.zeros_like(centers).index_add_(0, assign, z)
+        cnts = torch.zeros(k, dtype=z.dtype, device=z.device).index_add_(
+            0, assign, torch.ones_like(zz))[:, None]
+        centers = torch.where(cnts > 0, sums / torch.clamp(cnts, min=1.0),
+                              centers)
+    d = sq_d(centers)
+    taken = torch.zeros(n, dtype=torch.bool, device=z.device)
+    sel = torch.zeros(k, dtype=torch.int64, device=z.device)
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=z.device)
+    for j in range(k):
+        i = torch.argmin(torch.where(taken, inf, d[:, j]))
+        taken[i] = True
+        sel[j] = i
+    return sel
+
+
 def z_grad_norms(params: Dict, z: torch.Tensor) -> torch.Tensor:
     """||d cost / d z|| per candidate."""
     with torch.enable_grad():
@@ -108,6 +190,11 @@ class SelectionConfig(NamedTuple):
     # compute dtype of the scoring forwards ("float32" | "bfloat16"); the
     # top-k / selection logic always runs in f32
     compute_dtype: str = "float32"
+    # "off" forces the unfused torch scoring path (the reference the
+    # kernel is compared with); any other value admits the fused head
+    # where ``_use_fused_head`` does. The JAX config's ``fused_interpret``
+    # has no counterpart: the port's CPU seam is ``mask_bits``
+    fused_head: str = "auto"
 
     @property
     def budget(self) -> int:
@@ -135,7 +222,10 @@ def _use_fused_head(params: Dict, X: torch.Tensor, cfg: SelectionConfig,
     ``mask_bits`` — the seam on which the kernel's plain version runs
     with the same bits as a reference), the 2-hidden-layer head over an
     encoder whose fc_mu feeds it, and an MC pass actually needed (T >= 2
-    and an uncertainty budget; otherwise the unfused path skips it)."""
+    and an uncertainty budget; otherwise the unfused path skips it).
+    ``cfg.fused_head == "off"`` refuses it before any other check."""
+    if cfg.fused_head == "off":
+        return False
     if not X.is_cuda and mask_bits is None:
         return False
     head = params.get("cost_predictor")
