@@ -10,10 +10,12 @@
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
      five kernels from csrc/ for sm_90a, one nvcc per source, started
-     together; no fused_head_kernel instance may spill registers (ptxas);
+     together; no fused_head_kernel instance and no f32 matmul instance
+     may spill registers (ptxas; each f32 instance's registers printed);
      cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
      instance and HMMA (mma.sync) in every bf16 conv2d instance, and
-     neither in the f32 instances; it prints the histogram kernel's atomic
+     neither in the f32 instances, and LDGSTS (cp.async) in every f32
+     matmul instance; it prints the histogram kernel's atomic
      instructions, which must all be 32-bit shared-memory adds (ATOMS.ADD):
      no compare-and-swap loop and no global atomic or reduction
   2. kernel vs plain torch version with injected dropout bits, at the
@@ -69,15 +71,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      held against the plain version as in phase 7
  11. the matmul kernels (csrc/matmul.cu) vs their plain version: every
      template instance the library lists (each bf16 wgmma instance at each
-     bk on a shape no tile divides, each f32 thread micro-tile), lattice
-     configs of 1536^3 and of odd shapes, K or N off a multiple of 8 in
-     bf16 (7 x 33 x 5, 64 x 64 x 20: staged zero-padded), in float32 (rel
-     tol 1e-5) and bfloat16 (rel 1e-5 against the f32 plain version of the
-     same bf16 inputs); two launches bit-identical; A = identity gives
-     C == B exactly at every bf16 instance and at the two unaligned shapes;
-     the plain version's time beside the bound at
-     1536^3 bf16 (the kernel's and cuBLAS's come from phase 13), and the f32
-     CUDA-core kernel at 1536^3 at a few configs beside torch.matmul in f32
+     bk on a shape no tile divides; each f32 (bm, bn) instance at a shape
+     no tile divides and at one whose K and N are off a multiple of 4,
+     staged zero-padded), lattice configs of 1536^3 and of odd shapes, K
+     or N off a multiple of 8 in bf16 (7 x 33 x 5, 64 x 64 x 20: staged
+     zero-padded), in float32 (rel tol 1e-5) and bfloat16 (rel 1e-5
+     against the f32 plain version of the same bf16 inputs); two launches
+     bit-identical; A = identity gives C == B exactly at every bf16 and
+     every f32 instance and at the two unaligned bf16 shapes; the plain
+     version's time beside the bound at 1536^3 bf16 (the kernel's and
+     cuBLAS's come from phase 13); then, with
+     torch.backends.cuda.matmul.allow_tf32 set False (and printed), the
+     sweep of the whole f32 lattice at 1536^3, each config held against
+     the plain version and timed by the card timer, beside torch.matmul
+     in f32 and the f32 bound
  12. the same for the conv2d kernels (csrc/conv2d.cu): every bf16 mma.sync
      warp tile and every f32 micro-tile, the JAX tests' shapes and 1 x 56 x
      56 x 256 -> 256, 3 x 3, pad 1, ragged edges (boh, bco, bci not
@@ -85,7 +92,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
  13. self-tuning end to end: cli.tune_kernel on the matmul at the JAX
      defaults (1536^3 bf16, 1,000 candidates, measure size 16, 6 phases,
      VAE 500 epochs, predictor 1000 epochs), --arm model then --arm
-     random; every timed config went through the kernel (its launch count
+     random, then --dtype float32 --arm random (the f32 CUDA-core kernel's
+     path: its best config beside torch.matmul in f32 and the phase 11
+     sweep's fastest); every timed config went through the kernel (its launch count
      grew), none failed to launch, the record log holds every measured
      state; the best config against cuBLAS. Kernel and library times are
      device times (search/kernel_tuner.py::cuda_seconds: the calls queued
@@ -730,15 +739,12 @@ MM_DIM = 1536
 CONV = (1, 56, 56, 256, 256, 3, 3, 1, 1)  # N H W CO CI KH KW stride pad
 TUNE_ARGS = ["--n-candidates", "1000", "--measure-size", "16",
              "--n-phases", "6", "--vae-epochs", "500", "--reg-epochs",
-             "1000", "--dtype", "bfloat16"]
+             "1000"]
 # relative to max |plain|. float32: the same products summed in another
 # order; bfloat16 inputs: against the f32 plain version of the same
 # bf16-rounded inputs, so again only the order of the f32 sums differs (a
 # kernel that rounded its output to bf16 would be off by about 2^-9)
 GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
-# float32 CUDA-core configs timed at the tuning shapes (PR 3's best bf16
-# tiles and their neighbours on the f32 lattice)
-MM_F32_CONFIGS = ((96, 64, 16), (128, 64, 16), (64, 128, 8), (128, 128, 8))
 # bf16 products whose K or N is not a multiple of 8 (TMA's 16-byte rows),
 # at a config of the lattice each
 MM_UNALIGNED = (((7, 33, 5), (64, 64, 16)), ((64, 64, 20), (64, 16, 16)))
@@ -758,9 +764,11 @@ def instance_cases(om, oc):
     (``<name>_instances``): the bf16 matmul at each (bm, bn) instance and
     each bk, on a shape no tile divides; the bf16 conv2d at one config per
     (MT, NT) warp tile, found among configs of a few shapes (one of them
-    with CI and CO not multiples of 8, the element-load path); and the f32
-    kernels at the first valid config per thread micro-tile (TM, TN).
-    Raises if an instance is not reached."""
+    with CI and CO not multiples of 8, the element-load path); the f32
+    matmul at each (bm, bn) instance on a shape no tile divides and on one
+    whose K and N are off a multiple of 4 (staged), each bk in turn; and
+    the f32 conv2d at the first valid config per thread micro-tile (TM,
+    TN). Raises if an instance is not reached."""
     def divs(n):
         return [d for d in range(1, n + 1) if n % d == 0]
 
@@ -773,14 +781,12 @@ def instance_cases(om, oc):
                 mm.append((torch.bfloat16, (2 * bm + 40, 2 * bn + 24, 200),
                            (bm, bn, bk)))
             seen_mm.add((d, bm, bn))
-    M, N, K = 1536, 768, 64
-    for bm in divs(M):
-        for bn in divs(N):
-            t = om.thread_tile(bm, bn)
-            if t and ("float32",) + t not in seen_mm and om.config_is_valid(
-                    M, N, K, bm, bn, 8, dtype="float32")[0]:
-                seen_mm.add(("float32",) + t)
-                mm.append((torch.float32, (M, N, K), (bm, bn, 8)))
+        else:
+            bk = om.F32_BK[(bm // 32 + bn // 32) % len(om.F32_BK)]
+            mm.append((torch.float32, (2 * bm + 13, 2 * bn + 20, 200),
+                       (bm, bn, bk)))
+            mm.append((torch.float32, (bm + 7, bn + 3, 99), (bm, bn, bk)))
+            seen_mm.add((d, bm, bn))
     bf16_shapes = ((1, 56, 56, 256, 256, 3, 3, 1), (1, 28, 28, 64, 128, 3, 3, 1),
                    (3, 10, 7, 24, 4, 3, 3, 0))
     for params in bf16_shapes:
@@ -862,9 +868,11 @@ def check_gemm(tag, label, launch, plain, tol, checks):
         raise RuntimeError(f"[{tag}] kernel disagrees with plain: {label}")
 
 
-def tune_arms(tag, workload, best_launch, kernels, checks):
-    """cli.tune_kernel with ``workload`` at TUNE_ARGS, arm model then arm
-    random, each driven with every kernel count at 0 and read just after.
+def tune_arms(tag, workload, best_launch, kernels, checks,
+              arms=("model", "random"), dtype="bfloat16"):
+    """cli.tune_kernel with ``workload`` at TUNE_ARGS in ``dtype``, each of
+    ``arms`` in turn, each driven with every kernel count at 0 and read
+    just after.
     Checks that every timed config went through the kernel, none failed to
     launch, and each was held against the plain version within
     GEMM_TOL; then holds each arm's best config against the plain version
@@ -879,7 +887,8 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
 
     out = {}
     os.makedirs(OUT_DIR, exist_ok=True)
-    for arm in ("model", "random"):
+    label = tag if dtype == "bfloat16" else f"{tag}_{dtype}"
+    for arm in arms:
         buf = io.StringIO()
         with tempfile.TemporaryDirectory(dir=ROOT) as d:
             log_file = os.path.join(d, "tune.json")
@@ -888,13 +897,13 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
             t = time.time()
             with contextlib.redirect_stdout(buf):
                 summary, runner = tune(workload + TUNE_ARGS + [
-                    "--arm", arm, "--log-file", log_file])
+                    "--dtype", dtype, "--arm", arm, "--log-file", log_file])
             wall = time.time() - t
             launches = {n: k.launches for n, k in kernels.items()}
             with open(log_file) as f:
                 recs = [json.loads(ln) for ln in f if ln.strip()]
         text = buf.getvalue()
-        with open(os.path.join(OUT_DIR, f"tune_{tag}_{arm}.log"), "w") as f:
+        with open(os.path.join(OUT_DIR, f"tune_{label}_{arm}.log"), "w") as f:
             f.write(text)
         for line in text.splitlines():
             if not line.startswith("  config"):
@@ -928,7 +937,7 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
             raise RuntimeError(f"[{tag}] {arm}: {launches[tag]} launches for "
                                f"{sum(per_cfg.values())} timed + {verify} "
                                f"verified, {len(ok)} configs ok")
-        tol = GEMM_TOL[torch.bfloat16]
+        tol = GEMM_TOL[getattr(torch, dtype)]
         if not runner.verify_rel_err <= tol:
             raise RuntimeError(f"[{tag}] {arm}: a timed config is off its "
                                f"plain version by {runner.verify_rel_err:g} "
@@ -939,7 +948,7 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
         if any(others.values()) or launches["fused_head_stats"] != want_fh:
             raise RuntimeError(f"[{tag}] {arm}: kernel launches {launches}")
         if (len(recs) != summary["n_measured"]
-                or {r["i"][0][1] for r in recs} != {"cuda -model=bfloat16"}):
+                or {r["i"][0][1] for r in recs} != {f"cuda -model={dtype}"}):
             raise RuntimeError(f"[{tag}] {arm}: {len(recs)} records for "
                                f"{summary['n_measured']} measured states")
         if not (0 < summary["best_ms"] < 1e4 and lib and lib > 0):
@@ -953,10 +962,10 @@ def tune_arms(tag, workload, best_launch, kernels, checks):
     return out
 
 
-def lattice_sweep(tag, configs, launch, plain, tuned_ms):
+def lattice_sweep(tag, configs, launch, plain, tuned_ms=None):
     """Each of ``configs`` held against the plain version within GEMM_TOL
-    and timed on the card like the tuner's configs, after the tuning arms:
-    the lattice's fastest config beside the one the search found."""
+    and timed on the card like the tuner's configs: the lattice's fastest
+    config, beside the one the search found where ``tuned_ms`` is given."""
     tol = GEMM_TOL[torch.bfloat16]
     ref = plain()
     times = {}
@@ -971,12 +980,13 @@ def lattice_sweep(tag, configs, launch, plain, tuned_ms):
     best = order[0]
     log(f"[{tag}] lattice sweep, {len(times)} configs: fastest "
         + ", ".join(f"{c} {times[c]:.4f}" for c in order[:6])
-        + f" ms; slowest {order[-1]} {times[order[-1]]:.4f} ms; the tuned "
-          f"best {tuned_ms:.4f} ms is {tuned_ms / times[best]:.3f}x the "
-          f"sweep's fastest")
+        + f" ms; slowest {order[-1]} {times[order[-1]]:.4f} ms"
+        + ("" if tuned_ms is None else
+           f"; the tuned best {tuned_ms:.4f} ms is "
+           f"{tuned_ms / times[best]:.3f}x the sweep's fastest"))
     return {"configs": len(times), "best_cfg": best, "best_ms": times[best],
             "fastest_ms": {c: times[c] for c in order[:6]},
-            "slowest_ms": times[order[-1]]}
+            "slowest_ms": times[order[-1]], "times": times}
 
 
 def tuner_phases(dev, peaks, kernels):
@@ -1001,13 +1011,14 @@ def tuner_phases(dev, peaks, kernels):
 
     # ---- 11. matmul kernel vs plain ----
     F32, BF16 = torch.float32, torch.bfloat16
-    mm_checks = {}
+    mm_checks, mm_f32_checks = {}, {}
     mm_cases = [(F32, (MM_DIM,) * 3, c) for c in (
-        (128, 128, 64), (64, 256, 8), (2, 32, 8), (4, 32, 1536))] + [
+        (128, 128, 32), (96, 96, 32), (32, 32, 8), (128, 96, 16))] + [
         (BF16, (MM_DIM,) * 3, c) for c in (
             (128, 192, 64), (256, 128, 64), (64, 16, 16), (128, 256, 32))] + [
-        (F32, (96, 160, 72), (3, 32, 72)), (F32, (1000, 24, 40), (8, 24, 40)),
         # ragged: no tile divides M, N or K
+        (F32, (96, 160, 72), (64, 96, 16)), (F32, (1000, 24, 40),
+                                             (96, 32, 32)),
         (BF16, (96, 160, 72), (64, 64, 32)), (BF16, (1000, 24, 40),
                                               (64, 32, 64))] + [
         # K or N off a multiple of 8: the wrapper stages zero-padded copies
@@ -1024,17 +1035,21 @@ def tuner_phases(dev, peaks, kernels):
             raise RuntimeError(f"[11] {cfg} at {dims}: {why}")
         check_gemm("11", f"{M}x{N}x{K} {cfg} {dtype_name(dtype)}",
                    lambda: om.matmul(a, b, *cfg),
-                   lambda: om.matmul_plain(a, b), GEMM_TOL[dtype], mm_checks)
-    # A = identity at every bf16 instance: C equals B exactly, so a wrong
-    # (row, column) in the epilogue or a missed mask cannot pass
+                   lambda: om.matmul_plain(a, b), GEMM_TOL[dtype],
+                   mm_f32_checks if dtype == F32 else mm_checks)
+    # A = identity at every bf16 and f32 instance: C equals B exactly, so a
+    # wrong (row, column) in the epilogue or a missed mask cannot pass
+    n_eye = 0
     for dtype, dims, cfg in mm_inst:
-        if dtype != BF16 or cfg[2] != 64:
+        if dtype == BF16 and cfg[2] != 64 or dtype == F32 and dims[2] != 200:
             continue
         M = dims[0]
-        b = randn(M, dims[1], dtype=BF16)
-        got = om.matmul(torch.eye(M, device=dev, dtype=BF16), b, *cfg)
+        b = randn(M, dims[1], dtype=dtype)
+        got = om.matmul(torch.eye(M, device=dev, dtype=dtype), b, *cfg)
         if not torch.equal(got, b.float()):
-            raise RuntimeError(f"[11] identity A at {cfg}: C != B")
+            raise RuntimeError(f"[11] identity A at {cfg} "
+                               f"{dtype_name(dtype)}: C != B")
+        n_eye += 1
     # and where K or N is off a multiple of 8: A = eye(M, K) gives C = B
     # in its first min(M, K) rows and zeros below, exactly
     launches = om.matmul.launches
@@ -1044,8 +1059,9 @@ def tuner_phases(dev, peaks, kernels):
             raise RuntimeError(f"[11] identity A at {(M, N, K)} {cfg}: C != B")
     if om.matmul.launches != launches + len(MM_UNALIGNED):
         raise RuntimeError("[11] an unaligned bf16 product did not launch")
-    log(f"[11] identity A: C == B exactly at every bf16 instance and at "
-        f"{[d for d, _ in MM_UNALIGNED]} (K or N off 8, staged)")
+    log(f"[11] identity A: C == B exactly at every bf16 and f32 instance "
+        f"({n_eye} products) and at {[d for d, _ in MM_UNALIGNED]} (bf16, K "
+        f"or N off 8, staged)")
     del operands, a, b
     a = randn(MM_DIM, MM_DIM, dtype=BF16)
     b = randn(MM_DIM, MM_DIM, dtype=BF16)
@@ -1055,12 +1071,29 @@ def tuner_phases(dev, peaks, kernels):
     log(f"[11] 1536^3 bf16: plain {mm_plain_ms:.4f} ms, bound "
         f"{mm_bound:.4f} ms ({mm_by})")
     del a, b
+    # the f32 kernel's whole lattice at 1536^3 beside torch.matmul in full
+    # float32 (TF32 off: PyTorch's default for matmul, set here all the same)
+    torch.backends.cuda.matmul.allow_tf32 = False
     a, b = randn(MM_DIM, MM_DIM), randn(MM_DIM, MM_DIM)
-    mm_f32 = f32_times(
-        "11", MM_F32_CONFIGS, lambda cfg: om.matmul(a, b, *cfg),
-        time_library_matmul(MM_DIM, MM_DIM, MM_DIM, "float32",
-                            device=dev).seconds * 1e3,
-        *gemm_bound_ms(*matmul_work(MM_DIM, MM_DIM, MM_DIM, 4), F32, peaks))
+    f32_plain_ms, _ = card_ms(lambda: om.matmul_plain(a, b))
+    f32_lib_ms = time_library_matmul(MM_DIM, MM_DIM, MM_DIM, "float32",
+                                     device=dev).seconds * 1e3
+    f32_bound, f32_by = gemm_bound_ms(
+        *matmul_work(MM_DIM, MM_DIM, MM_DIM, 4), F32, peaks)
+    log(f"[11] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}; 1536^3 f32: torch.matmul "
+        f"{f32_lib_ms:.4f} ms, plain {f32_plain_ms:.4f} ms, bound "
+        f"{f32_bound:.4f} ms ({f32_by})")
+    f32_sweep = lattice_sweep(
+        "11", [(bm, bn, bk) for bm in om.F32_BM for bn in om.F32_BN
+               for bk in om.F32_BK],
+        lambda cfg: om.matmul(a, b, *cfg), lambda: om.matmul_plain(a, b))
+    f32_sweep.update(library_ms=f32_lib_ms, bound_ms=f32_bound,
+                     all_ms=f32_sweep.pop("times"))
+    log(f"[11] f32 lattice sweep: fastest {f32_sweep['best_cfg']} "
+        f"{f32_sweep['best_ms']:.4f} ms = "
+        f"{f32_lib_ms / f32_sweep['best_ms']:.3f}x torch.matmul's speed, "
+        f"{f32_bound / f32_sweep['best_ms']:.1%} of the bound")
     del a, b
 
     # ---- 12. conv2d kernel vs plain ----
@@ -1106,6 +1139,8 @@ def tuner_phases(dev, peaks, kernels):
         "12", CONV_F32_CONFIGS, lambda cfg: oc.conv2d(x, w, bias, pad, *cfg),
         time_library_conv2d(*CONV, "float32", device=dev).seconds * 1e3,
         *gemm_bound_ms(*conv_work(*CONV, 4), F32, peaks))
+    cv_f32["plain_ms"] = card_ms(lambda: oc.conv2d_plain(x, w, bias, pad))[0]
+    log(f"[12] float32 plain version: {cv_f32['plain_ms']:.4f} ms")
     del x, w, bias
 
     # ---- 13. / 14. self-tuning end to end ----
@@ -1121,6 +1156,18 @@ def tuner_phases(dev, peaks, kernels):
 
     mm_arms = tune_arms("matmul", ["--workload", "matmul", "--dim",
                                    str(MM_DIM)], mm_best, kernels, mm_checks)
+    # this slice's path: the f32 CUDA-core kernel tuned at the same shape
+    mm_f32_arms = tune_arms("matmul", ["--workload", "matmul", "--dim",
+                                       str(MM_DIM)], mm_best, kernels,
+                            mm_f32_checks, arms=("random",), dtype="float32")
+    f32_tuned = mm_f32_arms["random"][0]
+    log(f"[13] f32 random arm: best {f32_tuned['best_cfg']} "
+        f"{f32_tuned['best_ms']:.4f} ms; torch.matmul f32 (TF32 off) "
+        f"{f32_tuned['library_ms']:.4f} ms in the arm, {f32_lib_ms:.4f} ms "
+        f"in phase 11 -> {f32_tuned['best_ms'] / f32_tuned['library_ms']:.3f}"
+        f"x the library's time; the phase 11 sweep's fastest "
+        f"{f32_sweep['best_cfg']} {f32_sweep['best_ms']:.4f} ms -> "
+        f"{f32_tuned['best_ms'] / f32_sweep['best_ms']:.3f}x")
     cv_arms = tune_arms("conv2d", ["--workload", "conv2d", "--conv",
                                    *map(str, CONV[:7])], cv_best, kernels,
                         cv_checks)
@@ -1146,12 +1193,13 @@ def tuner_phases(dev, peaks, kernels):
     del a, b, x, w, bias
 
     def record(name, arms, checks, src, replaces, plain_ms, b_ms, b_by,
-               shape, f32, sweep, flops):
+               shape, f32, sweep, flops, kernel=None):
         best = min(arms.values(), key=lambda v: v[0]["best_ms"])[0]
+        kernel = kernel or name
         return {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": sum(v[2][name] for v in arms.values()),
+            "launches": sum(v[2][kernel] for v in arms.values()),
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
             "ms": best["best_ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by,
@@ -1176,7 +1224,7 @@ def tuner_phases(dev, peaks, kernels):
                 "n_raw_configs", "n_lattice_configs", "pool_s", "bound_s",
                 "featurize_s", "vae_s", "fit_s", "select_s", "measure_s",
                 "timing_s")}
-                | {"wall_s": v[3], "launches": v[2][name],
+                | {"wall_s": v[3], "launches": v[2][kernel],
                    "configs_verified": v[1].n_verified,
                    "verify_max_rel_err": v[1].verify_rel_err}
                 for arm, v in arms.items()},
@@ -1187,8 +1235,14 @@ def tuner_phases(dev, peaks, kernels):
                "vae_extent_search_tpu_torch/csrc/matmul.cu",
                "vae_extent_search_tpu/ops/matmul_pallas.py:78", mm_plain_ms,
                mm_bound, mm_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
-                                 "dtype": "bfloat16"}, mm_f32, mm_sweep,
+                                 "dtype": "bfloat16"}, None, mm_sweep,
                matmul_work(MM_DIM, MM_DIM, MM_DIM, 2)[0]),
+        record("matmul_f32", mm_f32_arms, mm_f32_checks,
+               "vae_extent_search_tpu_torch/csrc/matmul.cu",
+               "vae_extent_search_tpu/ops/matmul_pallas.py:78", f32_plain_ms,
+               f32_bound, f32_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
+                                   "dtype": "float32"}, None, f32_sweep,
+               matmul_work(MM_DIM, MM_DIM, MM_DIM, 4)[0], kernel="matmul"),
         record("conv2d", cv_arms, cv_checks,
                "vae_extent_search_tpu_torch/csrc/conv2d.cu",
                "vae_extent_search_tpu/ops/conv2d_pallas.py:106", cv_plain_ms,
@@ -2313,6 +2367,18 @@ def main():
         f"{sorted(head_regs.values())}")
     if not head_regs or any(sp for _, sp in head_regs.values()):
         raise RuntimeError(f"[1] fused_head_kernel spills: {head_regs}")
+    # the f32 matmul's 64 (or 32) accumulators and its fragments stay in
+    # registers at two blocks per SM: no instance may spill
+    f32_regs = {}
+    for name, rs in ptxas_report(builds[2][1]).items():
+        m = re.search(r"mm_f32ILi(\d+)ELi(\d+)E", name)
+        if m:
+            f32_regs[(int(m.group(1)), int(m.group(2)))] = rs
+    log(f"[1] mm_f32 instances (bm, bn): (registers, spill bytes) "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(f32_regs.items())))
+    if set(f32_regs) != {(bm, bn) for bm in om.F32_BM for bn in om.F32_BN} \
+            or any(sp for _, sp in f32_regs.values()):
+        raise RuntimeError(f"[1] mm_f32 instances or spills: {f32_regs}")
     # the bf16 instances run on the tensor cores: every one of them holds
     # the instruction (HGMMA: wgmma; HMMA: mma.sync), no f32 instance does
     for lib, kern, op in ((om.LIB, "mm_", "HGMMA"), (oc.LIB, "conv_", "HMMA")):
@@ -2327,6 +2393,14 @@ def main():
         if not bf16 or not all(counts[n] for n in bf16) or any(
                 counts[n] for n in f32):
             raise RuntimeError(f"[1] {lib.library.name}: {op} counts {counts}")
+        if lib is om.LIB:
+            # the f32 ring is filled by cp.async (LDGSTS)
+            ldgsts = {n: sum("LDGSTS" in ln for ln in funcs[n]) for n in f32}
+            log(f"[1] cuobjdump -sass {lib.library.name}: LDGSTS in the "
+                f"{len(f32)} f32 instances {sorted(ldgsts.values())}")
+            if not f32 or not all(ldgsts.values()):
+                raise RuntimeError(f"[1] {lib.library.name}: LDGSTS counts "
+                                   f"{ldgsts}")
 
     # the histogram kernel adds with 32-bit shared-memory atomics: its only
     # atomic instructions are ATOMS.ADD, with no compare-and-swap loop

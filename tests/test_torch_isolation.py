@@ -37,7 +37,7 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.tune_kernel", "ops.segment_sum", "models.segment",
          "models.embedding", "features.per_store", "data.dataset",
          "cli.make_dataset", "cli.train_model", "cli.eval_model_on_dataset",
-         "utils", "utils.misc", "cli.trace_summary"}}
+         "utils", "utils.misc", "cli.trace_summary", "cli.matmul_sweep"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
 assert not missing and len(mods) >= 56, (missing, mods)
 """
@@ -90,3 +90,13 @@ def test_new_cli_options_need_cuda(tmp_path, opts):
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
     assert not (tmp_path / "out" / "vae_extent_total_avg.csv").exists()
+
+
+def test_matmul_sweep_needs_cuda():
+    """The f32 lattice sweep times the card and has no CPU mode: without
+    CUDA it refuses before it times or prints anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot show")
+    proc = _run(["-m", f"{PKG}.cli.matmul_sweep", "--dims", "64"])
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "torch.cuda.is_available() is False" in proc.stderr

@@ -338,7 +338,8 @@ def test_device_engine_on_card():
     assert np.abs(d1.predict(X) - host.predict(X)).max() < 1e-4
 
 
-# float32: the same f32 products summed in another order (K <= 1536);
+# float32: the same f32 products summed in another order (K <= 1536; the
+# kernel adds each output's k terms in increasing order in one register);
 # bfloat16: the plain version multiplies the same bf16-rounded inputs in
 # f32, so only the order of the f32 sums differs (the tensor cores add
 # exact products in f32)
@@ -347,9 +348,12 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype,dims,cfg", [
-    (F32, (256, 256, 256), (128, 128, 64)), (F32, (256, 512, 128), (64, 256, 8)),
-    (F32, (96, 160, 72), (3, 32, 72)),       # non-square, bk = the whole K
-    (F32, (1536, 1536, 1536), (2, 32, 8)), (F32, (64, 24, 48), (64, 24, 48)),
+    (F32, (256, 256, 256), (128, 128, 32)), (F32, (256, 512, 128), (64, 128, 8)),
+    (F32, (96, 160, 72), (32, 32, 8)),       # non-square
+    (F32, (1536, 1536, 1536), (96, 96, 32)), (F32, (64, 24, 48), (64, 32, 16)),
+    (F32, (1000, 100, 200), (96, 128, 16)),  # ragged in M, N and K
+    # K or N off a multiple of 4: the operands are staged zero-padded
+    (F32, (7, 33, 5), (32, 32, 8)), (F32, (64, 64, 21), (64, 64, 16)),
     (BF16, (256, 256, 256), (128, 128, 64)), (BF16, (1536, 1536, 1536),
                                               (128, 192, 64)),
     (BF16, (1536, 1536, 1536), (256, 128, 32)),
@@ -374,6 +378,40 @@ def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
 
 BF16_INSTANCES = [(bm, bn) for bm in om.BF16_BM for bn in om.BF16_BN
                   if om.bf16_accumulators(bm, bn) <= om.ACC_REGS]
+F32_INSTANCES = [(bm, bn) for bm in om.F32_BM for bn in om.F32_BN]
+
+
+@pytest.mark.parametrize("bm,bn", F32_INSTANCES)
+def test_every_f32_matmul_instance_matches_plain(dev, bm, bn):
+    # a ragged shape (no tile divides it) at each bk, two launches
+    # bit-identical; then K and N off a multiple of 4 (staged)
+    M, N, K = 2 * bm + 13, 2 * bn + 20, 200
+    g = torch.Generator(device=dev).manual_seed(bm * bn)
+    a = torch.randn(M, K, generator=g, device=dev)
+    b = torch.randn(K, N, generator=g, device=dev)
+    want = om.matmul_plain(a, b)
+    for bk in om.F32_BK:
+        got = om.matmul(a, b, bm, bn, bk)
+        assert torch.equal(got, om.matmul(a, b, bm, bn, bk))
+        assert _rel(got, want) <= MM_TOL[F32]
+    a, b = a[:, :K - 3].contiguous(), b[:K - 3, :N - 1].contiguous()
+    assert _rel(om.matmul(a, b, bm, bn, 16), om.matmul_plain(a, b)) <= \
+        MM_TOL[F32]
+
+
+@pytest.mark.parametrize("bm,bn", F32_INSTANCES)
+def test_f32_matmul_epilogue_places_every_output(dev, bm, bn):
+    # A = identity: C must equal B exactly (each output one exact product
+    # plus zeros), so a wrong (row, column) of the thread tile, a missed
+    # mask or a stale stage shows up as a mismatch
+    M, N = 2 * bm - 8, 3 * bn - 16
+    b = torch.randn(M, N, device=dev)
+    for bk in om.F32_BK:
+        assert torch.equal(om.matmul(torch.eye(M, device=dev), b, bm, bn, bk),
+                           b)
+    # K and N off a multiple of 4 (staged operands, C cut back)
+    a, b = torch.eye(M - 3, device=dev), b[:M - 3, :N - 5].contiguous()
+    assert torch.equal(om.matmul(a, b, bm, bn, 8), b)
 
 
 @pytest.mark.parametrize("bm,bn", BF16_INSTANCES)
@@ -407,9 +445,9 @@ def test_bf16_matmul_epilogue_places_every_output(dev, bm, bn, bk):
 def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
     a = torch.randn(256, 256, device=dev)
     before = om.matmul.launches
-    for cfg in ((100, 128, 64),      # does not divide
-                (256, 128, 64),      # more than 256 threads of 8 x 8
-                (128, 128, 256)):    # f32 tiles over 227 KB
+    for cfg in ((100, 128, 64),      # bm off the f32 lattice
+                (256, 128, 32),      # bm past the lattice
+                (128, 128, 64)):     # bk not in F32_BK
         with pytest.raises(ValueError, match="invalid matmul config"):
             om.matmul(a, a, *cfg)
     ab = a.bfloat16()
@@ -428,6 +466,12 @@ def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
     assert om.matmul.launches == before + 1 and got.shape == (250, 250)
     assert got.is_contiguous()
     assert _rel(got, om.matmul_plain(odd, odd)) <= MM_TOL[BF16]
+    # and in f32 (rows of 1000 bytes, off the 16-byte copies)
+    odd = a[:250, :250].contiguous()
+    got = om.matmul(odd, odd, 64, 64, 16)
+    assert om.matmul.launches == before + 2 and got.shape == (250, 250)
+    assert got.is_contiguous()
+    assert _rel(got, om.matmul_plain(odd, odd)) <= MM_TOL[F32]
     x = torch.randn(1, 56, 56, 256, device=dev)
     w = torch.randn(3, 3, 256, 256, device=dev)
     b = torch.randn(256, device=dev)
@@ -467,8 +511,8 @@ def test_library_instances_are_the_lattice(dev):
     mm = om.library_instances(om.LIB.load().matmul_instances)
     assert {(p, q) for d, p, q in mm if d == "bfloat16"} == set(
         BF16_INSTANCES)
-    assert {(p, q) for d, p, q in mm if d == "float32"} == {
-        (tm, tn) for tm in om.MICRO for tn in om.MICRO}
+    assert {(p, q) for d, p, q in mm if d == "float32"} == set(
+        F32_INSTANCES)
     cv = om.library_instances(oc.LIB.load().conv2d_instances)
     assert {(p, q) for d, p, q in cv if d == "bfloat16"} == {
         (mt, nt) for mt in oc.BF16_MT for nt in oc.BF16_NT}

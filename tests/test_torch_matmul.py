@@ -1,10 +1,12 @@
 """The port's matmul module (ops/matmul.py) on the CPU: its plain version
 against the JAX package's Pallas matmul in interpret mode at the JAX
-tests' configurations, and the Hopper lattices of its two kernels (the
-float32 CUDA-core kernel: validity, snapping, the thread micro-tile; the
-bfloat16 tensor-core kernel: each refusal, the derived stage count, the
-register and shared-memory limits, ragged tiles, and the instances the
-source is built for). The CUDA kernels themselves are held against the
+tests' configurations, the zero-padded staging of K or N off 16-byte rows
+against it, and the Hopper lattices of its two kernels (the float32
+CUDA-core kernel: validity, snapping, the derived stage count, the wave
+model, the instances the source is built for; the bfloat16 tensor-core
+kernel: each refusal, the derived stage count, the register and
+shared-memory limits, ragged tiles, and the instances). ``thread_tile``,
+which the conv2d's f32 kernel uses, is tested here too. The CUDA kernels themselves are held against the
 plain version on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py)."""
 
@@ -69,7 +71,7 @@ def test_bf16_staging_matches_jax_kernel(dims, jax_cfg):
     want = np.asarray(make_matmul(M, N, K, *jax_cfg, dtype_name="bfloat16",
                                   interpret=True)(a, b))
     ta, tb = torch.as_tensor(a).bfloat16(), torch.as_tensor(b).bfloat16()
-    pa, pb = om.bf16_staged(ta, tb)
+    pa, pb = om.staged(ta, tb, om.TMA_ALIGN)
     assert pa.shape[1] % 8 == 0 and pb.shape[1] % 8 == 0
     assert pa.shape[1] == pb.shape[0] and pa.is_contiguous()
     assert torch.equal(pa[:, :K], ta) and not pa[:, K:].any()
@@ -81,7 +83,36 @@ def test_bf16_staging_matches_jax_kernel(dims, jax_cfg):
     assert rel < 1e-5
     assert torch.equal(om.matmul(ta, tb, 64, 16, 16), got)
     # aligned shapes are handed over as they are
-    sa, sb = om.bf16_staged(pa, pb)
+    sa, sb = om.staged(pa, pb, om.TMA_ALIGN)
+    assert sa is pa and sb is pb
+
+
+@pytest.mark.parametrize("dims", [(7, 33, 5), (64, 64, 21)])
+def test_f32_staging_matches_jax_kernel(dims):
+    """K or N off a multiple of 4 (the f32 kernel's 16-byte copies): the
+    zero-padded float32 operands the wrapper hands the kernel give, cut
+    back to [M, N], the JAX Pallas matmul's float32 product (interpret
+    mode, whole-axis tiles)."""
+    M, N, K = dims
+    rng = np.random.default_rng(M * N + K)
+    a = rng.standard_normal((M, K), np.float32)
+    b = rng.standard_normal((K, N), np.float32)
+    want = np.asarray(make_matmul(M, N, K, M, N, K, dtype_name="float32",
+                                  interpret=True)(a, b))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    pa, pb = om.staged(ta, tb, om.F32_ALIGN)
+    assert pa.shape[1] % 4 == 0 and pb.shape[1] % 4 == 0
+    assert pa.shape[1] == pb.shape[0] and pa.is_contiguous()
+    assert torch.equal(pa[:, :K], ta) and not pa[:, K:].any()
+    assert torch.equal(pb[:K, :N], tb) and not pb[K:].any()
+    assert not pb[:, N:].any()
+    got = om.matmul_plain(pa, pb)[:, :N]
+    # the same f32 products summed in another order; the padded K terms
+    # add exact zeros
+    rel = np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want))
+    assert rel < 1e-5
+    assert torch.equal(om.matmul(ta, tb, 32, 32, 8), om.matmul_plain(ta, tb))
+    sa, sb = om.staged(pa, pb, om.F32_ALIGN)
     assert sa is pa and sb is pb
 
 
@@ -104,48 +135,96 @@ def test_thread_tile():
 
 
 def test_config_validity():
-    # the float32 CUDA-core kernel: exact tiling, threads, shared memory
-    ok, _ = om.config_is_valid(256, 256, 256, 128, 128, 128, **F32)
+    # the float32 CUDA-core kernel: the lattice's tiles at any shape
+    ok, _ = om.config_is_valid(256, 256, 256, 128, 128, 32, **F32)
     assert ok
-    ok, why = om.config_is_valid(256, 256, 256, 100, 128, 64, **F32)
-    assert not ok and "divide" in why
-    ok, why = om.config_is_valid(256, 256, 256, 0, 128, 64, **F32)
-    assert not ok
-    # more outputs than 256 threads of 8 x 8 can hold
-    ok, why = om.config_is_valid(4096, 4096, 4096, 256, 128, 64, **F32)
-    assert not ok and "threads" in why
-    # shared memory: (128 + 128) x 256 f32 = 256 KB > 227 KB; 192 fits
-    ok, why = om.config_is_valid(1536, 1536, 1536, 128, 128, 256, **F32)
-    assert not ok and "shared memory" in why
-    assert om.config_is_valid(1536, 1536, 1536, 128, 128, 192, **F32)[0]
-    assert om.matmul_smem_bytes(128, 128, 192, 4) <= MAX_SMEM_BYTES
-    # tiny blocks predict far slower than a 128 x 128 tile
-    assert (om.predicted_seconds(1536, 1536, 1536, 2, 1, 3, **F32)
-            > om.predicted_seconds(1536, 1536, 1536, 128, 128, 64, **F32)
-            * 100)
+    ok, why = om.config_is_valid(256, 256, 256, 100, 128, 16, **F32)
+    assert not ok and why.startswith("bm=100 not in")
+    ok, why = om.config_is_valid(256, 256, 256, 128, 120, 16, **F32)
+    assert not ok and why.startswith("bn=120 not in")
+    ok, why = om.config_is_valid(256, 256, 256, 0, 128, 16, **F32)
+    assert not ok and why == "bm=0 out of range"
+    # bk: whole float4 groups, a power of two of them per A row
+    for bk in (4, 12, 24, 64, 256):
+        ok, why = om.config_is_valid(1536, 1536, 1536, 128, 128, bk, **F32)
+        assert not ok and why.startswith(f"bk={bk} not in"), why
+    # tiles need not divide M, N or K (zero-filled copies, masked stores),
+    # and K or N off a multiple of 4 is staged by the wrapper
+    for dims in ((1000, 24, 40), (96, 160, 72), (7, 33, 5), (1, 1, 1),
+                 (8, 257 * 127, 8)):
+        assert om.config_is_valid(*dims, 96, 128, 32, **F32) == (True, None)
+    # every configuration of the lattice fits 227 KB, with two blocks of
+    # two stages or more per SM
+    for bm in om.F32_BM:
+        for bn in om.F32_BN:
+            for bk in om.F32_BK:
+                st = om.f32_stages(bm, bn, bk)
+                assert 2 <= st <= om.F32_MAX_STAGES
+                assert 2 * (om.matmul_smem_bytes(bm, bn, bk, st) + 1024) \
+                    <= om.SM_SMEM_BYTES
+                assert om.config_is_valid(64, 64, 64, bm, bn, bk, **F32)[0]
+    # the ring's depth: as deep as two blocks per SM allow, up to four
+    assert om.f32_stages(128, 128, 32) == 3
+    assert om.f32_stages(128, 128, 16) == 4
+    assert om.matmul_smem_bytes(128, 128, 32, 3) == 3 * (128 * 36
+                                                         + 32 * 128) * 4
+
+
+def test_f32_thread_tile_fills_whole_warps():
+    # 8 x 8 accumulators per thread where that gives whole warps, else
+    # 8 x 4 (csrc/matmul.cu::F32Tile)
+    def threads(bm, bn):
+        return bm * bn // (8 * om.f32_thread_tile(bm, bn))
+
+    assert om.f32_thread_tile(128, 128) == 8 and threads(128, 128) == 256
+    assert om.f32_thread_tile(128, 96) == 8 and threads(128, 96) == 192
+    assert om.f32_thread_tile(96, 96) == 4 and threads(96, 96) == 288
+    assert om.f32_thread_tile(32, 32) == 4 and threads(32, 32) == 32
+    for bm in om.F32_BM:
+        for bn in om.F32_BN:
+            assert threads(bm, bn) % 32 == 0 and threads(bm, bn) <= 288
+
+
+def test_predicted_seconds_f32_prefers_tiles_that_fill_the_waves():
+    # at 1536^3 a 128 x 128 tile gives 144 tiles, 1.09 waves of 132 SMs;
+    # 96 x 96 gives 256 (1.94 waves), 128 x 96 192: both ahead of it
+    p = om.predicted_seconds
+    big = p(1536, 1536, 1536, 128, 128, 32, **F32)
+    assert p(1536, 1536, 1536, 96, 96, 32, **F32) < big
+    assert p(1536, 1536, 1536, 128, 96, 32, **F32) < big
+    # within a factor of the CUDA-core bound
+    bound = 2 * 1536 ** 3 / om.PEAK_FLOPS["float32"]
+    assert bound < big < 3 * bound
+    # ragged tiles count whole tiles (272 of 96 x 96 at M = 1540: a third
+    # wave) and whole k-steps
+    assert p(1540, 1536, 1536, 96, 96, 32, **F32) > p(1536, 1536, 1536, 96,
+                                                      96, 32, **F32)
+    assert p(1536, 1536, 1544, 128, 128, 32, **F32) > big
+    assert math.isfinite(p(7, 8, 5, 32, 32, 8, **F32))
 
 
 def test_snap_config_to_hw():
     def snap(*raw, dims=(1536, 1536, 1536)):
         return om.snap_config_to_hw(*dims, *raw, **F32)
 
-    # bn up to a multiple of 32, bk up to a multiple of 8; divisors only
+    # each of bm, bn, bk up to the lattice
     assert snap(64, 96, 4) == (64, 96, 8)
-    assert snap(2, 1, 3) == (2, 32, 8)
-    # ... then (24 + 256) x 256 f32 (280 KB) is over shared memory
-    assert snap(24, 200, 400) == (24, 256, 192)
-    # on the lattice and within the limits: unchanged
-    assert snap(128, 128, 64) == (128, 128, 64)
-    # over the thread limit: the larger of bm, bn shrinks, in turn
+    assert snap(2, 1, 3) == (32, 32, 8)
+    assert snap(24, 200, 400) == (32, 128, 32)
+    assert snap(100, 65, 9) == (128, 96, 16)
+    # on the lattice: unchanged
+    assert snap(128, 128, 32) == (128, 128, 32)
+    assert snap(96, 64, 16) == (96, 64, 16)
+    # past the lattice: its largest value
     assert snap(512, 256, 8) == (128, 128, 8)
-    # over shared memory: bk shrinks first
-    assert snap(128, 128, 768) == (128, 128, 192)
-    # an axis with no multiple of the alignment: the whole axis
-    assert snap(3, 3, 3, dims=(64, 24, 6)) == (4, 24, 6)
-    # a prime axis too long for one block cannot be tiled
+    assert snap(128, 128, 768) == (128, 128, 32)
+    # a raw tile is first cut to the axis
+    assert snap(3, 3, 3, dims=(64, 24, 6)) == (32, 32, 8)
+    assert snap(64, 64, 64, dims=(40, 24, 12)) == (64, 32, 16)
+    # a prime axis too long for one block: ragged tiles, valid
     cfg = snap(1, 1, 1, dims=(8, 257 * 127, 8))
-    assert cfg[1] == 257 * 127 and not om.config_is_valid(
-        8, 257 * 127, 8, *cfg, **F32)[0]
+    assert cfg == (32, 32, 8)
+    assert om.config_is_valid(8, 257 * 127, 8, *cfg, **F32) == (True, None)
 
 
 @pytest.mark.parametrize("cfg,dims,reason", [
@@ -222,6 +301,24 @@ def test_the_source_holds_exactly_the_lattice():
     assert _cu_instances() == want
 
 
+def test_the_source_holds_exactly_the_f32_lattice():
+    src = (CSRC / "matmul.cu").read_text()
+
+    def values(name):
+        line = re.search(rf"#define {name}\(X\) (.*)", src).group(1)
+        return [int(v) for v in re.findall(r"X\((\d+)\)", line)]
+
+    assert {(bm, bn) for bm in values("F32_BM") for bn in values(
+        "F32_BN")} == {(bm, bn) for bm in om.F32_BM for bn in om.F32_BN}
+    # the kernel's bk check, ring depth and row pad are the wrapper's
+    assert "bk != 8 && bk != 16 && bk != 32" in src
+    assert om.F32_BK == (8, 16, 32)
+    assert re.search(r"kF32MaxStages = (\d+);", src).group(1) == str(
+        om.F32_MAX_STAGES)
+    assert re.search(r"kF32Pad = (\d+);", src).group(1) == str(
+        om.F32_ROW_PAD)
+
+
 def test_wgmma_header_is_generated_for_the_lattice():
     spec = importlib.util.spec_from_file_location("gen_wgmma",
                                                   CSRC / "gen_wgmma.py")
@@ -285,14 +382,15 @@ def test_every_snap_lands_on_the_lattice(dims, dtype):
         raw = (divisor(M), divisor(N), divisor(K))
         cfg = om.snap_config_to_hw(M, N, K, *raw, dtype=dtype)
         ok, why = om.config_is_valid(M, N, K, *cfg, dtype=dtype)
+        # on the lattice and valid, K and N off 8 (bf16) or 4 (f32)
+        # included
         if dtype == "bfloat16":
-            # on the lattice and valid, K and N off 8 included
             assert (cfg[0] in om.BF16_BM and cfg[1] in om.BF16_BN
                     and cfg[2] in om.BF16_BK), cfg
-            assert ok, why
         else:
-            assert ok or M == cfg[0] or N == cfg[1] or K == cfg[2], (
-                raw, cfg, why)
+            assert (cfg[0] in om.F32_BM and cfg[1] in om.F32_BN
+                    and cfg[2] in om.F32_BK), cfg
+        assert ok, why
         assert om.snap_config_to_hw(M, N, K, *cfg, dtype=dtype) == cfg
 
 

@@ -183,13 +183,15 @@ def test_runner_rejects_invalid_and_slow_configs():
     res = Conv2dRunner(time_fn=_fake_conv, device="cpu").run(
         t2, [t2.compute_dag.init_state.copy()])
     assert res[0].error_no == ERROR_INSTANTIATION
-    # an axis with no tiling on the float32 lattice (a prime N, too wide
-    # for one block's threads; the bf16 kernel masks ragged tiles and
-    # takes it)
+    # a prime N, which no tile divides: the float32 kernel masks ragged
+    # tiles as the bf16 one does, so it is timed, not refused
     t3 = _task(8, 32639, 8)
     r3 = MatmulRunner(dtype="float32", time_fn=_fake_mm, device="cpu")
     res = r3.run(t3, [t3.compute_dag.init_state.copy()])
-    assert res[0].error_no == ERROR_INSTANTIATION and r3.n_timed == 0
+    assert res[0].error_no == ERROR_NO_ERROR and r3.n_timed == 1
+    (cfg, _, _), = r3.measured_configs()
+    assert om.config_is_valid(8, 32639, 8, *cfg, dtype="float32") == (
+        True, None)
     # too slow: on the timing path, the prediction guard rejects the
     # config before any kernel is built or launched (bf16: the raw (1, 1,
     # 8) snaps to the narrowest tile, 64 x 16 x 16, predicted at ~26 ms)

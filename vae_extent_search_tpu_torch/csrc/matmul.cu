@@ -31,10 +31,39 @@
 // launches give the same bits.
 //
 // float32: the CUDA cores (tensor cores in f32 would be TF32, which changes
-// the numbers). Bound 67 TFLOP/s. The [bm, bn] tile, an in-block loop over
-// K in steps of bk, both tiles staged in shared memory; each thread owns a
-// TM x TN micro-tile strided by the thread grid, (TM, TN) from {1, 2, 4,
-// 8}^2 with at most 256 threads; bm | M, bn | N, bk | K.
+// the numbers), exact FFMA. Bound on an H100 at 1536^3: operations, 7.25
+// GFLOP is 0.108 ms at 67 TFLOP/s. One instance per (BM, BN) of the lattice
+// F32_BM x F32_BN; bk (8, 16 or 32) and the ring's depth are arguments. A
+// block of BM * BN / (8 * TN) threads computes one [BM, BN] tile of C; each
+// thread holds an 8 x TN accumulator tile (TN = 8, or 4 where 8 x 8 would
+// leave a part of a warp: 32x32, 32x96, 96x32, 96x96) as 2 x TN/4 blocks of
+// 4 x 4, its two row blocks WM/2 apart and its two column blocks WN/2 apart
+// in a warp tile of 32 x 64, 64 x 32 (8 x 8) or 32 x 32 (8 x 4) whose lanes
+// form a 4 x 8 or 8 x 4 grid. Both tiles reach shared memory by cp.async
+// (LDGSTS, 16 bytes, cached in L2 only) into a ring of 2-4 stages with one
+// barrier per k-step, so the copies for step s + stages - 1 run under the
+// FMAs of step s. A is kept as it lies in memory, [BM][bk + 4] (k
+// contiguous; the pad puts rows four apart in other banks), not transposed
+// to K-major: a transpose would take the copy through registers (LDG, then
+// four STS per float4), registers that 64 accumulators at two blocks per SM
+// cannot spare, and would keep A out of the asynchronous ring. Its fragment
+// is read along k instead: one LDS.128 per thread row gives that row's next
+// four k values, so four k-steps read 8 float4 of A (the lanes of a row
+// broadcast) and 4 x TN/4 float4 of B ([bk][BN], conflict-free), the 4
+// LDS.128 per 64 FFMAs of a K-major layout; B's fragment for step k + 1 is
+// loaded before the FMAs of step k. Ragged edges: a 16-byte chunk past M, N
+// or K is copied with src-size 0 (zero fill) and the stores are masked, so
+// the tile need not divide the axes; the wrapper stages K and N up to
+// multiples of 4 (16-byte rows). Each output adds its k terms in increasing
+// order in one register, so two launches give the same bits.
+// __launch_bounds__ asks for two blocks per SM, which leaves 168 registers
+// a thread at up to 192 threads and 96 at 288 (a register file of 16K per
+// SM quarter), except at 256 threads of 8 x 8 (128 x 128), where 128
+// registers spill and one block is asked for; no instance spills. The
+// wrapper gives the ring the most stages, up to 4, that leave room for
+// two blocks in an SM's 228 KB. Each thread's copies start from its own
+// row and 16-byte column and step by whole rows, so a k-step's copies cost
+// a few integer operations each.
 //
 // Each instance's shared-memory limit is raised once, on its first launch.
 
@@ -48,7 +77,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 232448;  // an H100 block's 227 KB
 constexpr int kMaxStages = 6;
 int g_attr_calls = 0;             // cudaFuncSetAttribute calls made
@@ -67,78 +95,204 @@ cudaError_t raise_smem_once(K kernel, bool& done) {
 // float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kMaxThreads)
-mm_f32(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C, int M,
-       int N, int K, int bm, int bn, int bk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);  // [bm][bk]
-  float* Bs = As + bm * bk;                        // [bk][bn]
-  const int tiles_n = N / bn;
-  const int m0 = (blockIdx.x / tiles_n) * bm;
-  const int n0 = (blockIdx.x % tiles_n) * bn;
-  const int RX = bn / TN, RY = bm / TM;  // the thread grid, RX * RY threads
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int tx = tid % RX, ty = tid / RX;
+constexpr int kF32Pad = 4;        // floats of padding per A row in shared memory
+constexpr int kF32MaxStages = 4;
 
-  float acc[TM][TN];
+// The lattice (ops/matmul.py: F32_BM, F32_BN), one instance per pair.
+#define F32_BM(X) X(32) X(64) X(96) X(128)
+#define F32_BN(X) X(32) X(64) X(96) X(128)
+
+// A (BM, BN) instance's thread tile 8 x TN, warp tile WM x WN and lane grid
+// LM x LN (LM * LN = 32, each lane two 4-row blocks and TN/4 4-column ones).
+template <int BM, int BN>
+struct F32Tile {
+  static constexpr int kTN = (BM * BN / 64) % 32 == 0 ? 8 : 4;
+  static constexpr int kWM = kTN == 4 || BN % 64 == 0 ? 32 : 64;
+  static constexpr int kWN = kTN == 4 ? 32 : 2048 / kWM;
+  static constexpr int kLM = kWM / 8, kLN = 32 / kLM;
+  static constexpr int kThreads = BM * BN / (8 * kTN);
+  // blocks per SM asked of ptxas: two, unless the registers that leaves
+  // (168 at up to 192 threads, 96 at 288) are too few for 8 x 8
+  // accumulators and their fragments (then one block of 256 threads)
+  static constexpr int kMinBlocks = kTN == 8 && kThreads > 192 ? 1 : 2;
+  static_assert(BM % kWM == 0 && BN % kWN == 0 && kLN * kTN == kWN, "warp tiling");
+};
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !full
+// (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` (0, 1 or 2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// grid: one block per [BM, BN] tile of C, n fastest. smem: `stages` x (A
+// tile [BM][bk + 4], B tile [bk][BN]) floats.
+template <int BM, int BN>
+__global__ void __launch_bounds__(F32Tile<BM, BN>::kThreads, F32Tile<BM, BN>::kMinBlocks)
+mm_f32(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C, int M,
+       int N, int K, int bk, int stages) {
+  using T = F32Tile<BM, BN>;
+  constexpr int TN = T::kTN, FN = TN / 4, WM = T::kWM, WN = T::kWN;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int lda = bk + kF32Pad;
+  const int a_size = BM * lda, stage_size = a_size + bk * BN;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int KT = (K + bk - 1) / bk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this thread's rows are row0 + h * WM/2 + i, its columns col0 + g * WN/2 + j
+  const int row0 = (warp / (BN / WN)) * WM + (lane / T::kLN) * 4;
+  const int col0 = (warp % (BN / WN)) * WN + (lane % T::kLN) * 4;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem_f32));
+  // this thread's copies in each k-step: A rows a_r, a_r + a_step, ... at
+  // column a_k, and B rows b_r, b_r + b_step, ... at column b_n (the thread
+  // count is a multiple of both tiles' 16-byte chunks per row)
+  constexpr int NC = BN / 4;
+  static_assert(T::kThreads % NC == 0 && T::kThreads % 8 == 0, "copy layout");
+  const int kc = bk / 4, a_step = T::kThreads / kc, a_r = tid / kc, a_k = (tid % kc) * 4;
+  constexpr int b_step = T::kThreads / NC;
+  const int b_r = tid / NC, b_n = (tid % NC) * 4;
+  const bool b_in = n0 + b_n < N;
+
+  // k-step kt of A and B into stage s; zeros past M, N and K
+  auto load = [&](int kt, int s) {
+    const int k0 = kt * bk;
+    const uint32_t as = sbase + 4u * (uint32_t)(s * stage_size);
+    const uint32_t bs = as + 4u * (uint32_t)a_size;
+    const bool a_in = k0 + a_k < K;
+    for (int r = a_r; r < BM; r += a_step) {
+      const bool ok = a_in && m0 + r < M;
+      cp_async16(as + 4u * (uint32_t)(r * lda + a_k),
+                 ok ? A + (size_t)(m0 + r) * K + k0 + a_k : A, ok);
+    }
+    for (int r = b_r; r < bk; r += b_step) {
+      const bool ok = b_in && k0 + r < K;
+      cp_async16(bs + 4u * (uint32_t)(r * BN + b_n), ok ? B + (size_t)(k0 + r) * N + n0 + b_n : B,
+                 ok);
+    }
+  };
+
+  float acc[8][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    for (int e = tid; e < bm * bk; e += nt) {
-      const int r = e / bk, c = e - r * bk;
-      As[e] = A[(size_t)(m0 + r) * K + k0 + c];
-    }
-    for (int e = tid; e < bk * bn; e += nt) {
-      const int r = e / bn, c = e - r * bn;
-      Bs[e] = B[(size_t)(k0 + r) * N + n0 + c];
-    }
-    __syncthreads();
-    for (int k = 0; k < bk; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[(ty + i * RY) * bk + k];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k * bn + tx + j * RX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait(stages - 2);
+    // step kt has landed in every thread's view, and every thread is done
+    // with step kt - 1, whose stage the next copy refills
+    __syncthreads();
+    if (kt + stages - 1 < KT) load(kt + stages - 1, (kt + stages - 1) % stages);
+    cp_async_commit();
+    const float* as = smem_f32 + (kt % stages) * stage_size + row0 * lda;
+    const float* bs = smem_f32 + (kt % stages) * stage_size + a_size + col0;
+#pragma unroll 2
+    for (int k = 0; k < bk; k += 4) {
+      float4 a[8], b[2][FN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + ((i / 4) * (WM / 2) + i % 4) * lda + k);
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      C[(size_t)(m0 + ty + i * RY) * N + n0 + tx + j * RX] = acc[i][j];
+      for (int g = 0; g < FN; ++g)
+        b[0][g] = *reinterpret_cast<const float4*>(bs + k * BN + g * (WN / 2));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < 3) {
+#pragma unroll
+          for (int g = 0; g < FN; ++g)
+            b[(kk + 1) & 1][g] =
+                *reinterpret_cast<const float4*>(bs + (k + kk + 1) * BN + g * (WN / 2));
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int g = 0; g < FN; ++g) {
+            const float4 bv = b[kk & 1][g];
+            acc[i][4 * g + 0] = fmaf(av, bv.x, acc[i][4 * g + 0]);
+            acc[i][4 * g + 1] = fmaf(av, bv.y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(av, bv.z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(av, bv.w, acc[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + row0 + (i / 4) * (WM / 2) + i % 4;
+    if (r >= M) continue;
+#pragma unroll
+    for (int g = 0; g < FN; ++g) {
+      const int c = n0 + col0 + g * (WN / 2);
+      if (c < N)  // N is a multiple of 4, so c + 3 < N too
+        *reinterpret_cast<float4*>(C + (size_t)r * N + c) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
+    }
+  }
 }
 
-template <int TM, int TN>
-cudaError_t launch_f32(const float* A, const float* B, float* C, int M, int N, int K, int bm,
-                       int bn, int bk, cudaStream_t s) {
+size_t f32_smem(int bm, int bn, int bk, int stages) {
+  return (size_t)stages * ((size_t)bm * (bk + kF32Pad) + (size_t)bk * bn) * sizeof(float);
+}
+
+template <int BM, int BN>
+cudaError_t launch_f32(const float* A, const float* B, float* C, int M, int N, int K, int bk,
+                       int stages, cudaStream_t s) {
   static bool attr_done = false;
-  cudaError_t err = raise_smem_once(mm_f32<TM, TN>, attr_done);
+  if (!attr_done) {
+    // two blocks per SM need the largest shared-memory share of the SM's L1
+    cudaError_t err = cudaFuncSetAttribute(mm_f32<BM, BN>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = raise_smem_once(mm_f32<BM, BN>, attr_done);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(bm + bn) * bk * sizeof(float);
-  const unsigned blocks = (unsigned)((M / bm) * (N / bn));
-  const int threads = (bm / TM) * (bn / TN);
-  mm_f32<TM, TN><<<blocks, threads, smem, s>>>(A, B, C, M, N, K, bm, bn, bk);
+  const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  mm_f32<BM, BN><<<(unsigned)blocks, F32Tile<BM, BN>::kThreads, f32_smem(BM, BN, bk, stages),
+                   s>>>(A, B, C, M, N, K, bk, stages);
   return cudaGetLastError();
 }
 
-template <int TM>
-cudaError_t launch_f32_tn(int tn, const float* A, const float* B, float* C, int M, int N,
-                          int K, int bm, int bn, int bk, cudaStream_t s) {
-  switch (tn) {
-    case 1: return launch_f32<TM, 1>(A, B, C, M, N, K, bm, bn, bk, s);
-    case 2: return launch_f32<TM, 2>(A, B, C, M, N, K, bm, bn, bk, s);
-    case 4: return launch_f32<TM, 4>(A, B, C, M, N, K, bm, bn, bk, s);
-    case 8: return launch_f32<TM, 8>(A, B, C, M, N, K, bm, bn, bk, s);
-  }
+template <int BM>
+cudaError_t launch_f32_bn(int bn, const float* A, const float* B, float* C, int M, int N, int K,
+                          int bk, int stages, cudaStream_t s) {
+#define CASE(BNV) \
+  if (bn == BNV) return launch_f32<BM, BNV>(A, B, C, M, N, K, bk, stages, s);
+  F32_BN(CASE)
+#undef CASE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_f32_any(int bm, int bn, const float* A, const float* B, float* C, int M,
+                           int N, int K, int bk, int stages, cudaStream_t s) {
+#define CASE(BMV) \
+  if (bm == BMV) return launch_f32_bn<BMV>(bn, A, B, C, M, N, K, bk, stages, s);
+  F32_BM(CASE)
+#undef CASE
   return cudaErrorInvalidValue;
 }
 
@@ -406,25 +560,22 @@ bool bf16_args_ok(int M, int N, int K, int bm, int bn, int bk) {
 
 }  // namespace
 
-// float32: (tm, tn) the thread micro-tile, each in {1, 2, 4, 8}, dividing bm
-// and bn, with (bm / tm) * (bn / tn) <= 256; bm | M, bn | N, bk | K.
-// Returns a cudaError_t (0 on success); launches nothing on bad arguments.
+// float32: C [M, N] = A [M, K] . B [K, N] at tile (bm, bn) of the lattice,
+// bk 8, 16 or 32, through `stages` (2 .. 4) ring buffers within 227 KB. K and
+// N must be multiples of 4 and A, B and C 16-byte aligned (16-byte copies and
+// stores). Returns a cudaError_t (0 on success); launches nothing on bad
+// arguments.
 extern "C" int matmul_f32_launch(const void* A, const void* B, void* C, int M, int N, int K,
-                                 int bm, int bn, int bk, int tm, int tn, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 || M % bm || N % bn ||
-      K % bk || tm <= 0 || tn <= 0 || bm % tm || bn % tn ||
-      (bm / tm) * (bn / tn) > kMaxThreads || (size_t)(bm + bn) * bk * 4 > (size_t)kMaxSmem)
+                                 int bm, int bn, int bk, int stages, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B) |
+                         reinterpret_cast<uintptr_t>(C);
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4 || (ptrs & 15) ||
+      (bk != 8 && bk != 16 && bk != 32) || stages < 2 || stages > kF32MaxStages ||
+      f32_smem(bm, bn, bk, stages) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const float *a = static_cast<const float*>(A), *b = static_cast<const float*>(B);
-  float* c = static_cast<float*>(C);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tm) {
-    case 1: return (int)launch_f32_tn<1>(tn, a, b, c, M, N, K, bm, bn, bk, s);
-    case 2: return (int)launch_f32_tn<2>(tn, a, b, c, M, N, K, bm, bn, bk, s);
-    case 4: return (int)launch_f32_tn<4>(tn, a, b, c, M, N, K, bm, bn, bk, s);
-    case 8: return (int)launch_f32_tn<8>(tn, a, b, c, M, N, K, bm, bn, bk, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_f32_any(bm, bn, static_cast<const float*>(A), static_cast<const float*>(B),
+                             static_cast<float*>(C), M, N, K, bk, stages,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: writes the tensor maps of A [M, K] (box bm x bk) and B [K, N]
@@ -453,17 +604,19 @@ extern "C" int matmul_bf16_launch(const void* maps, void* C, int M, int N, int K
 }
 
 // The template instances this library holds, as (dtype, p, q) triples into
-// out[0 .. 3 * cap): dtype 0 float32 with p, q = (TM, TN); dtype 1 bfloat16
-// with p, q = (bm, bn). Returns their number.
+// out[0 .. 3 * cap): dtype 0 float32 and dtype 1 bfloat16, each with p, q =
+// (bm, bn). Returns their number.
 extern "C" int matmul_instances(int* out, int cap) {
   int n = 0;
   auto add = [&](int d, int p, int q) {
     if (n < cap) { out[3 * n] = d; out[3 * n + 1] = p; out[3 * n + 2] = q; }
     ++n;
   };
-  const int micro[4] = {1, 2, 4, 8};
-  for (int tm : micro)
-    for (int tn : micro) add(0, tm, tn);
+#define ELEM(V) V,
+  const int f32_bm[] = {F32_BM(ELEM)}, f32_bn[] = {F32_BN(ELEM)};
+#undef ELEM
+  for (int bm : f32_bm)
+    for (int bn : f32_bn) add(0, bm, bn);
 #define ADD64(BNV) add(1, 64, BNV);
 #define ADD128(BNV) add(1, 128, BNV);
 #define ADD256(BNV) add(1, 256, BNV);

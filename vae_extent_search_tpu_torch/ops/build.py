@@ -26,8 +26,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# shared memory a block may use on an H100 (227 KB)
+# shared memory a block may use on an H100 (227 KB), and an SM's (228 KB)
 MAX_SMEM_BYTES = 232_448
+SM_SMEM_BYTES = 233_472
 
 
 def _nvcc() -> str:

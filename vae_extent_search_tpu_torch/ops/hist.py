@@ -41,12 +41,17 @@ from functools import lru_cache
 
 import torch
 
-from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch, sm_count
+from .build import (
+    MAX_SMEM_BYTES,
+    SM_SMEM_BYTES,
+    CudaLibrary,
+    check_launch,
+    sm_count,
+)
 
 # shared memory a block's histograms may take: 227 KB less 1 KB for the
 # kernel's static shared variables (csrc/hist.cu::kMaxDynSmem)
 HIST_SMEM_BYTES = MAX_SMEM_BYTES - 1024
-SM_SMEM_BYTES = 233_472   # shared memory per SM on an H100 (228 KB)
 # bytes of shared memory per (feature, node, bin): the int64 sums of grad
 # and of hess, each as two 32-bit words
 CELL_BYTES = 16

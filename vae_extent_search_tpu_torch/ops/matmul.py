@@ -24,7 +24,7 @@ The dtype chooses the kernel, and with it the lattice of configurations
   divide M, N or K: TMA zero-fills out-of-range loads and the kernel masks
   its stores. TMA needs 16-byte row strides, so where K or N is not a
   multiple of 8 the wrapper stages A and B into zero-padded copies with K
-  and N rounded up to multiples of 8 (:func:`bf16_staged`), runs the kernel
+  and N rounded up to multiples of 8 (:func:`staged`), runs the kernel
   unchanged on them and cuts C back to [M, N]. The padded K terms are exact
   zeros, so every f32 sum is the unpadded product's; the padded N columns
   are computed and dropped. The copies are part of the call, so a tuner
@@ -32,13 +32,19 @@ The dtype chooses the kernel, and with it the lattice of configurations
   shapes take no copy. The snap moves each of bm, bn, bk up to the lattice
   (from at most the axis length), then narrows bn until the accumulators
   fit; its result is always valid.
-- **float32, CUDA cores**: exact tiling (bm | M, bn | N, bk | K); a thread
-  micro-tile from {1, 2, 4, 8}^2 leaving at most 256 threads per block (the
-  kernel's launch bound, which caps its registers); the two staged tiles
-  within 227 KB. The snap moves bn up to a multiple of 32 and bk to a
-  multiple of 8, each to the smallest such divisor of its axis or else the
-  whole axis, then shrinks (bk first for shared memory, the larger of bm
-  and bn for threads) to the next divisor on the lattice until it fits.
+- **float32, CUDA cores** (exact FFMA; cp.async into a ring of
+  shared-memory stages, 8 x 8 or 8 x 4 accumulators per thread read from
+  float4 fragments): bm in ``F32_BM`` and bn in ``F32_BN`` (the library's
+  instances, one per pair), bk in ``F32_BK`` (whole float4 groups of k,
+  a power of two of them per A row); the stage count is derived, as many
+  stages (up to ``F32_MAX_STAGES``) as leave room for two blocks in an
+  SM's shared memory. Every configuration of the lattice fits the card.
+  Tiles need not divide M, N or K: the kernel zero-fills out-of-range
+  copies and masks its stores. Its 16-byte copies need 16-byte rows, so
+  where K or N is not a multiple of 4 the wrapper stages zero-padded
+  operands as for bf16 (:func:`staged`). The snap moves each of bm, bn, bk
+  up to the lattice (from at most the axis length); its result is always
+  valid.
 
 Every configuration the lattice accepts launches. The validity result, the
 launch plan and (bf16) the two TMA descriptors are cached per shape and
@@ -55,7 +61,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch
+from .build import MAX_SMEM_BYTES, SM_SMEM_BYTES, CudaLibrary, check_launch
 
 MAX_THREADS = 256
 MICRO = (1, 2, 4, 8)
@@ -64,7 +70,7 @@ K_ALIGN = 8
 NUM_SMS = 132
 # H100 SXM data-sheet peaks (dense) and memory rate; the per-step cost is
 # one k-step of one block (two barriers and a tile load), of which the
-# card runs one per SM at a time in this model
+# card runs one per SM at a time in the conv2d f32 model
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_S = 3.35e12
 STEP_S = 1e-6
@@ -79,12 +85,24 @@ MAX_STAGES = 6
 ACC_REGS = 128       # f32 accumulators per consumer thread
 TMA_ALIGN = 8        # bf16 elements in 16 bytes
 
+# the f32 CUDA-core kernel's lattice (csrc/matmul.cu: F32_BM, F32_BN)
+F32_BM = (32, 64, 96, 128)
+F32_BN = (32, 64, 96, 128)
+F32_BK = (8, 16, 32)
+F32_MAX_STAGES = 4
+F32_ROW_PAD = 4          # f32 elements of padding per A row in shared memory
+F32_ALIGN = 4            # f32 elements in 16 bytes
+BLOCK_RESERVED_BYTES = 1024  # shared memory the card reserves per block
+# the share of the 8 x 8 thread tile's FMA rate assumed for an 8 x 4 one
+# by the stand-in timer (3 shared-memory loads per 32 FMAs against 2)
+F32_NARROW_SHARE = 2 / 3
+
 DTYPES = {"float32": (torch.float32, 0), "bfloat16": (torch.bfloat16, 1)}
 
 
 def _declare(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.matmul_f32_launch.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+    lib.matmul_f32_launch.argtypes = [vp, vp, vp] + [i32] * 7 + [vp]
     lib.matmul_bf16_maps.argtypes = [vp, vp] + [i32] * 6 + [vp]
     lib.matmul_bf16_launch.argtypes = [vp, vp] + [i32] * 7 + [vp]
     lib.matmul_instances.argtypes = [ctypes.POINTER(i32), i32]
@@ -136,10 +154,30 @@ def thread_tile(rows: int, cols: int) -> Optional[Tuple[int, int]]:
     return None if best is None else best[1]
 
 
-def matmul_smem_bytes(bm: int, bn: int, bk: int, itemsize: int) -> int:
-    """Shared memory of one float32 block: the A tile [bm, bk] and the B
-    tile [bk, bn] in the input type."""
-    return (bm + bn) * bk * itemsize
+def f32_thread_tile(bm: int, bn: int) -> int:
+    """TN of the f32 instance's 8 x TN accumulator tile per thread
+    (csrc/matmul.cu::F32Tile): 8, or 4 where 8 x 8 would leave a part of a
+    warp."""
+    return 8 if (bm * bn // 64) % WARP == 0 else 4
+
+
+def matmul_smem_bytes(bm: int, bn: int, bk: int, stages: int) -> int:
+    """Dynamic shared memory of one float32 block (csrc/matmul.cu::
+    f32_smem): ``stages`` x (the A tile [bm, bk + F32_ROW_PAD] and the B
+    tile [bk, bn]) in f32."""
+    return stages * (bm * (bk + F32_ROW_PAD) + bk * bn) * 4
+
+
+@lru_cache(maxsize=None)
+def f32_stages(bm: int, bn: int, bk: int) -> int:
+    """The f32 ring's depth: the most stages, up to F32_MAX_STAGES, that
+    leave room for two blocks in an SM's shared memory, and at least two
+    (then one block per SM, if they fit 227 KB)."""
+    s = F32_MAX_STAGES
+    while s > 2 and 2 * (matmul_smem_bytes(bm, bn, bk, s)
+                         + BLOCK_RESERVED_BYTES) > SM_SMEM_BYTES:
+        s -= 1
+    return s
 
 
 def bf16_atoms(bm: int) -> Tuple[int, int]:
@@ -191,15 +229,14 @@ def _bf16_why(M, N, K, bm, bn, bk) -> Optional[str]:
 
 
 def _f32_why(M, N, K, bm, bn, bk) -> Optional[str]:
-    for v, d, nm in ((bm, M, "bm"), (bn, N, "bn"), (bk, K, "bk")):
-        if v > d:
-            return f"{nm}={v} out of range (dim {d})"
-        if d % v:
-            return f"{nm}={v} does not divide {d}"
-    if thread_tile(bm, bn) is None:
-        return (f"threads: a {bm} x {bn} tile needs more than "
-                f"{MAX_THREADS} threads of at most 8 x 8 outputs")
-    smem = matmul_smem_bytes(bm, bn, bk, 4)
+    if bm not in F32_BM:
+        return f"bm={bm} not in {F32_BM}: the library's f32 tiles"
+    if bn not in F32_BN:
+        return f"bn={bn} not in {F32_BN}: the library's f32 tiles"
+    if bk not in F32_BK:
+        return (f"bk={bk} not in {F32_BK}: a power of two of 16-byte "
+                f"chunks per A row")
+    smem = matmul_smem_bytes(bm, bn, bk, f32_stages(bm, bn, bk))
     if smem > MAX_SMEM_BYTES:
         return f"shared memory {smem} B exceeds {MAX_SMEM_BYTES}"
     return None
@@ -246,38 +283,16 @@ def up_to(v: int, dim: int, choices) -> int:
 def snap_config_to_hw(M: int, N: int, K: int, bm: int, bn: int, bk: int,
                       dtype="bfloat16") -> Tuple[int, int, int]:
     """Snap a raw (bm, bn, bk) onto the kernel's lattice (module
-    docstring). bf16: the result is always valid (K or N off TMA's
-    alignment is staged by the wrapper). f32: the result is valid unless
-    an axis has no divisor on the lattice that fits, and then it holds
-    that axis whole."""
+    docstring): each up to the lattice, from at most its axis. The result
+    is always valid (K or N off the 16-byte alignment is staged by the
+    wrapper). bf16 then narrows bn until the accumulators fit."""
     if dtype_name(dtype) == "bfloat16":
         bm, bn, bk = (up_to(bm, M, BF16_BM), up_to(bn, N, BF16_BN),
                       up_to(bk, K, BF16_BK))
         while bf16_accumulators(bm, bn) > ACC_REGS:
             bn = BF16_BN[BF16_BN.index(bn) - 1]
         return bm, bn, bk
-    bm = snap_up(max(bm, 1), M, 1)
-    bn = snap_up(bn, N, WARP)
-    bk = snap_up(bk, K, K_ALIGN)
-    while True:
-        ok, why = config_is_valid(M, N, K, bm, bn, bk, dtype)
-        if ok:
-            return bm, bn, bk
-        if why.startswith("shared"):
-            nk = shrink(bk, K, K_ALIGN)
-            if nk != bk:
-                bk = nk
-                continue
-        big_m = bm >= bn
-        nm, nn = shrink(bm, M, 1), shrink(bn, N, WARP)
-        if big_m and nm != bm:
-            bm = nm
-        elif nn != bn:
-            bn = nn
-        elif nm != bm:
-            bm = nm
-        else:
-            return bm, bn, bk
+    return up_to(bm, M, F32_BM), up_to(bn, N, F32_BN), up_to(bk, K, F32_BK)
 
 
 def predicted_seconds(M: int, N: int, K: int, bm: int, bn: int, bk: int,
@@ -286,30 +301,24 @@ def predicted_seconds(M: int, N: int, K: int, bm: int, bn: int, bk: int,
     configurations that would run for seconds and as the CPU stand-in
     timer (``--fake-timer``). Not a cost model: the point is to measure.
 
-    bf16: waves of one tile per SM, each tile's operations (K padded to bk)
-    at the SM's share of the tensor-core peak, slowed in proportion where
-    the tile is narrower than 128 x 128 (wgmma re-reads the operands per
-    instruction); or the tiles' operand traffic over HBM; plus a launch.
-    f32: the larger of the operations at the CUDA-core peak, the traffic,
-    and one microsecond per k-step of each block."""
+    Waves of one tile per SM (the blocks an SM holds share its rate), each
+    tile's operations (K padded to bk) at the SM's share of the dtype's
+    peak, slowed where the tile reads its operands more often per
+    operation: bf16 in proportion where the tile is narrower than 128 x
+    128 (wgmma re-reads the operands per instruction), f32 by
+    F32_NARROW_SHARE for an 8 x 4 thread tile; or the tiles' operand
+    traffic over HBM; plus a launch."""
     name = dtype_name(dtype)
+    tiles = math.ceil(M / bm) * math.ceil(N / bn)
+    steps = math.ceil(K / bk)
     if name == "bfloat16":
-        tiles = math.ceil(M / bm) * math.ceil(N / bn)
-        steps = math.ceil(K / bk)
         eff = min(1.0, bm / 128) * min(1.0, bn / 128)
-        tile_s = (2.0 * bm * bn * steps * bk / (PEAK_FLOPS[name] / NUM_SMS)
-                  / eff)
-        bytes_moved = tiles * steps * (bm + bn) * bk * 2 + M * N * 4
-        return max(math.ceil(tiles / NUM_SMS) * tile_s,
-                   bytes_moved / HBM_BYTES_S) + LAUNCH_S
-    size = itemsize(dtype)
-    blocks = (M // bm) * (N // bn)
-    steps = K // bk
-    flops_t = 2.0 * M * N * K / PEAK_FLOPS[name]
-    # each block streams its A and B panels; C is written once
-    bytes_moved = blocks * steps * (bm * bk + bk * bn) * size + M * N * 4
-    return max(flops_t, bytes_moved / HBM_BYTES_S,
-               blocks * steps * STEP_S / NUM_SMS)
+    else:
+        eff = 1.0 if f32_thread_tile(bm, bn) == 8 else F32_NARROW_SHARE
+    tile_s = 2.0 * bm * bn * steps * bk / (PEAK_FLOPS[name] / NUM_SMS) / eff
+    bytes_moved = tiles * steps * (bm + bn) * bk * itemsize(dtype) + M * N * 4
+    return max(math.ceil(tiles / NUM_SMS) * tile_s,
+               bytes_moved / HBM_BYTES_S) + LAUNCH_S
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -318,12 +327,13 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def bf16_staged(a: torch.Tensor, b: torch.Tensor):
-    """(a, b) for the bf16 kernel: the inputs themselves when K and N are
-    multiples of ``TMA_ALIGN`` (no copy), else zero-padded copies with K
-    and N rounded up to multiples of it (16-byte row strides for TMA)."""
+def staged(a: torch.Tensor, b: torch.Tensor, align: int):
+    """(a, b) for a kernel that copies 16-byte rows (``align`` elements:
+    ``TMA_ALIGN`` for bf16, ``F32_ALIGN`` for f32): the inputs themselves
+    when K and N are multiples of ``align`` (no copy), else zero-padded
+    copies with K and N rounded up to multiples of it."""
     K, N = b.shape
-    pad_k, pad_n = -K % TMA_ALIGN, -N % TMA_ALIGN
+    pad_k, pad_n = -K % align, -N % align
     if pad_k:
         a = torch.nn.functional.pad(a, (0, pad_k))
     if pad_k or pad_n:
@@ -378,21 +388,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
         raise ValueError(f"invalid matmul config ({bm}, {bn}, {bk}): {why}")
     lib = LIB.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if name == "bfloat16":
-        a, b = bf16_staged(a, b)
-        Kp, Np = b.shape
-        if a.data_ptr() % 16 or b.data_ptr() % 16:
-            raise ValueError("a and b must be 16-byte aligned (TMA)")
-        c = torch.empty(M, Np, dtype=torch.float32, device=a.device)
+    bf16 = name == "bfloat16"
+    a, b = staged(a, b, TMA_ALIGN if bf16 else F32_ALIGN)
+    Kp, Np = b.shape
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("a and b must be 16-byte aligned (TMA, cp.async)")
+    c = torch.empty(M, Np, dtype=torch.float32, device=a.device)
+    if bf16:
         maps = _tensor_maps(lib, a.data_ptr(), b.data_ptr(), M, Np, Kp, bm,
                             bn, bk)
         err = lib.matmul_bf16_launch(maps, c.data_ptr(), M, Np, Kp, bm, bn,
                                      bk, bf16_stages(bm, bn, bk), stream)
     else:
-        c = torch.empty(M, N, dtype=torch.float32, device=a.device)
-        tm, tn = thread_tile(bm, bn)
         err = lib.matmul_f32_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                    M, N, K, bm, bn, bk, tm, tn, stream)
+                                    M, Np, Kp, bm, bn, bk,
+                                    f32_stages(bm, bn, bk), stream)
     check_launch(err, "matmul")
     matmul.launches += 1
     return c if c.shape[1] == N else c[:, :N].contiguous()
