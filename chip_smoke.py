@@ -6,16 +6,19 @@
     python3 chip_smoke.py --only arms  # phases 1 and 20 alone, for work on
                                        # the experiment's other arms; ends
                                        # {"partial": "arms"}
+    python3 chip_smoke.py --only conv_f32  # phase 1, then the f32 conv2d's
+                                       # part of phases 12 and 14; ends
+                                       # {"partial": "conv_f32"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
      five kernels from csrc/ for sm_90a, one nvcc per source, started
-     together; no fused_head_kernel instance and no f32 matmul instance
-     may spill registers (ptxas; each f32 instance's registers printed);
-     cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
+     together; no fused_head_kernel instance and no f32 matmul or conv2d
+     instance may spill registers (ptxas; each f32 instance's registers
+     printed); cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
      instance and HMMA (mma.sync) in every bf16 conv2d instance, and
      neither in the f32 instances, and LDGSTS (cp.async) in every f32
-     matmul instance; it prints the histogram kernel's atomic
+     matmul and conv2d instance; it prints the histogram kernel's atomic
      instructions, which must all be 32-bit shared-memory adds (ATOMS.ADD):
      no compare-and-swap loop and no global atomic or reduction
   2. kernel vs plain torch version with injected dropout bits, at the
@@ -86,9 +89,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the plain version and timed by the card timer, beside torch.matmul
      in f32 and the f32 bound
  12. the same for the conv2d kernels (csrc/conv2d.cu): every bf16 mma.sync
-     warp tile and every f32 micro-tile, the JAX tests' shapes and 1 x 56 x
-     56 x 256 -> 256, 3 x 3, pad 1, ragged edges (boh, bco, bci not
-     dividing OH, CO, CI) and the element-load path (CI not a multiple of 8)
+     warp tile and every f32 (BM, BN) instance (each at KW 3 and KW 1: its
+     two kernels), the JAX tests' shapes and 1 x 56 x 56 x 256 -> 256, 3 x
+     3, pad 1, ragged edges (boh, bco, bci not dividing OH, CO, CI), the
+     bf16 element-load path (CI not a multiple of 8), f32 CI and CO off a
+     multiple of 4 (staged zero-padded), OW 150 and N > 1, each within 1e-5
+     of the plain version; the f32 shifted delta (w the identity at tap
+     (0, 0), pad 1) exact at every f32 instance; then, beside cuDNN in f32
+     with TF32 off, the plain version and the f32 bound, the sweep of the
+     whole f32 lattice (56 boh x 4 bco x 3 bci = 672 configs) at that
+     shape, each config held and timed like the tuner's
  13. self-tuning end to end: cli.tune_kernel on the matmul at the JAX
      defaults (1536^3 bf16, 1,000 candidates, measure size 16, 6 phases,
      VAE 500 epochs, predictor 1000 epochs), --arm model then --arm
@@ -103,7 +113,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      config checked and timed the same way: the lattice's fastest config
      beside the tuned one
  14. the same for conv2d at 1 x 56 x 56 x 256 -> 256, 3 x 3, pad 1, bf16,
-     against cuDNN; its sweep takes the grid CONV_SWEEP
+     against cuDNN; its sweep takes the grid CONV_SWEEP; then --dtype
+     float32 --arm random (the f32 CUDA-core kernel's path: its best config
+     beside cuDNN in f32 and the phase 12 sweep's fastest)
  15. the segment-sum kernels (csrc/segment_sum.cu), forward and backward,
      vs their plain versions: the forward against the plain version in
      float64 (within 2e-6 of max |out| for segments of up to 36 rows, 2e-5
@@ -748,7 +760,12 @@ GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 # bf16 products whose K or N is not a multiple of 8 (TMA's 16-byte rows),
 # at a config of the lattice each
 MM_UNALIGNED = (((7, 33, 5), (64, 64, 16)), ((64, 64, 20), (64, 16, 16)))
-CONV_F32_CONFIGS = ((2, 32, 32), (1, 64, 32), (2, 64, 16), (4, 32, 16))
+# the f32 conv2d's shifted delta: w is the identity at tap (kh, kw) = (0,
+# 0) and zero elsewhere, bias 0, pad 1, CI = CO, so out[n, oh, ow] equals
+# relu(x[n, oh - 1, ow - 1]) exactly, with zeros on the first row and
+# column; at OW = 14 (OWq 16) boh 2, 4, 6 and 8 give BM 32, 64, 96 and 128
+CONV_DELTA = dict(N=2, H=14, W=14, C=36, bci=16, boh={32: 2, 64: 4, 96: 6,
+                                                      128: 8})
 # the grids of phases 13-14's lattice sweeps at the tuning shapes: every
 # (bm, bn) of the bf16 matmul at bk 64, and the conv2d's at the two widest
 # ci blocks (the deepest k loops per barrier)
@@ -767,11 +784,11 @@ def instance_cases(om, oc):
     with CI and CO not multiples of 8, the element-load path); the f32
     matmul at each (bm, bn) instance on a shape no tile divides and on one
     whose K and N are off a multiple of 4 (staged), each bk in turn; and
-    the f32 conv2d at the first valid config per thread micro-tile (TM,
-    TN). Raises if an instance is not reached."""
-    def divs(n):
-        return [d for d in range(1, n + 1) if n % d == 0]
-
+    the f32 conv2d at each (BM, BN) instance, bco = BN with the first boh
+    whose row block gives BM, on two shapes of rows narrower than any tile
+    (OW 3 and 1: BM spans rows), one of KW 3 and one of KW 1 (the two
+    kernels of each instance), and each bci in turn. Raises if an instance
+    is not reached."""
     mm_lib = om.library_instances(om.LIB.load().matmul_instances)
     cv_lib = om.library_instances(oc.LIB.load().conv2d_instances)
     mm, cv, seen_mm, seen_cv = [], [], set(), set()
@@ -804,19 +821,22 @@ def instance_cases(om, oc):
                     seen_cv.add(("bfloat16",) + tile[:2])
                     cv.append((torch.bfloat16, params, (boh, bco, bci)))
     cv.append((torch.bfloat16, bf16_shapes[2], (2, 32, 16)))
+    seen_kw = set()
     for params in ((1, 64, 3, 384, 16, 3, 3, 1), (1, 512, 1, 384, 8, 1, 1, 0)):
         n, h, w, co, ci, kh, kw, pad = params
-        ow = w + 2 * pad - kw + 1
-        for boh in divs(h + 2 * pad - kh + 1):
-            for bco in divs(co):
-                t = om.thread_tile(boh * ow, bco)
-                if t and ("float32",) + t not in seen_cv and \
-                        oc.conv_config_is_valid(
-                            n, h, w, co, ci, kh, kw, 1, pad, boh, bco, 8,
-                            dtype="float32")[0]:
-                    seen_cv.add(("float32",) + t)
-                    cv.append((torch.float32, params, (boh, bco, 8)))
-    if seen_mm != set(mm_lib) or seen_cv != set(cv_lib):
+        oh, ow = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+        for boh in range(1, oh + 1):
+            bm = oc.f32_bm(boh * oc.f32_row_width(ow))
+            for bco in oc.F32_BN:
+                bci = oc.F32_BCI[len(cv) % len(oc.F32_BCI)]
+                if (bm, bco, kw) not in seen_kw and oc.conv_config_is_valid(
+                        n, h, w, co, ci, kh, kw, 1, pad, boh, bco, bci,
+                        dtype="float32")[0]:
+                    seen_kw.add((bm, bco, kw))
+                    seen_cv.add(("float32", bm, bco))
+                    cv.append((torch.float32, params, (boh, bco, bci)))
+    if seen_mm != set(mm_lib) or seen_cv != set(cv_lib) or len(
+            seen_kw) != 2 * sum(d == "float32" for d, _, _ in cv_lib):
         raise RuntimeError(f"instances not reached: matmul "
                            f"{sorted(set(mm_lib) - seen_mm)}, conv2d "
                            f"{sorted(set(cv_lib) - seen_cv)}")
@@ -962,10 +982,11 @@ def tune_arms(tag, workload, best_launch, kernels, checks,
     return out
 
 
-def lattice_sweep(tag, configs, launch, plain, tuned_ms=None):
+def lattice_sweep(tag, configs, launch, plain, tuned_ms=None, target_ms=10.0):
     """Each of ``configs`` held against the plain version within GEMM_TOL
-    and timed on the card like the tuner's configs: the lattice's fastest
-    config, beside the one the search found where ``tuned_ms`` is given."""
+    and timed on the card like the tuner's configs (windows of
+    ``target_ms``): the lattice's fastest config, beside the one the search
+    found where ``tuned_ms`` is given."""
     tol = GEMM_TOL[torch.bfloat16]
     ref = plain()
     times = {}
@@ -975,7 +996,8 @@ def lattice_sweep(tag, configs, launch, plain, tuned_ms=None):
         if not rel <= tol:
             raise RuntimeError(f"[{tag}] sweep {cfg}: rel err {rel:g} (tol "
                                f"{tol:g})")
-        times["x".join(map(str, cfg))] = card_ms(lambda: launch(cfg))[0]
+        times["x".join(map(str, cfg))] = card_ms(lambda: launch(cfg),
+                                                 target_ms)[0]
     order = sorted(times, key=times.get)
     best = order[0]
     log(f"[{tag}] lattice sweep, {len(times)} configs: fastest "
@@ -989,6 +1011,29 @@ def lattice_sweep(tag, configs, launch, plain, tuned_ms=None):
             "slowest_ms": times[order[-1]], "times": times}
 
 
+def randn_on(dev, seed=31):
+    """randn(*shape, dtype=float32) on ``dev`` from one seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    return randn
+
+
+def conv_f32_phases(dev, peaks, kernels):
+    """``--only conv_f32``: phase 12's float32 part and phase 14's f32 arm
+    alone. Returns the conv2d_f32 record."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+    from vae_extent_search_tpu_torch.ops import matmul as om
+
+    checks = {}
+    cv_inst = instance_cases(om, oc)[1]
+    sweep = conv_f32_checks(dev, peaks, randn_on(dev), cv_inst, checks)
+    return conv_f32_record(conv_f32_arm(kernels, checks, sweep), checks,
+                           sweep)
+
+
 def tuner_phases(dev, peaks, kernels):
     """Phases 11-14: the matmul and conv2d kernels against their plain
     versions at every instance the libraries hold, and the self-tuning path
@@ -996,15 +1041,10 @@ def tuner_phases(dev, peaks, kernels):
     from vae_extent_search_tpu_torch.ops import conv2d as oc
     from vae_extent_search_tpu_torch.ops import matmul as om
     from vae_extent_search_tpu_torch.search.kernel_tuner import (
-        time_library_conv2d,
         time_library_matmul,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(31)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-
+    randn = randn_on(dev)
     mm_inst, cv_inst, n_mm, n_cv = instance_cases(om, oc)
     log(f"[11] {n_mm} matmul and {n_cv} conv2d template instances in the "
         f"libraries; {len(mm_inst)} and {len(cv_inst)} instance checks")
@@ -1097,36 +1137,15 @@ def tuner_phases(dev, peaks, kernels):
     del a, b
 
     # ---- 12. conv2d kernel vs plain ----
-    cv_checks = {}
-    cv_cases = [(F32, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
-        (1, 6, 128), (4, 6, 128), (8, 6, 256))] + [
-        (BF16, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
-            (1, 16, 128), (4, 16, 128), (8, 16, 64))] + [
-        (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
+    cv_checks, cv_f32_checks = {}, {}
+    cv_cases = [(BF16, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
+        (1, 16, 128), (4, 16, 128), (8, 16, 64))] + [
         (BF16, (3, 10, 7, 2, 4, 3, 3, 0), (3, 16, 16)),
-        (F32, (1, 8, 8, 4, 8, 3, 3, 1), (2, 4, 8)),
         (BF16, (1, 8, 8, 4, 8, 3, 3, 1), (2, 16, 16))] + [
-        (F32, CONV[:7] + CONV[8:], c) for c in (
-            (2, 128, 64), (8, 32, 8), (1, 256, 64), (7, 32, 32))] + [
         (BF16, CONV[:7] + CONV[8:], c) for c in (
-            (2, 128, 64), (3, 32, 16), (1, 256, 64), (2, 64, 128))] + cv_inst
-    operands = {}
-    for dtype, params, cfg in cv_cases:
-        N, H, W, CO, CI, KH, KW, pad = params
-        if (dtype, params) not in operands:
-            operands = {(dtype, params): (
-                randn(N, H, W, CI, dtype=dtype),
-                randn(KH, KW, CI, CO, dtype=dtype), randn(CO))}
-        x, w, bias = operands[(dtype, params)]
-        ok, why = oc.conv_config_is_valid(N, H, W, CO, CI, KH, KW, 1, pad,
-                                          *cfg, dtype=dtype_name(dtype))
-        if not ok:
-            raise RuntimeError(f"[12] {cfg} at {params}: {why}")
-        check_gemm("12", f"{params} {cfg} {dtype_name(dtype)}",
-                   lambda: oc.conv2d(x, w, bias, pad, *cfg),
-                   lambda: oc.conv2d_plain(x, w, bias, pad),
-                   GEMM_TOL[dtype], cv_checks)
-    del operands
+            (2, 128, 64), (3, 32, 16), (1, 256, 64), (2, 64, 128))] + [
+        c for c in cv_inst if c[0] == BF16]
+    check_conv_cases("12", cv_cases, randn, cv_checks)
     N, H, W, CO, CI, KH, KW, _, pad = CONV
     x, w = randn(N, H, W, CI, dtype=BF16), randn(KH, KW, CI, CO, dtype=BF16)
     bias = randn(CO)
@@ -1134,14 +1153,8 @@ def tuner_phases(dev, peaks, kernels):
     cv_bound, cv_by = gemm_bound_ms(*conv_work(*CONV, 2), BF16, peaks)
     log(f"[12] 1x56x56x256->256 3x3 bf16: plain {cv_plain_ms:.4f} ms, bound "
         f"{cv_bound:.4f} ms ({cv_by})")
-    x, w = randn(N, H, W, CI), randn(KH, KW, CI, CO)
-    cv_f32 = f32_times(
-        "12", CONV_F32_CONFIGS, lambda cfg: oc.conv2d(x, w, bias, pad, *cfg),
-        time_library_conv2d(*CONV, "float32", device=dev).seconds * 1e3,
-        *gemm_bound_ms(*conv_work(*CONV, 4), F32, peaks))
-    cv_f32["plain_ms"] = card_ms(lambda: oc.conv2d_plain(x, w, bias, pad))[0]
-    log(f"[12] float32 plain version: {cv_f32['plain_ms']:.4f} ms")
     del x, w, bias
+    cv_f32_sweep = conv_f32_checks(dev, peaks, randn, cv_inst, cv_f32_checks)
 
     # ---- 13. / 14. self-tuning end to end ----
     def mm_best(runner, cfg):
@@ -1171,6 +1184,7 @@ def tuner_phases(dev, peaks, kernels):
     cv_arms = tune_arms("conv2d", ["--workload", "conv2d", "--conv",
                                    *map(str, CONV[:7])], cv_best, kernels,
                         cv_checks)
+    cv_f32_arms = conv_f32_arm(kernels, cv_f32_checks, cv_f32_sweep)
 
     def tuned_ms(arms):
         return min(v[0]["best_ms"] for v in arms.values())
@@ -1193,7 +1207,7 @@ def tuner_phases(dev, peaks, kernels):
     del a, b, x, w, bias
 
     def record(name, arms, checks, src, replaces, plain_ms, b_ms, b_by,
-               shape, f32, sweep, flops, kernel=None):
+               shape, sweep, flops, kernel=None):
         best = min(arms.values(), key=lambda v: v[0]["best_ms"])[0]
         kernel = kernel or name
         return {
@@ -1210,7 +1224,6 @@ def tuner_phases(dev, peaks, kernels):
             "library_host_ms": best["library_host_ms"],
             "timer": "device time, calls queued behind a blocking product "
                      "(search/kernel_tuner.py::cuda_seconds)",
-            "float32": f32,
             "lattice_sweep": sweep,
             "checks": {"max_rel_err": max(c["max_rel_err"]
                                           for c in checks.values()),
@@ -1235,37 +1248,177 @@ def tuner_phases(dev, peaks, kernels):
                "vae_extent_search_tpu_torch/csrc/matmul.cu",
                "vae_extent_search_tpu/ops/matmul_pallas.py:78", mm_plain_ms,
                mm_bound, mm_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
-                                 "dtype": "bfloat16"}, None, mm_sweep,
+                                 "dtype": "bfloat16"}, mm_sweep,
                matmul_work(MM_DIM, MM_DIM, MM_DIM, 2)[0]),
         record("matmul_f32", mm_f32_arms, mm_f32_checks,
                "vae_extent_search_tpu_torch/csrc/matmul.cu",
                "vae_extent_search_tpu/ops/matmul_pallas.py:78", f32_plain_ms,
                f32_bound, f32_by, {"M": MM_DIM, "N": MM_DIM, "K": MM_DIM,
-                                   "dtype": "float32"}, None, f32_sweep,
+                                   "dtype": "float32"}, f32_sweep,
                matmul_work(MM_DIM, MM_DIM, MM_DIM, 4)[0], kernel="matmul"),
         record("conv2d", cv_arms, cv_checks,
                "vae_extent_search_tpu_torch/csrc/conv2d.cu",
                "vae_extent_search_tpu/ops/conv2d_pallas.py:106", cv_plain_ms,
                cv_bound, cv_by, dict(zip(("N", "H", "W", "CO", "CI", "KH",
                                           "KW", "stride", "pad"), CONV),
-                                     dtype="bfloat16"), cv_f32, cv_sweep,
+                                     dtype="bfloat16"), cv_sweep,
                conv_work(*CONV, 2)[0]),
+        conv_f32_record(cv_f32_arms, cv_f32_checks, cv_f32_sweep),
     ]
 
 
-def f32_times(tag, configs, launch, lib_ms, b_ms, b_by):
-    """The float32 CUDA-core kernel at the tuning shape: each of
-    ``configs`` timed on the card, the best kept, beside the library call's
-    time (TF32 off) and the f32 bound."""
-    times = {"x".join(map(str, c)): card_ms(lambda: launch(c))[0]
-             for c in configs}
-    best = min(times, key=times.get)
-    log(f"[{tag}] float32 CUDA-core kernel at the tuning shape: "
-        + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
-        + f"; best {best}; library (TF32 off) {lib_ms:.4f} ms; bound "
-          f"{b_ms:.4f} ms ({b_by})")
-    return {"configs_ms": times, "best_cfg": best, "ms": times[best],
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+def check_conv_cases(tag, cases, randn, checks):
+    """Each (dtype, (N, H, W, CO, CI, KH, KW, pad), config) of ``cases``
+    through check_gemm against the plain version, on operands drawn once
+    per dtype and shape."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+
+    operands = {}
+    for dtype, params, cfg in cases:
+        N, H, W, CO, CI, KH, KW, pad = params
+        if (dtype, params) not in operands:
+            operands = {(dtype, params): (
+                randn(N, H, W, CI, dtype=dtype),
+                randn(KH, KW, CI, CO, dtype=dtype), randn(CO))}
+        x, w, bias = operands[(dtype, params)]
+        ok, why = oc.conv_config_is_valid(N, H, W, CO, CI, KH, KW, 1, pad,
+                                          *cfg, dtype=dtype_name(dtype))
+        if not ok:
+            raise RuntimeError(f"[{tag}] {cfg} at {params}: {why}")
+        check_gemm(tag, f"{params} {cfg} {dtype_name(dtype)}",
+                   lambda: oc.conv2d(x, w, bias, pad, *cfg),
+                   lambda: oc.conv2d_plain(x, w, bias, pad),
+                   GEMM_TOL[dtype], checks)
+
+
+def conv_f32_checks(dev, peaks, randn, cv_inst, checks):
+    """Phase 12's float32 part: the f32 kernel against the plain version at
+    every (BM, BN) instance (``instance_cases``), ragged edges (boh, bco,
+    bci not dividing OH, CO, CI), CI and CO off a multiple of 4 (staged
+    zero-padded), OW wider than any tile, N > 1 and the tuning shape; the
+    shifted delta exact at every instance; then the sweep of the whole
+    lattice at the tuning shape beside cuDNN in f32 (TF32 off), the plain
+    version and the f32 bound. Returns the sweep."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+    from vae_extent_search_tpu_torch.search.kernel_tuner import (
+        time_library_conv2d,
+    )
+
+    F32 = torch.float32
+    cases = [(F32, (2, 8, 8, 6, 256, 3, 3, 1), c) for c in (
+        (1, 32, 32), (4, 64, 16), (8, 32, 8))] + [
+        (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 32, 8)),
+        (F32, (1, 8, 8, 4, 8, 3, 3, 1), (2, 32, 8)),
+        (F32, (2, 9, 11, 6, 5, 3, 3, 1), (3, 32, 8)),        # CI, CO off 4
+        (F32, (2, 6, 150, 20, 12, 3, 3, 1), (2, 64, 16)),     # OW 150
+        (F32, (1, 14, 14, 40, 24, 1, 1, 0), (3, 32, 16))] + [
+        (F32, CONV[:7] + CONV[8:], c) for c in (
+            (8, 64, 32), (3, 96, 16), (1, 128, 32), (7, 32, 8))] + [
+        c for c in cv_inst if c[0] == F32]
+    check_conv_cases("12", cases, randn, checks)
+    d = CONV_DELTA
+    N, H, W, C = d["N"], d["H"], d["W"], d["C"]
+    x = randn(N, H, W, C)
+    w = torch.zeros(3, 3, C, C, device=dev)
+    w[0, 0] = torch.eye(C, device=dev)
+    want = torch.zeros_like(x)
+    want[:, 1:, 1:] = torch.relu(x[:, :-1, :-1])
+    for bm, boh in d["boh"].items():
+        if oc.f32_bm(boh * oc.f32_row_width(W)) != bm:
+            raise RuntimeError(f"[12] delta: boh {boh} does not give BM {bm}")
+        for bn in oc.F32_BN:
+            got = oc.conv2d(x, w, torch.zeros(C, device=dev), 1, boh, bn,
+                            d["bci"])
+            if not torch.equal(got, want):
+                raise RuntimeError(f"[12] shifted delta at BM {bm}, BN {bn}: "
+                                   f"out != relu(x shifted by one row and "
+                                   f"column)")
+    log(f"[12] shifted delta (w = identity at tap (0, 0), pad 1): out == "
+        f"relu(x[oh - 1, ow - 1]) exactly at all "
+        f"{len(d['boh']) * len(oc.F32_BN)} f32 instances, {N}x{H}x{W}x{C}")
+    del x, w, want
+    N, H, W, CO, CI, KH, KW, _, pad = CONV
+    x, w, bias = randn(N, H, W, CI), randn(KH, KW, CI, CO), randn(CO)
+    lib_ms = time_library_conv2d(*CONV, "float32", device=dev).seconds * 1e3
+    plain_ms = card_ms(lambda: oc.conv2d_plain(x, w, bias, pad))[0]
+    bound, by = gemm_bound_ms(*conv_work(*CONV, 4), F32, peaks)
+    log(f"[12] 1x56x56x256->256 3x3 f32: cuDNN (TF32 off) {lib_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    # 672 configs: 5 ms windows (each the minimum of three) for the time
+    # limit
+    OH = H + 2 * pad - KH + 1
+    sweep = lattice_sweep(
+        "12", [(boh, bco, bci) for boh in range(1, OH + 1)
+               for bco in oc.F32_BN for bci in oc.F32_BCI],
+        lambda cfg: oc.conv2d(x, w, bias, pad, *cfg),
+        lambda: oc.conv2d_plain(x, w, bias, pad), target_ms=5.0)
+    sweep.update(library_ms=lib_ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=by, all_ms=sweep.pop("times"))
+    log(f"[12] f32 lattice sweep: fastest {sweep['best_cfg']} "
+        f"{sweep['best_ms']:.4f} ms = {sweep['best_ms'] / lib_ms:.3f}x "
+        f"cuDNN's time, {bound / sweep['best_ms']:.1%} of the bound")
+    return sweep
+
+
+def conv_f32_arm(kernels, checks, sweep):
+    """Phase 14's float32 part: cli.tune_kernel --workload conv2d --dtype
+    float32 --arm random at the tuning shape; its best config beside cuDNN
+    and the phase 12 sweep's fastest."""
+    from vae_extent_search_tpu_torch.ops import conv2d as oc
+
+    def best_launch(runner, cfg):
+        N, H, W, CO, CI, KH, KW, _, pad = CONV
+        x, w, bias = runner.operands(N, H, W, CO, CI, KH, KW)
+        return (lambda: oc.conv2d(x, w, bias, pad, *cfg),
+                lambda: oc.conv2d_plain(x, w, bias, pad))
+
+    arms = tune_arms("conv2d", ["--workload", "conv2d", "--conv",
+                                *map(str, CONV[:7])], best_launch, kernels,
+                     checks, arms=("random",), dtype="float32")
+    tuned = arms["random"][0]
+    log(f"[14] f32 random arm: best {tuned['best_cfg']} "
+        f"{tuned['best_ms']:.4f} ms; cuDNN f32 (TF32 off) "
+        f"{tuned['library_ms']:.4f} ms in the arm, {sweep['library_ms']:.4f}"
+        f" ms in phase 12 -> {tuned['best_ms'] / tuned['library_ms']:.3f}x "
+        f"cuDNN's time; the phase 12 sweep's fastest {sweep['best_cfg']} "
+        f"{sweep['best_ms']:.4f} ms -> "
+        f"{tuned['best_ms'] / sweep['best_ms']:.3f}x")
+    return arms
+
+
+def conv_f32_record(arms, checks, sweep):
+    """The conv2d_f32 entry of the kernels line: the random arm's best and
+    launches, the sweep, the checks."""
+    best, runner, launches, wall = arms["random"]
+    flops = conv_work(*CONV, 4)[0]
+    return {
+        "name": "conv2d_f32", "route": "cuda",
+        "source": "vae_extent_search_tpu_torch/csrc/conv2d.cu",
+        "replaces": "vae_extent_search_tpu/ops/conv2d_pallas.py:106",
+        "launches": launches["conv2d"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "ms": best["best_ms"], "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"], "bound_by": sweep["bound_by"],
+        "library_ms": best["library_ms"],
+        "shape": dict(zip(("N", "H", "W", "CO", "CI", "KH", "KW", "stride",
+                           "pad"), CONV), dtype="float32"),
+        "best_cfg": best["best_cfg"], "tflops": flops / best["best_ms"] / 1e9,
+        "host_ms": best["host_ms"],
+        "timer": "device time, calls queued behind a blocking product "
+                 "(search/kernel_tuner.py::cuda_seconds)",
+        "lattice_sweep": sweep,
+        "checks": {"max_rel_err": max(c["max_rel_err"]
+                                      for c in checks.values()),
+                   "tolerance": GEMM_TOL[torch.float32],
+                   "bit_identical_launches": True, "shifted_delta_exact": True,
+                   "configs_checked": len(checks)},
+        "tune": {"random": {k: best[k] for k in (
+            "best_cfg", "best_ms", "gflops", "host_ms", "library_ms",
+            "n_configs_timed", "n_measured")} | {
+            "wall_s": wall, "launches": launches["conv2d"],
+            "configs_verified": runner.n_verified,
+            "verify_max_rel_err": runner.verify_rel_err}},
+    }
 
 
 # the per-store cost models: full width of the reference's MLP
@@ -2317,11 +2470,12 @@ def head_phases(dev, peaks, fh, th):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("head", "arms"),
+    ap.add_argument("--only", choices=("head", "arms", "conv_f32"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
-                         "arms); either ends with {\"partial\": ...} instead "
-                         "of the result line")
+                         "arms); conv_f32: phase 1, then the float32 conv2d's "
+                         "part of phases 12 and 14; each ends with "
+                         "{\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2367,18 +2521,25 @@ def main():
         f"{sorted(head_regs.values())}")
     if not head_regs or any(sp for _, sp in head_regs.values()):
         raise RuntimeError(f"[1] fused_head_kernel spills: {head_regs}")
-    # the f32 matmul's 64 (or 32) accumulators and its fragments stay in
-    # registers at two blocks per SM: no instance may spill
-    f32_regs = {}
-    for name, rs in ptxas_report(builds[2][1]).items():
-        m = re.search(r"mm_f32ILi(\d+)ELi(\d+)E", name)
-        if m:
-            f32_regs[(int(m.group(1)), int(m.group(2)))] = rs
-    log(f"[1] mm_f32 instances (bm, bn): (registers, spill bytes) "
-        + ", ".join(f"{k}: {v}" for k, v in sorted(f32_regs.items())))
-    if set(f32_regs) != {(bm, bn) for bm in om.F32_BM for bn in om.F32_BN} \
-            or any(sp for _, sp in f32_regs.values()):
-        raise RuntimeError(f"[1] mm_f32 instances or spills: {f32_regs}")
+    # the f32 matmul's and conv2d's 64 (or 32) accumulators and their
+    # fragments stay in registers at two blocks per SM: no instance may spill
+    # (the conv's instances are (bm, bn, KWT): KWT 3 for KW = 3, 0 for any)
+    for out, kern, key, want in (
+            (builds[2][1], "mm_f32", "(bm, bn)",
+             {(bm, bn) for bm in om.F32_BM for bn in om.F32_BN}),
+            (builds[3][1], "conv_f32", "(bm, bn, KWT)",
+             {(bm, bn, k) for bm in oc.F32_BM for bn in oc.F32_BN
+              for k in (0, 3)})):
+        f32_regs = {}
+        for name, rs in ptxas_report(out).items():
+            m = re.search(kern + r"I((?:Li\d+E)+)", name)
+            if m:
+                f32_regs[tuple(int(v) for v in re.findall(
+                    r"Li(\d+)E", m.group(1)))] = rs
+        log(f"[1] {kern} instances {key}: (registers, spill bytes) "
+            + ", ".join(f"{k}: {v}" for k, v in sorted(f32_regs.items())))
+        if set(f32_regs) != want or any(sp for _, sp in f32_regs.values()):
+            raise RuntimeError(f"[1] {kern} instances or spills: {f32_regs}")
     # the bf16 instances run on the tensor cores: every one of them holds
     # the instruction (HGMMA: wgmma; HMMA: mma.sync), no f32 instance does
     for lib, kern, op in ((om.LIB, "mm_", "HGMMA"), (oc.LIB, "conv_", "HMMA")):
@@ -2393,14 +2554,13 @@ def main():
         if not bf16 or not all(counts[n] for n in bf16) or any(
                 counts[n] for n in f32):
             raise RuntimeError(f"[1] {lib.library.name}: {op} counts {counts}")
-        if lib is om.LIB:
-            # the f32 ring is filled by cp.async (LDGSTS)
-            ldgsts = {n: sum("LDGSTS" in ln for ln in funcs[n]) for n in f32}
-            log(f"[1] cuobjdump -sass {lib.library.name}: LDGSTS in the "
-                f"{len(f32)} f32 instances {sorted(ldgsts.values())}")
-            if not f32 or not all(ldgsts.values()):
-                raise RuntimeError(f"[1] {lib.library.name}: LDGSTS counts "
-                                   f"{ldgsts}")
+        # the f32 rings are filled by cp.async (LDGSTS)
+        ldgsts = {n: sum("LDGSTS" in ln for ln in funcs[n]) for n in f32}
+        log(f"[1] cuobjdump -sass {lib.library.name}: LDGSTS in the "
+            f"{len(f32)} f32 instances {sorted(ldgsts.values())}")
+        if not f32 or not all(ldgsts.values()):
+            raise RuntimeError(f"[1] {lib.library.name}: LDGSTS counts "
+                               f"{ldgsts}")
 
     # the histogram kernel adds with 32-bit shared-memory atomics: its only
     # atomic instructions are ATOMS.ADD, with no compare-and-swap loop
@@ -2417,6 +2577,13 @@ def main():
         raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
     kernels = kernel_wrappers()
+    if args.only == "conv_f32":
+        record = conv_f32_phases(dev, peaks, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        log(card)
+        print(json.dumps({"kernels": [record]}, default=float), flush=True)
+        print(json.dumps({"partial": "conv_f32"}), flush=True)
+        return
     if args.only == "arms":
         arms = arms_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")

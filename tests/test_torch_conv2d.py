@@ -1,10 +1,11 @@
 """The port's conv2d module (ops/conv2d.py) on the CPU: its plain version
 against the JAX package's Pallas conv2d in interpret mode at the JAX
 tests' configurations, and the Hopper lattices of its two kernels (float32
-on the CUDA cores; bfloat16 on the tensor cores: each refusal, the warp
-tiling, shared memory, ragged edges, the instances the source holds). The
-CUDA kernels themselves are held against the plain version on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
+on the CUDA cores: validity and the snap, whose launch plan
+tests/test_torch_conv2d_plan.py holds; bfloat16 on the tensor cores: each
+refusal, the warp tiling, shared memory, ragged edges, the instances the
+source holds). The CUDA kernels themselves are held against the plain
+version on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import re
 from pathlib import Path
@@ -81,26 +82,37 @@ def test_plain_bf16_inputs_f32_accum():
 
 
 def test_conv_config_validity():
-    # the float32 CUDA-core kernel: exact tiling, threads, shared memory
-    ok, _ = oc.conv_config_is_valid(*BENCH, 1, 256, 64, **F32)
-    assert ok
+    # the float32 CUDA-core kernel: the lattice's tiles (masked ragged
+    # edges), shared memory
+    assert oc.conv_config_is_valid(*BENCH, 1, 128, 32, **F32) == (True, None)
+    # 3 does not divide OH = 56: its last row block is masked, not refused
+    assert oc.conv_config_is_valid(*BENCH, 3, 32, 32, **F32) == (True, None)
     ok, why = oc.conv_config_is_valid(*BENCH, 3, 32, 64, **F32)
-    assert not ok and "divide" in why
-    # the TPU's (7, 128, 128): 7 x 56 x 128 outputs, more than 256 threads
-    # of 8 x 8 hold
-    ok, why = oc.conv_config_is_valid(*BENCH, 7, 128, 128, **F32)
-    assert not ok and "threads" in why
-    ok, why = oc.conv_config_is_valid(*BENCH, 8, 128, 128, **F32)
-    assert not ok and "threads" in why
-    # shared memory: 3 x 256 x 128 f32 weight slices alone are 384 KB
-    ok, why = oc.conv_config_is_valid(*BENCH, 1, 256, 128, **F32)
+    assert not ok and why.startswith("bci=64 not in")
+    # the TPU's (7, 128, 128) and (8, 128, 128): bci past the lattice; at
+    # bci 32 their 392 and 448 positions per row block are cut into
+    # position tiles (no thread limit on the row block)
+    for boh in (7, 8):
+        ok, why = oc.conv_config_is_valid(*BENCH, boh, 128, 128, **F32)
+        assert not ok and why.startswith("bci=128 not in")
+        assert oc.conv_config_is_valid(*BENCH, boh, 128, 32, **F32)[0]
+    ok, why = oc.conv_config_is_valid(*BENCH, 1, 256, 32, **F32)
+    assert not ok and why.startswith("bco=256 not in")
+    ok, why = oc.conv_config_is_valid(*BENCH, 57, 32, 8, **F32)
+    assert not ok and why.startswith("boh=57 out of range")
+    # shared memory: at 11 x 11 taps two stages of 11 x 32 x 128 f32
+    # weights alone are 352 KB
+    k11 = (1, 56, 56, 256, 256, 11, 11, 1, 5)
+    ok, why = oc.conv_config_is_valid(*k11, 1, 128, 32, **F32)
     assert not ok and "shared memory" in why
-    assert oc.conv_config_is_valid(*BENCH, 1, 256, 32, **F32)[0]
+    assert oc.conv_config_is_valid(*k11, 1, 128, 16, **F32)[0]
     ok, why = oc.conv_config_is_valid(1, 56, 56, 256, 256, 3, 3, 2, 1,
-                                      1, 32, 64, **F32)
+                                      1, 32, 32, **F32)
     assert not ok and "stride" in why
-    assert (oc.predicted_conv_seconds(*BENCH, 1, 1, 1, **F32)
-            > oc.predicted_conv_seconds(*BENCH, 2, 128, 64, **F32) * 5)
+    # 196 blocks of 64 x 64 (two waves of 132 SMs' worth) ahead of 50
+    # busy blocks of 128 x 128 (one wave, four times the tile)
+    assert (oc.predicted_conv_seconds(*BENCH, 16, 128, 32, **F32)
+            > oc.predicted_conv_seconds(*BENCH, 8, 64, 32, **F32) * 1.5)
 
 
 @pytest.mark.parametrize("params,cfg,reason", [
@@ -173,18 +185,21 @@ def test_snap_conv_config_to_hw():
     def snap(*raw, params=BENCH):
         return oc.snap_conv_config_to_hw(*params, *raw, **F32)
 
-    # bco up to a multiple of 32, bci to a multiple of 8
+    # bco up to the lattice's channel tiles, bci to its ci blocks
     assert snap(1, 4, 4) == (1, 32, 8)
-    assert snap(2, 100, 60) == (2, 128, 64)
+    assert snap(2, 100, 60) == (2, 128, 32)
     # within the limits: unchanged
     assert snap(4, 64, 32) == (4, 64, 32)
-    # too many outputs: boh shrinks (boh x OW = 3136 > bco)
-    assert snap(56, 32, 8) == (8, 32, 8)
-    # too much shared memory: bci shrinks first
-    assert snap(1, 256, 256) == (1, 256, 64)
-    # CO below 32: the whole axis
+    # a whole image of rows is one row block of 49 position tiles
+    assert snap(56, 32, 8) == (56, 32, 8)
+    # past the lattice: its largest tiles
+    assert snap(1, 256, 256) == (1, 128, 32)
+    # CO below 32: the smallest channel tile, its ragged edge masked
     small = (1, 28, 28, 16, 64, 3, 3, 1, 1)
-    assert snap(2, 3, 5, params=small) == (2, 16, 8)
+    assert snap(2, 3, 5, params=small) == (2, 32, 8)
+    # too much shared memory (11 x 11 taps): bci comes down first
+    k11 = (1, 56, 56, 256, 256, 11, 11, 1, 5)
+    assert snap(1, 128, 32, params=k11) == (1, 128, 16)
     # stride 2 never fits the stride-1 kernel
     s2 = (1, 56, 56, 64, 64, 3, 3, 2, 1)
     assert not oc.conv_config_is_valid(
@@ -225,11 +240,8 @@ def test_every_snap_lands_on_the_lattice(params, dtype):
         raw = (divisor(OH), divisor(CO), divisor(CI))
         cfg = oc.snap_conv_config_to_hw(*params, *raw, dtype=dtype)
         ok, why = oc.conv_config_is_valid(*params, *cfg, dtype=dtype)
-        if dtype == "bfloat16":
-            # ragged edges are masked, so every stride-1 snap is valid
-            assert ok, (raw, cfg, why)
-        else:
-            assert ok or cfg[1] == CO or cfg[2] == CI, (raw, cfg, why)
+        # ragged edges are masked, so every stride-1 snap is valid
+        assert ok, (raw, cfg, why)
         assert oc.snap_conv_config_to_hw(*params, *cfg, dtype=dtype) == cfg
 
 

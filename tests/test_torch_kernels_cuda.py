@@ -379,6 +379,7 @@ def test_matmul_kernel_matches_plain(dev, dtype, dims, cfg):
 BF16_INSTANCES = [(bm, bn) for bm in om.BF16_BM for bn in om.BF16_BN
                   if om.bf16_accumulators(bm, bn) <= om.ACC_REGS]
 F32_INSTANCES = [(bm, bn) for bm in om.F32_BM for bn in om.F32_BN]
+CONV_F32_INSTANCES = [(bm, bn) for bm in oc.F32_BM for bn in oc.F32_BN]
 
 
 @pytest.mark.parametrize("bm,bn", F32_INSTANCES)
@@ -476,7 +477,9 @@ def test_matmul_and_conv2d_refuse_invalid_configs_before_launch(dev):
     w = torch.randn(3, 3, 256, 256, device=dev)
     b = torch.randn(256, device=dev)
     before = oc.conv2d.launches
-    for cfg in ((8, 128, 128), (1, 256, 256), (3, 32, 8)):
+    # bci and bco off the f32 lattice, boh past OH (a boh that does not
+    # divide OH is masked, not refused)
+    for cfg in ((8, 128, 128), (1, 256, 256), (57, 32, 8)):
         with pytest.raises(ValueError, match="invalid conv2d config"):
             oc.conv2d(x, w, b, 1, *cfg)
     for cfg in ((8, 128, 128), (1, 256, 128), (2, 6, 64), (2, 128, 8)):
@@ -516,6 +519,8 @@ def test_library_instances_are_the_lattice(dev):
     cv = om.library_instances(oc.LIB.load().conv2d_instances)
     assert {(p, q) for d, p, q in cv if d == "bfloat16"} == {
         (mt, nt) for mt in oc.BF16_MT for nt in oc.BF16_NT}
+    assert {(p, q) for d, p, q in cv if d == "float32"} == set(
+        CONV_F32_INSTANCES)
 
 
 def test_card_timer_reads_the_device_and_raises_when_the_host_falls_behind(
@@ -539,10 +544,14 @@ def test_card_timer_reads_the_device_and_raises_when_the_host_falls_behind(
 
 
 @pytest.mark.parametrize("dtype,params,cfg", [
-    (F32, (2, 8, 8, 6, 256, 3, 3, 1), (4, 6, 128)),
-    (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 2, 4)),
-    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
-    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (8, 32, 8)),
+    (F32, (2, 8, 8, 6, 256, 3, 3, 1), (4, 32, 32)),     # CO off 4: staged
+    (F32, (3, 10, 7, 2, 4, 3, 3, 0), (4, 32, 8)),       # CO off 4, N 3
+    (F32, (2, 9, 11, 6, 5, 3, 3, 1), (3, 32, 8)),       # CI and CO off 4
+    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 32)),
+    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (8, 64, 16)),
+    (F32, (1, 56, 56, 256, 256, 3, 3, 1), (5, 96, 32)),  # no tile divides
+    (F32, (2, 6, 150, 20, 12, 3, 3, 1), (2, 64, 16)),    # OW 150
+    (F32, (1, 14, 14, 40, 24, 1, 1, 0), (3, 32, 16)),    # 1 x 1, ragged
     (BF16, (2, 8, 8, 6, 256, 3, 3, 1), (4, 16, 128)),   # CO < bco
     (BF16, (3, 10, 7, 2, 4, 3, 3, 0), (3, 16, 16)),     # CI < 16: element loads
     (BF16, (1, 56, 56, 256, 256, 3, 3, 1), (2, 128, 64)),
@@ -564,6 +573,48 @@ def test_conv2d_kernel_matches_plain(dev, dtype, params, cfg):
     assert oc.conv2d.launches == before + 2
     assert torch.equal(got, again)
     assert _rel(got, oc.conv2d_plain(x, w, bias, pad)) <= 1e-5
+
+
+@pytest.mark.parametrize("bm,bn", CONV_F32_INSTANCES)
+@pytest.mark.parametrize("K", [3, 5])
+def test_f32_conv2d_shifted_delta_is_exact(dev, bm, bn, K):
+    # w = identity at tap (kh, kw) = (0, 0), zero elsewhere, bias 0, pad
+    # K // 2, CI = CO: out[n, oh, ow] == relu(x[n, oh - pad, ow - pad])
+    # exactly, zeros on the first pad rows and columns, so a wrong shift,
+    # window entry, zero fill or output place shows up as a mismatch, in
+    # both kernels of the instance (KW 3, any KW). At OW = 14 (OWq 16) boh
+    # 2, 4, 6, 8 give BM 32, 64, 96, 128; C = 36 is ragged for every BN and
+    # bci
+    N, H, W, C, pad = 2, 14, 14, 36, K // 2
+    boh = {32: 2, 64: 4, 96: 6, 128: 8}[bm]
+    assert oc.f32_bm(boh * oc.f32_row_width(W)) == bm
+    x = torch.randn(N, H, W, C, device=dev)
+    w = torch.zeros(K, K, C, C, device=dev)
+    w[0, 0] = torch.eye(C, device=dev)
+    want = torch.zeros_like(x)
+    want[:, pad:, pad:] = torch.relu(x[:, :-pad, :-pad])
+    for bci in oc.F32_BCI:
+        got = oc.conv2d(x, w, torch.zeros(C, device=dev), pad, boh, bn, bci)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bm,bn", CONV_F32_INSTANCES)
+@pytest.mark.parametrize("K", [3, 5])
+def test_every_f32_conv2d_instance_matches_plain(dev, bm, bn, K):
+    # both kernels of the instance (KW 3, and any other KW), rows narrower
+    # than a tile (OW 3: a tile spans rows), ragged CO, each bci, two
+    # launches bit-identical
+    N, H, CO, CI, pad = 2, 40, 2 * bn + 20, 24, K // 2
+    boh = next(b for b in range(1, H + 1) if oc.f32_bm(4 * b) == bm)
+    g = torch.Generator(device=dev).manual_seed(bm + bn + K)
+    x = torch.randn(N, H, 3, CI, generator=g, device=dev)
+    w = torch.randn(K, K, CI, CO, generator=g, device=dev)
+    bias = torch.randn(CO, generator=g, device=dev)
+    want = oc.conv2d_plain(x, w, bias, pad)
+    for bci in oc.F32_BCI:
+        got = oc.conv2d(x, w, bias, pad, boh, bn, bci)
+        assert torch.equal(got, oc.conv2d(x, w, bias, pad, boh, bn, bci))
+        assert _rel(got, want) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,9 @@ against it, and the Hopper lattices of its two kernels (the float32
 CUDA-core kernel: validity, snapping, the derived stage count, the wave
 model, the instances the source is built for; the bfloat16 tensor-core
 kernel: each refusal, the derived stage count, the register and
-shared-memory limits, ragged tiles, and the instances). ``thread_tile``,
-which the conv2d's f32 kernel uses, is tested here too. The CUDA kernels themselves are held against the
-plain version on the card (tests/test_torch_kernels_cuda.py,
-chip_smoke.py)."""
+shared-memory limits, ragged tiles, and the instances). The CUDA kernels
+themselves are held against the plain version on the card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import importlib.util
 import math
@@ -114,24 +113,6 @@ def test_f32_staging_matches_jax_kernel(dims):
     assert torch.equal(om.matmul(ta, tb, 32, 32, 8), om.matmul_plain(ta, tb))
     sa, sb = om.staged(pa, pb, om.F32_ALIGN)
     assert sa is pa and sb is pb
-
-
-def test_thread_tile():
-    assert om.thread_tile(128, 128) == (8, 8)      # 256 threads
-    assert om.thread_tile(64, 64) == (4, 4)
-    assert om.thread_tile(16, 16) == (1, 1)
-    assert om.thread_tile(3, 32) == (1, 1)         # 96 threads
-    assert om.thread_tile(256, 128) is None        # > 256 x 64 outputs
-    assert om.thread_tile(7 * 56, 32) == (8, 8)    # 49 x 4 threads
-    for rows in (1, 2, 3, 8, 12, 56, 96, 128, 392):
-        for cols in (1, 32, 64, 96, 128, 256):
-            tt = om.thread_tile(rows, cols)
-            if tt is None:
-                assert rows * cols > om.MAX_THREADS * 64
-                continue
-            tm, tn = tt
-            assert rows % tm == 0 and cols % tn == 0
-            assert (rows // tm) * (cols // tn) <= om.MAX_THREADS
 
 
 def test_config_validity():
@@ -302,7 +283,10 @@ def test_the_source_holds_exactly_the_lattice():
 
 
 def test_the_source_holds_exactly_the_f32_lattice():
+    # the ring depth and row pad live in the header the f32 conv2d shares
     src = (CSRC / "matmul.cu").read_text()
+    assert '#include "f32_tile.cuh"' in src
+    src += (CSRC / "f32_tile.cuh").read_text()
 
     def values(name):
         line = re.search(rf"#define {name}\(X\) (.*)", src).group(1)

@@ -11,14 +11,15 @@
 // with OH = H + 2 pad - KH + 1, OW = W + 2 pad - KW + 1 and xpad x padded
 // by `pad` zeros on each side of H and W.
 //
-// Both paths share the tiling the configuration names: one block computes
-// boh output rows x all OW columns x bco output channels of one image, and
-// loops over (kh, ci-block of bci). For each it stages in shared memory the
-// input window [boh][OW + KW - 1][bci] (rows oh0 + kh - pad ..., every
-// padded column) and the weight slices [KW][bci][bco], then runs kw inside,
-// so a window is read once for all KW taps. Zero padding is masked while
-// the window is loaded (no padded copy of x is made), and bias + ReLU are
-// fused into the store. The wrapper (ops/conv2d.py) checks the
+// Both paths tile the output by the configuration: boh output rows of one
+// image at a time (a row block), bco output channels, and a loop over (kh,
+// ci-block of bci). For each step they stage in shared memory the input
+// window the block's positions read at that kh (its rows of xpad, every
+// padded column, bci channels) and the weight slices [KW][bci][channels],
+// then run kw inside, so the window is read from global memory once for
+// all KW taps: a tap is a row offset into it. Zero padding is zero-filled
+// while the window is loaded (no padded copy of x is made), and bias +
+// ReLU are fused into the store. The wrapper (ops/conv2d.py) checks the
 // configuration against the lattice of the path its dtype takes.
 //
 // bfloat16: tensor cores. Bound on an H100 at 1 x 56 x 56 x 256 -> 256,
@@ -43,9 +44,39 @@
 // stored, channels past CI are zeros, so boh, bco and bci need not divide
 // OH, CO and CI, and bci = 16 covers CI < 16.
 //
-// float32: the CUDA cores (tensor cores in f32 would be TF32). Each thread
-// owns a TM x TN micro-tile of the output tile, strided by the thread grid,
-// at most 256 threads; boh | OH, bco | CO, bci | CI.
+// float32: the CUDA cores, exact FFMA (tensor cores in f32 would be TF32, which
+// changes the numbers). Bound on an H100 at 1 x 56 x 56 x 256 -> 256, 3 x 3:
+// operations, 3.70 GFLOP is 0.0552 ms at 67 TFLOP/s. The implicit GEMM of the
+// f32 matmul (matmul.cu), with its tiling and copies from f32_tile.cuh and its
+// FMA step: positions are the rows, output channels the columns, k runs over
+// (kh, kw, ci). Positions of a row block are laid out OWq = OW rounded up to 4
+// per output row (the columns past OW are computed and not stored), so a
+// thread's four consecutive positions lie in one row. A row block's boh * OWq
+// positions are cut into tiles of BM, a pure function of boh * OWq
+// (ops/conv2d.py::f32_bm: the lattice value with the fewest masked positions,
+// the larger on a tie); bco is BN. Two instances per (BM, BN) of CONV_F32_BM x
+// CONV_F32_BN, one for KW = 3 and one for any KW; a block per (image, row
+// block, position tile, channel tile); each thread holds an 8 x TN accumulator
+// tile (F32Tile). A tile's window is the contiguous run of its row block's
+// padded input rows that its positions read, flattened: position p of output
+// row r reads entry p + r (KW - 1) + kw, so the window holds BM + rows (KW - 1)
+// entries (rows: those BM positions can span), each a row of bci floats padded
+// by 4, [entry][bci + 4] as the matmul's A tile. A thread's A fragment is one
+// LDS.128 along ci per row at entry (its group's entry) + kw; B is w as it
+// lies, [kh, kw, ci, co] = the weight slices [KW][bci][BN], the matmul's B
+// tile. At KW = 3 a group's four rows at tap kw + 1 are three of its rows at
+// tap kw and one more, so six row loads per group and ci chunk serve the three
+// taps (twelve in the any-KW loop): shared-memory loads are what bounds an 8 x
+// 8 tile's FMA rate (one float per four FMAs at 8 x 8, the SM's break-even),
+// and the next chunk's rows are loaded while this chunk's FMAs run. Window and
+// weights reach a ring of 2-4 stages by cp.async (LDGSTS, 16 bytes) with one
+// barrier per (kh, ci-block) step; each thread's window entries advance by a
+// fixed (row, column) step, without a division. Zero padding, rows past OH or
+// H, channels past CI and CO are zero-filled (src-size 0), never branched
+// around, and the stores are masked, so boh, bco and bci need not divide OH, CO
+// and CI. The 16-byte copies need CI and CO to be multiples of 4: the wrapper
+// stages zero-padded copies otherwise (ops/matmul.py::staged). A tile past the
+// last row block's rows returns at once.
 //
 // Sums run in a fixed order, so two launches give the same bits. Each
 // instance's shared-memory limit is raised once, on its first launch.
@@ -53,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -79,109 +112,280 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores
+// float32 on the CUDA cores: cp.async ring + float4 fragments + FFMA
 // ---------------------------------------------------------------------------
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kMaxThreads) conv_f32(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// The lattice (ops/conv2d.py: F32_BM, F32_BN), one instance per pair.
+#define CONV_F32_BM(X) X(32) X(64) X(96) X(128)
+#define CONV_F32_BN(X) X(32) X(64) X(96) X(128)
+
+// The launch plan's arithmetic, on the host and in the kernel
+// (ops/conv2d.py::f32_plan mirrors it): the padded row width of the
+// positions, the window entries of a position tile, one ring stage's floats.
+__host__ __device__ inline int f32_row_width(int OW) { return (OW + 3) & ~3; }
+__host__ __device__ inline int f32_window(int bm, int boh, int OWq, int KW) {
+  const int span = (bm + OWq - 2) / OWq + 1;  // rows that bm positions can span
+  return bm + (span < boh ? span : boh) * (KW - 1);
+}
+__host__ __device__ inline int f32_stage(int bm, int bn, int bci, int boh, int OWq, int KW) {
+  return f32_window(bm, boh, OWq, KW) * (bci + kF32Pad) + KW * bci * bn;
+}
+
+// Four k-steps of a thread's 8 x TN tile of a (BM, BN) instance (the f32
+// matmul's k-step; matmul.cu keeps its own inline copy, whose compiled code
+// a shared function changed):
+// acc[i][4 g + j] += a[i].kk * B[kk][g WN/2 + j] for kk = 0 .. 3, where a[i]
+// holds row i's four k values (one LDS.128 each) and bs points at the
+// thread's first column in B's first row (rows BN floats apart, the thread's
+// column blocks WN/2 apart). B's fragment for step kk + 1 is loaded before
+// the FMAs of step kk.
+template <int TN, int BN, int WN>
+__device__ __forceinline__ void f32_fma4(float (&acc)[8][TN], const float4 (&a)[8],
+                                         const float* bs) {
+  constexpr int FN = TN / 4;
+  float4 b[2][FN];
+#pragma unroll
+  for (int g = 0; g < FN; ++g) b[0][g] = *reinterpret_cast<const float4*>(bs + g * (WN / 2));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < 3) {
+#pragma unroll
+      for (int g = 0; g < FN; ++g)
+        b[(kk + 1) & 1][g] =
+            *reinterpret_cast<const float4*>(bs + (kk + 1) * BN + g * (WN / 2));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+      for (int g = 0; g < FN; ++g) {
+        const float4 bv = b[kk & 1][g];
+        acc[i][4 * g + 0] = fmaf(av, bv.x, acc[i][4 * g + 0]);
+        acc[i][4 * g + 1] = fmaf(av, bv.y, acc[i][4 * g + 1]);
+        acc[i][4 * g + 2] = fmaf(av, bv.z, acc[i][4 * g + 2]);
+        acc[i][4 * g + 3] = fmaf(av, bv.w, acc[i][4 * g + 3]);
+      }
+    }
+  }
+}
+
+// grid: one block per (image, row block, position tile, channel tile),
+// channels fastest. smem: `stages` x (window [win][bci + 4], weights
+// [KW][bci][BN]) floats. KWT: 3 where KW is 3 (each window row loaded once
+// for the three taps), else 0 (any KW). One block per SM is asked of
+// ptxas: the KWT = 3 instances keep two chunks of window rows beside the
+// accumulators (up to 255 registers, which still leaves room for two or
+// more blocks of up to 128 threads).
+template <int BM, int BN, int KWT>
+__global__ void __launch_bounds__(F32Tile<BM, BN>::kThreads, 1) conv_f32(Args a, int stages) {
+  using T = F32Tile<BM, BN>;
+  constexpr int TN = T::kTN, FN = TN / 4, WM = T::kWM, WN = T::kWN, NT = T::kThreads;
+  constexpr int NC = BN / 4, b_step = NT / NC;
+  static_assert(NT % NC == 0 && NT % 8 == 0, "copy layout");
+  extern __shared__ __align__(16) float smem_f32[];
   const float* __restrict__ x = static_cast<const float*>(a.x);
   const float* __restrict__ w = static_cast<const float*>(a.w);
-  const int H = a.H, W = a.W, CI = a.CI, CO = a.CO, KH = a.KH, KW = a.KW, pad = a.pad;
-  const int OH = a.OH, OW = a.OW, boh = a.boh, bco = a.bco, bci = a.bci;
-  const int OWp = OW + KW - 1;                      // padded window width
-  float* xs = reinterpret_cast<float*>(smem_raw);   // [boh][OWp][bci]
-  float* ws = xs + boh * OWp * bci;                 // [KW][bci][bco]
-  const int tiles_co = CO / bco, tiles_oh = OH / boh;
-  int b = blockIdx.x;
-  const int co0 = (b % tiles_co) * bco;
-  b /= tiles_co;
-  const int oh0 = (b % tiles_oh) * boh;
-  const int n = b / tiles_oh;
-  const int P = boh * OW;                           // output positions per block
-  const int RX = bco / TN, RY = P / TM;             // the thread grid
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int tx = tid % RX, ty = tid / RX;
-
-  int xoff[TM];  // each owned position's window offset at kw = 0, c = 0
+  const int H = a.H, W = a.W, CI = a.CI, CO = a.CO, KW = a.KW, bci = a.bci;
+  const int OWq = f32_row_width(a.OW), OWp = OWq + KW - 1, P = a.boh * OWq;
+  const int tp = (P + BM - 1) / BM, win = f32_window(BM, a.boh, OWq, KW);
+  const int lda = bci + kF32Pad, a_size = win * lda, stage_size = a_size + KW * bci * BN;
+  const int tiles_co = (CO + BN - 1) / BN, tiles_oh = (a.OH + a.boh - 1) / a.boh;
+  int blk = blockIdx.x;
+  const int co0 = (blk % tiles_co) * BN;
+  blk /= tiles_co;
+  const int p0 = (blk % tp) * BM;  // the tile's first position in its row block
+  blk /= tp;
+  const int oh0 = (blk % tiles_oh) * a.boh, n = blk / tiles_oh;
+  const int live = min(a.boh, a.OH - oh0) * OWq;  // positions of rows below OH
+  if (p0 >= live) return;
+  // the tile's first window entry in the row block's padded rows, flattened
+  // (OWp columns a row): position p of row r reads entry p + r (KW - 1) + kw
+  const int f0 = p0 + (p0 / OWq) * (KW - 1);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this thread's positions are p0 + row0 + h * WM/2 + i, its channels
+  // co0 + col0 + g * WN/2 + j (i, j < 4); each group of four positions lies
+  // in one row (row0, WM/2, BM and OWq are multiples of 4)
+  const int row0 = (warp / (BN / WN)) * WM + (lane / T::kLN) * 4;
+  const int col0 = (warp % (BN / WN)) * WN + (lane % T::kLN) * 4;
+  // each group's window entry at kw = 0; a group past the row block reads
+  // the last group's entries, and its outputs are not stored
+  int wrow[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = ty + i * RY;
-    xoff[i] = ((p / OW) * OWp + p % OW) * bci;
+  for (int h = 0; h < 2; ++h) {
+    const int p = min(p0 + row0 + h * (WM / 2), P - 4);
+    wrow[h] = p + (p / OWq) * (KW - 1) - f0;
   }
-  float acc[TM][TN];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem_f32));
+  // this thread's copies in each step: window entries e0, e0 + e_step, ...
+  // at channel a_c, their (row, column) in the padded rows advancing by
+  // (dr, dc); weight rows b_r, b_r + b_step, ... at channel b_n
+  const int kcn = bci / 4, a_c = (tid % kcn) * 4, e0 = tid / kcn, e_step = NT / kcn;
+  const int r_first = (f0 + e0) / OWp, c_first = f0 + e0 - r_first * OWp;
+  const int dr = e_step / OWp, dc = e_step - dr * OWp;
+  const int b_r = tid / NC, b_n = (tid % NC) * 4, lg_bci = __ffs(bci) - 1;
+  const bool b_in = co0 + b_n < CO;
+  const float* xn = x + (size_t)n * H * W * CI;
+  const int nci = (CI + bci - 1) / bci, iters = a.KH * nci;
+
+  // step `it` (kh, ci-block) into stage s; zeros outside x, past CI and CO
+  auto load = [&](int it, int s) {
+    const int kh = it / nci, ci0 = (it - kh * nci) * bci;
+    const uint32_t as = sbase + 4u * (uint32_t)(s * stage_size);
+    const uint32_t bs = as + 4u * (uint32_t)a_size;
+    const bool c_in = ci0 + a_c < CI;
+    const int ih0 = oh0 + kh - a.pad;
+    int r = r_first, c = c_first;
+    for (int e = e0; e < win; e += e_step) {
+      const int ih = ih0 + r, iw = c - a.pad;
+      const bool ok = c_in && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+      cp_async16(as + 4u * (uint32_t)(e * lda + a_c),
+                 ok ? xn + ((size_t)ih * W + iw) * CI + ci0 + a_c : x, ok);
+      r += dr;
+      c += dc;
+      if (c >= OWp) { c -= OWp; ++r; }
+    }
+    const float* wk = w + (size_t)kh * KW * CI * CO + co0 + b_n;
+    for (int t = b_r; t < KW * bci; t += b_step) {
+      const int kw = t >> lg_bci, ci = ci0 + (t & (bci - 1));
+      const bool ok = b_in && ci < CI;
+      cp_async16(bs + 4u * (uint32_t)(t * BN + b_n),
+                 ok ? wk + ((size_t)kw * CI + ci) * CO : w, ok);
+    }
+  };
+
+  float acc[8][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const int win = boh * OWp * bci, wsl = KW * bci * bco;
-  for (int kh = 0; kh < KH; ++kh) {
-    for (int ci0 = 0; ci0 < CI; ci0 += bci) {
-      for (int e = tid; e < win; e += nt) {
-        const int c = e % bci, t = e / bci;
-        const int col = t % OWp, r = t / OWp;
-        const int ih = oh0 + r + kh - pad, iw = col - pad;
-        float v = 0.f;
-        if (ih >= 0 && ih < H && iw >= 0 && iw < W)
-          v = x[(((size_t)n * H + ih) * W + iw) * CI + ci0 + c];
-        xs[e] = v;
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < iters) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait(stages - 2);
+    // step it has landed in every thread's view, and every thread is done
+    // with step it - 1, whose stage the next copy refills
+    __syncthreads();
+    if (it + stages - 1 < iters) load(it + stages - 1, (it + stages - 1) % stages);
+    cp_async_commit();
+    const float* st = smem_f32 + (it % stages) * stage_size;
+    if (KWT) {
+      // a group's rows at tap kw are its rows at tap 0 shifted by kw
+      // entries, so 4 + KWT - 1 row loads per group and ci chunk serve all
+      // KWT taps; the next chunk's rows load while this chunk's FMAs run
+      const float* a0 = st + wrow[0] * lda;
+      const float* a1 = st + wrow[1] * lda;
+      const float* bs = st + a_size + col0;
+      float4 ar[2][2][4 + KWT - 1];  // [chunk buffer][group][row]
+      auto rows = [&](float4 (&r)[2][4 + KWT - 1], int c) {
+#pragma unroll
+        for (int j = 0; j < 4 + KWT - 1; ++j) {
+          r[0][j] = *reinterpret_cast<const float4*>(a0 + j * lda + c);
+          r[1][j] = *reinterpret_cast<const float4*>(a1 + j * lda + c);
+        }
+      };
+      auto taps = [&](const float4 (&r)[2][4 + KWT - 1], int c) {
+#pragma unroll
+        for (int kw = 0; kw < KWT; ++kw) {
+          float4 av[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            av[i] = r[0][kw + i];
+            av[4 + i] = r[1][kw + i];
+          }
+          f32_fma4<TN, BN, WN>(acc, av, bs + (kw * bci + c) * BN);
+        }
+      };
+      rows(ar[0], 0);
+      for (int c = 0; c < bci; c += 8) {  // bci is a multiple of 8
+        rows(ar[1], c + 4);
+        taps(ar[0], c);
+        if (c + 8 < bci) rows(ar[0], c + 8);
+        taps(ar[1], c + 4);
       }
-      for (int e = tid; e < wsl; e += nt) {
-        const int co = e % bco, t = e / bco;
-        const int c = t % bci, kw = t / bci;
-        ws[e] = w[(((size_t)kh * KW + kw) * CI + ci0 + c) * CO + co0 + co];
-      }
-      __syncthreads();
+    } else {
       for (int kw = 0; kw < KW; ++kw) {
-        for (int c = 0; c < bci; ++c) {
-          float av[TM], bv[TN];
+        const float* a0 = st + (wrow[0] + kw) * lda;
+        const float* a1 = st + (wrow[1] + kw) * lda;
+        const float* bs = st + a_size + kw * bci * BN + col0;
+#pragma unroll 2
+        for (int c = 0; c < bci; c += 4) {
+          float4 av[8];
 #pragma unroll
-          for (int i = 0; i < TM; ++i) av[i] = xs[xoff[i] + kw * bci + c];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) bv[j] = ws[(kw * bci + c) * bco + tx + j * RX];
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int i = 0; i < 8; ++i)
+            av[i] = *reinterpret_cast<const float4*>((i < 4 ? a0 : a1) + (i % 4) * lda + c);
+          f32_fma4<TN, BN, WN>(acc, av, bs + c * BN);
         }
       }
-      __syncthreads();
     }
   }
+  cp_async_wait(0);
+
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = ty + i * RY;
-    const size_t row = ((size_t)n * OH + oh0 + p / OW) * OW + p % OW;
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + row0 + h * (WM / 2);
+    if (p >= live) continue;
+    const int r = p / OWq, c = p - r * OWq;
+    float* orow = a.out + ((size_t)n * a.OH + oh0 + r) * a.OW * CO;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = co0 + tx + j * RX;
-      a.out[row * CO + co] = fmaxf(acc[i][j] + a.bias[co], 0.f);
+    for (int i = 0; i < 4; ++i) {
+      if (c + i >= a.OW) continue;
+#pragma unroll
+      for (int g = 0; g < FN; ++g) {
+        const int co = co0 + col0 + g * (WN / 2);
+        if (co >= CO) continue;  // CO is a multiple of 4, so co + 3 < CO too
+        *reinterpret_cast<float4*>(orow + (size_t)(c + i) * CO + co) =
+            make_float4(fmaxf(acc[4 * h + i][4 * g] + a.bias[co], 0.f),
+                        fmaxf(acc[4 * h + i][4 * g + 1] + a.bias[co + 1], 0.f),
+                        fmaxf(acc[4 * h + i][4 * g + 2] + a.bias[co + 2], 0.f),
+                        fmaxf(acc[4 * h + i][4 * g + 3] + a.bias[co + 3], 0.f));
+      }
     }
   }
 }
 
-template <int TM, int TN>
-cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+size_t f32_smem(const Args& a, int bm, int bn, int stages) {
+  return (size_t)stages * f32_stage(bm, bn, a.bci, a.boh, f32_row_width(a.OW), a.KW) *
+         sizeof(float);
+}
+
+template <int BM, int BN, int KWT>
+cudaError_t launch_f32(const Args& a, int stages, cudaStream_t s) {
   static bool attr_done = false;
-  cudaError_t err = raise_smem_once(conv_f32<TM, TN>, attr_done);
+  if (!attr_done) {
+    // two blocks per SM need the largest shared-memory share of the SM's L1
+    cudaError_t err = cudaFuncSetAttribute(
+        conv_f32<BM, BN, KWT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = raise_smem_once(conv_f32<BM, BN, KWT>, attr_done);
   if (err != cudaSuccess) return err;
-  const size_t smem =
-      ((size_t)a.boh * (a.OW + a.KW - 1) * a.bci + (size_t)a.KW * a.bci * a.bco) * 4;
-  const unsigned blocks = (unsigned)(a.N * (a.OH / a.boh) * (a.CO / a.bco));
-  const int threads = (a.boh * a.OW / TM) * (a.bco / TN);
-  conv_f32<TM, TN><<<blocks, threads, smem, s>>>(a);
+  const long long blocks = (long long)a.N * ((a.OH + a.boh - 1) / a.boh) *
+                           ((a.boh * f32_row_width(a.OW) + BM - 1) / BM) *
+                           ((a.CO + BN - 1) / BN);
+  conv_f32<BM, BN, KWT><<<(unsigned)blocks, F32Tile<BM, BN>::kThreads, f32_smem(a, BM, BN, stages),
+                     s>>>(a, stages);
   return cudaGetLastError();
 }
 
-template <int TM>
-cudaError_t launch_f32_tn(int tn, const Args& a, cudaStream_t s) {
-  switch (tn) {
-    case 1: return launch_f32<TM, 1>(a, s);
-    case 2: return launch_f32<TM, 2>(a, s);
-    case 4: return launch_f32<TM, 4>(a, s);
-    case 8: return launch_f32<TM, 8>(a, s);
-  }
+template <int BM>
+cudaError_t launch_f32_bn(int bn, const Args& a, int stages, cudaStream_t s) {
+#define CASE(BNV)                                                      \
+  if (bn == BNV)                                                       \
+    return a.KW == 3 ? launch_f32<BM, BNV, 3>(a, stages, s) : launch_f32<BM, BNV, 0>(a, stages, s);
+  CONV_F32_BN(CASE)
+#undef CASE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_f32_any(int bm, int bn, const Args& a, int stages, cudaStream_t s) {
+#define CASE(BMV) \
+  if (bm == BMV) return launch_f32_bn<BMV>(bn, a, stages, s);
+  CONV_F32_BM(CASE)
+#undef CASE
   return cudaErrorInvalidValue;
 }
 
@@ -436,29 +640,25 @@ bool shape_ok(int N, int CI, int CO, int KH, int KW, int pad, int OH, int OW, in
 
 }  // namespace
 
-// float32: (tm, tn) the thread micro-tile, each in {1, 2, 4, 8}, dividing
-// boh * OW and bco, with (boh * OW / tm) * (bco / tn) <= 256; boh | OH,
-// bco | CO, bci | CI. Returns a cudaError_t (0 on success); launches
-// nothing on bad arguments.
+// float32: bco (BN) and bm (BM, ops/conv2d.py::f32_bm) of the lattice, bci 8,
+// 16 or 32, `stages` (2 .. 4) ring stages within 227 KB. CI and CO must be
+// multiples of 4 and x, w and out 16-byte aligned (16-byte copies and
+// stores). Returns a cudaError_t (0 on success); launches nothing on bad
+// arguments.
 extern "C" int conv2d_f32_launch(const void* x, const void* w, const void* bias, void* out,
                                  int N, int H, int W, int CI, int CO, int KH, int KW, int pad,
-                                 int boh, int bco, int bci, int tm, int tn, void* stream) {
+                                 int boh, int bco, int bci, int bm, int stages, void* stream) {
   const int OH = H + 2 * pad - KH + 1, OW = W + 2 * pad - KW + 1;
-  if (!shape_ok(N, CI, CO, KH, KW, pad, OH, OW, boh, bco, bci) || OH % boh || CO % bco ||
-      CI % bci || tm <= 0 || tn <= 0 || (boh * OW) % tm || bco % tn ||
-      (boh * OW / tm) * (bco / tn) > kMaxThreads ||
-      ((size_t)boh * (OW + KW - 1) * bci + (size_t)KW * bci * bco) * 4 > (size_t)kMaxSmem)
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (!shape_ok(N, CI, CO, KH, KW, pad, OH, OW, boh, bco, bci) || boh > OH || CI % 4 ||
+      CO % 4 || (ptrs & 15) || (bci != 8 && bci != 16 && bci != 32) || stages < 2 ||
+      stages > kF32MaxStages)
     return (int)cudaErrorInvalidValue;
   const Args a{x, w, static_cast<const float*>(bias), static_cast<float*>(out), N, H, W, CI, CO,
                KH, KW, pad, OH, OW, boh, bco, bci};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tm) {
-    case 1: return (int)launch_f32_tn<1>(tn, a, s);
-    case 2: return (int)launch_f32_tn<2>(tn, a, s);
-    case 4: return (int)launch_f32_tn<4>(tn, a, s);
-    case 8: return (int)launch_f32_tn<8>(tn, a, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (f32_smem(a, bm, bco, stages) > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)launch_f32_any(bm, bco, a, stages, static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: bco a multiple of 16 up to 256, bci 16, 32, 64 or 128; (mt, nt)
@@ -487,7 +687,7 @@ extern "C" int conv2d_bf16_launch(const void* x, const void* w, const void* bias
 }
 
 // The template instances this library holds, as (dtype, p, q) triples into
-// out[0 .. 3 * cap): dtype 0 float32 with (TM, TN), dtype 1 bfloat16 with
+// out[0 .. 3 * cap): dtype 0 float32 with (BM, BN), dtype 1 bfloat16 with
 // (MT, NT). Returns their number.
 extern "C" int conv2d_instances(int* out, int cap) {
   int n = 0;
@@ -495,9 +695,12 @@ extern "C" int conv2d_instances(int* out, int cap) {
     if (n < cap) { out[3 * n] = d; out[3 * n + 1] = p; out[3 * n + 2] = q; }
     ++n;
   };
-  const int micro[4] = {1, 2, 4, 8}, mts[3] = {1, 2, 4}, nts[3] = {2, 4, 8};
-  for (int tm : micro)
-    for (int tn : micro) add(0, tm, tn);
+#define ELEM(V) V,
+  const int f32_bm[] = {CONV_F32_BM(ELEM)}, f32_bn[] = {CONV_F32_BN(ELEM)};
+#undef ELEM
+  const int mts[3] = {1, 2, 4}, nts[3] = {2, 4, 8};
+  for (int bm : f32_bm)
+    for (int bn : f32_bn) add(0, bm, bn);
   for (int mt : mts)
     for (int nt : nts) add(1, mt, nt);
   return n;

@@ -63,7 +63,8 @@
 // wrapper gives the ring the most stages, up to 4, that leave room for
 // two blocks in an SM's 228 KB. Each thread's copies start from its own
 // row and 16-byte column and step by whole rows, so a k-step's copies cost
-// a few integer operations each.
+// a few integer operations each. The tiling and the copies live in
+// f32_tile.cuh, which conv2d.cu's f32 kernel shares.
 //
 // Each instance's shared-memory limit is raised once, on its first launch.
 
@@ -73,6 +74,7 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "f32_tile.cuh"
 #include "wgmma_ops.cuh"
 
 namespace {
@@ -95,50 +97,9 @@ cudaError_t raise_smem_once(K kernel, bool& done) {
 // float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Pad = 4;        // floats of padding per A row in shared memory
-constexpr int kF32MaxStages = 4;
-
 // The lattice (ops/matmul.py: F32_BM, F32_BN), one instance per pair.
 #define F32_BM(X) X(32) X(64) X(96) X(128)
 #define F32_BN(X) X(32) X(64) X(96) X(128)
-
-// A (BM, BN) instance's thread tile 8 x TN, warp tile WM x WN and lane grid
-// LM x LN (LM * LN = 32, each lane two 4-row blocks and TN/4 4-column ones).
-template <int BM, int BN>
-struct F32Tile {
-  static constexpr int kTN = (BM * BN / 64) % 32 == 0 ? 8 : 4;
-  static constexpr int kWM = kTN == 4 || BN % 64 == 0 ? 32 : 64;
-  static constexpr int kWN = kTN == 4 ? 32 : 2048 / kWM;
-  static constexpr int kLM = kWM / 8, kLN = 32 / kLM;
-  static constexpr int kThreads = BM * BN / (8 * kTN);
-  // blocks per SM asked of ptxas: two, unless the registers that leaves
-  // (168 at up to 192 threads, 96 at 288) are too few for 8 x 8
-  // accumulators and their fragments (then one block of 256 threads)
-  static constexpr int kMinBlocks = kTN == 8 && kThreads > 192 ? 1 : 2;
-  static_assert(BM % kWM == 0 && BN % kWN == 0 && kLN * kTN == kWN, "warp tiling");
-};
-
-// 16 bytes from global to shared memory, or 16 zero bytes where !full
-// (src-size 0: nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `pending` (0, 1 or 2) of this thread's groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending >= 2)
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  else if (pending == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // grid: one block per [BM, BN] tile of C, n fastest. smem: `stages` x (A
 // tile [BM][bk + 4], B tile [bk][BN]) floats.

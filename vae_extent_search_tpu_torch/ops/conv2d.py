@@ -10,11 +10,12 @@ CUDA device, and :func:`conv2d_plain` (``F.conv2d`` in float32 on
 NCHW-permuted tensors) when they lie on the CPU. There is no fallback
 between the two: a CUDA tensor launches the kernel or raises.
 
-The configuration is the kernel's real tiling: a block computes boh output
-rows x all OW columns x bco channels and loops over (kh, ci-block of bci),
-staging the input window [boh, OW + KW - 1, bci] and the weight slices
-[KW, bci, bco] in shared memory. Zero padding is masked inside the kernel;
-no padded copy of x is made. The dtype chooses the kernel and its lattice:
+The configuration is the kernels' real tiling: a block computes output
+rows of boh (a row block) x bco channels of one image and loops over (kh,
+ci-block of bci), staging in shared memory the input window its positions
+read and the weight slices [KW, bci, bco]. Zero padding is zero-filled
+inside the kernel; no padded copy of x is made. The dtype chooses the kernel
+and its lattice:
 
 - **bfloat16, tensor cores** (``mma.sync`` m16n8k16 fed by ``ldmatrix``,
   a ring of ``cp.async`` buffers): bco a multiple of 16 up to 256 (pairs of
@@ -29,12 +30,28 @@ no padded copy of x is made. The dtype chooses the kernel and its lattice:
   The snap moves bco and bci up to the lattice (from at most the axis
   length), then shrinks bci for shared memory and the larger of boh * OW
   and bco for warps, until the configuration fits.
-- **float32, CUDA cores**: exact tiling; a thread micro-tile leaving at
-  most 256 threads (so boh * OW * bco <= 16,384: the TPU's boh = 8 x OW =
-  56 x bco = 128 does not fit); the window and weight slices within 227
-  KB. The snap moves bco up to a multiple of 32 and bci to a multiple of 8
-  (or the whole axis), then shrinks (bci first for shared memory, the
-  larger of boh * OW and bco for threads) until it fits.
+- **float32, CUDA cores** (exact FFMA; the f32 matmul's ``cp.async`` ring,
+  float4 fragments and 8 x 8 or 8 x 4 thread tiles under the conv's shifted
+  window): bco in ``F32_BN`` (the library's channel tiles, BN), bci in
+  ``F32_BCI`` (whole float4 groups of ci, a power of two of them per window
+  row), boh any row count up to OH. The launch plan (:func:`f32_plan`) is a
+  pure function of the shape and the triple: positions of an output row are
+  laid out OWq = OW rounded up to 4 (the padding columns are computed and not
+  stored), a row block's boh * OWq positions are cut into tiles of BM =
+  :func:`f32_bm` (boh * OWq), the lattice value of ``F32_BM`` that masks the
+  fewest positions, the larger on a tie (at OW = 56: boh 8 gives 448
+  positions, 7 tiles of 64); the grid is N x row blocks x position tiles x
+  channel tiles (each (BM, BN) a kernel for KW = 3, which loads a window
+  row once for the three taps, and one for any KW); the ring holds as many
+  stages (2-4) as leave room for two blocks per SM, and two stages must fit
+  227 KB. Ragged edges are masked,
+  not refused: boh, bco and bci need not divide OH, CO and CI. Where CI or
+  CO is not a multiple of 4 (the 16-byte copies) the wrapper stages
+  zero-padded copies of x and w (``ops/matmul.py::staged``) and cuts the
+  output back to CO. The snap moves bco and bci up to the lattice (from at
+  most the axis length), then lowers bci, then bco, then halves boh while
+  two stages do not fit; its stride-1 result is valid wherever two stages
+  of the smallest tile fit (at any shape with KW up to 100).
 
 Both kernels take stride 1 only. The validity result and the launch plan
 are cached per shape and configuration.
@@ -45,7 +62,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,18 +70,18 @@ import torch.nn.functional as F
 from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch
 from .matmul import (
     DTYPES,
+    F32_ALIGN,
+    F32_NARROW_SHARE,
+    F32_ROW_PAD,
     HBM_BYTES_S,
-    K_ALIGN,
     LAUNCH_S,
     NUM_SMS,
     PEAK_FLOPS,
     STEP_S,
-    WARP,
     dtype_name,
-    itemsize,
-    shrink,
-    snap_up,
-    thread_tile,
+    f32_thread_tile,
+    ring_stages,
+    staged,
     up_to,
 )
 
@@ -77,6 +94,11 @@ BF16_ROW_PAD = 8          # bf16 elements of padding per shared-memory row
 BF16_MAX_BUFFERS = 3      # the cp.async ring's depth where it fits
 # mma.sync's share of the wgmma peak assumed by the stand-in timer
 MMA_SYNC_SHARE = 0.5
+# the f32 CUDA-core kernel's lattice (csrc/conv2d.cu: CONV_F32_BM,
+# CONV_F32_BN, one instance per pair; bci at run time)
+F32_BM = (32, 64, 96, 128)
+F32_BN = (32, 64, 96, 128)
+F32_BCI = (8, 16, 32)
 
 
 def _declare(lib):
@@ -97,11 +119,62 @@ def conv_out_size(H: int, KH: int, stride: int, pad: int) -> int:
     return (H + 2 * pad - KH) // stride + 1
 
 
-def conv_smem_bytes(boh: int, bco: int, bci: int, OW: int, KW: int,
-                    itemsize: int) -> int:
-    """Shared memory of one float32 block: the input window [boh, OW + KW -
-    1, bci] and the weight slices [KW, bci, bco] in the input type."""
-    return (boh * (OW + KW - 1) * bci + KW * bci * bco) * itemsize
+def f32_row_width(OW: int) -> int:
+    """OWq: the positions an output row takes in the f32 kernel's layout,
+    OW rounded up to a multiple of 4 (csrc/conv2d.cu::f32_row_width)."""
+    return -(-OW // 4) * 4
+
+
+@lru_cache(maxsize=None)
+def f32_bm(positions: int) -> int:
+    """BM, the position tile of a row block of ``positions`` (boh * OWq):
+    the value of F32_BM whose tiles mask the fewest positions, the larger on
+    a tie."""
+    return min(F32_BM, key=lambda bm: (-positions % bm, -bm))
+
+
+def f32_window(bm: int, boh: int, OWq: int, KW: int) -> int:
+    """Window entries a position tile stages per step
+    (csrc/conv2d.cu::f32_window): its BM positions and KW - 1 more for each
+    output row they can span (at most boh)."""
+    return bm + min((bm + OWq - 2) // OWq + 1, boh) * (KW - 1)
+
+
+class F32Plan(NamedTuple):
+    """The f32 kernel's launch (module docstring)."""
+    bm: int           # positions per tile
+    bn: int           # channels per tile (bco)
+    row_width: int    # OWq
+    tiles: int        # position tiles per row block
+    row_blocks: int   # per image
+    window: int       # window entries per stage
+    stage_bytes: int  # window [window, bci + 4] + weights [KW, bci, bn], f32
+    stages: int       # the cp.async ring's depth
+    blocks: int       # the grid
+    busy: int         # blocks holding a position below OH (the others return)
+    threads: int      # per block: bm * bn / (8 * tn)
+    tn: int           # the thread tile is 8 x tn
+
+
+@lru_cache(maxsize=65536)
+def f32_plan(N: int, OH: int, OW: int, CO: int, KW: int, boh: int, bco: int,
+             bci: int) -> F32Plan:
+    """The f32 kernel's launch plan for output [N, OH, OW, CO], KW taps and
+    the configuration (boh, bco, bci): what :func:`conv2d` launches and
+    csrc/conv2d.cu computes again from the same arguments."""
+    OWq = f32_row_width(OW)
+    bm, bn = f32_bm(boh * OWq), bco
+    tiles = -(-boh * OWq // bm)
+    row_blocks = -(-OH // boh)
+    window = f32_window(bm, boh, OWq, KW)
+    stage_bytes = 4 * (window * (bci + F32_ROW_PAD) + KW * bci * bn)
+    last = (OH - (row_blocks - 1) * boh) * OWq  # live positions, last block
+    busy_tiles = (row_blocks - 1) * tiles + -(-last // bm)
+    tn = f32_thread_tile(bm, bn)
+    co_tiles = -(-CO // bn)
+    return F32Plan(bm, bn, OWq, tiles, row_blocks, window, stage_bytes,
+                   ring_stages(stage_bytes), N * row_blocks * tiles * co_tiles,
+                   N * busy_tiles * co_tiles, bm * bn // (8 * tn), tn)
 
 
 def bf16_conv_buffer_bytes(boh: int, bco: int, bci: int, OW: int,
@@ -160,18 +233,18 @@ def _bf16_why(OH, OW, CO, CI, KW, boh, bco, bci) -> Optional[str]:
     return None
 
 
-def _f32_why(OH, OW, CO, CI, KW, boh, bco, bci) -> Optional[str]:
-    for v, d, nm in ((boh, OH, "boh"), (bco, CO, "bco"), (bci, CI, "bci")):
-        if v > d:
-            return f"{nm}={v} out of range (dim {d})"
-        if d % v:
-            return f"{nm}={v} does not divide {d}"
-    if thread_tile(boh * OW, bco) is None:
-        return (f"threads: a {boh * OW} x {bco} tile needs more than "
-                f"256 threads of at most 8 x 8 outputs")
-    smem = conv_smem_bytes(boh, bco, bci, OW, KW, 4)
+def _f32_why(N, OH, OW, CO, KW, boh, bco, bci) -> Optional[str]:
+    if boh > OH:
+        return f"boh={boh} out of range (dim {OH})"
+    if bco not in F32_BN:
+        return f"bco={bco} not in {F32_BN}: the library's f32 channel tiles"
+    if bci not in F32_BCI:
+        return (f"bci={bci} not in {F32_BCI}: a power of two of 16-byte "
+                f"chunks per window row")
+    plan = f32_plan(N, OH, OW, CO, KW, boh, bco, bci)
+    smem = plan.stages * plan.stage_bytes
     if smem > MAX_SMEM_BYTES:
-        return f"shared memory {smem} B exceeds {MAX_SMEM_BYTES}"
+        return f"shared memory {smem} B (two stages) exceeds {MAX_SMEM_BYTES}"
     return None
 
 
@@ -191,8 +264,10 @@ def conv_config_is_valid(N: int, H: int, W: int, CO: int, CI: int,
     for v, nm in ((boh, "boh"), (bco, "bco"), (bci, "bci")):
         if v < 1:
             return False, f"{nm}={v} out of range"
-    why = (_bf16_why if dtype_name(dtype) == "bfloat16" else _f32_why)(
-        OH, OW, CO, CI, KW, boh, bco, bci)
+    if dtype_name(dtype) == "bfloat16":
+        why = _bf16_why(OH, OW, CO, CI, KW, boh, bco, bci)
+    else:
+        why = _f32_why(N, OH, OW, CO, KW, boh, bco, bci)
     return why is None, why
 
 
@@ -201,16 +276,15 @@ def snap_conv_config_to_hw(N: int, H: int, W: int, CO: int, CI: int,
                            boh: int, bco: int, bci: int,
                            dtype="bfloat16") -> Tuple[int, int, int]:
     """Snap a raw (boh, bco, bci) onto the kernel's lattice (module
-    docstring). The result is valid unless the stride is not 1 or (f32) an
-    axis has no divisor on the lattice that fits, and then it holds that
-    axis whole."""
+    docstring). The result is valid unless the stride is not 1 or not even
+    the smallest tile fits shared memory."""
     params = (N, H, W, CO, CI, KH, KW, stride, pad)
     OH = conv_out_size(H, KH, stride, pad)
     OW = conv_out_size(W, KW, stride, pad)
     if OH < 1 or OW < 1:
         return boh, bco, bci
+    boh = min(max(boh, 1), OH)
     if dtype_name(dtype) == "bfloat16":
-        boh = min(max(boh, 1), OH)
         bco, bci = up_to(bco, CO, BF16_BCO), up_to(bci, CI, BF16_BCI)
         while True:
             ok, why = conv_config_is_valid(*params, boh, bco, bci, dtype)
@@ -224,28 +298,17 @@ def snap_conv_config_to_hw(N: int, H: int, W: int, CO: int, CI: int,
                 bco -= 16
             else:
                 return boh, bco, bci
-    boh = snap_up(max(boh, 1), OH, 1)
-    bco = snap_up(bco, CO, WARP)
-    bci = snap_up(bci, CI, K_ALIGN)
-    while True:
-        ok, why = conv_config_is_valid(*params, boh, bco, bci, dtype)
-        if ok or why.startswith("stride"):
-            return boh, bco, bci
-        if why.startswith("shared"):
-            nci = shrink(bci, CI, K_ALIGN)
-            if nci != bci:
-                bci = nci
-                continue
-        big_oh = boh * OW >= bco
-        noh, nco = shrink(boh, OH, 1), shrink(bco, CO, WARP)
-        if big_oh and noh != boh:
-            boh = noh
-        elif nco != bco:
-            bco = nco
-        elif noh != boh:
-            boh = noh
+    bco, bci = up_to(bco, CO, F32_BN), up_to(bci, CI, F32_BCI)
+    while not conv_config_is_valid(*params, boh, bco, bci, dtype)[0]:
+        if bci > F32_BCI[0]:
+            bci = F32_BCI[F32_BCI.index(bci) - 1]
+        elif bco > F32_BN[0]:
+            bco = F32_BN[F32_BN.index(bco) - 1]
+        elif boh > 1:
+            boh = (boh + 1) // 2
         else:
-            return boh, bco, bci
+            break
+    return boh, bco, bci
 
 
 def predicted_conv_seconds(N: int, H: int, W: int, CO: int, CI: int,
@@ -259,8 +322,11 @@ def predicted_conv_seconds(N: int, H: int, W: int, CO: int, CI: int,
     to the warp grid, channels to bco, CI to bci) at the SM's share of
     MMA_SYNC_SHARE of the tensor-core peak, plus a microsecond per (kh,
     ci-block) step; or the staged traffic over HBM; plus a launch. f32: the
-    larger of the operations at the CUDA-core peak, the traffic and a
-    microsecond per step of each block."""
+    f32 matmul's wave model (``ops/matmul.py::predicted_seconds``) on the
+    launch plan: waves of one block per SM over the blocks holding live
+    positions, each block's [BM, BN] tile over K = KH x KW x CI padded to bci
+    at the SM's share of the CUDA-core peak (F32_NARROW_SHARE of it for an
+    8 x 4 thread tile); or the staged traffic over HBM; plus a launch."""
     name = dtype_name(dtype)
     OH = conv_out_size(H, KH, stride, pad)
     OW = conv_out_size(W, KW, stride, pad)
@@ -275,15 +341,15 @@ def predicted_conv_seconds(N: int, H: int, W: int, CO: int, CI: int,
             boh, bco, bci, OW, KW) + N * OH * OW * CO * 4)
         return max(math.ceil(blocks / NUM_SMS) * block_s,
                    bytes_moved / HBM_BYTES_S) + LAUNCH_S
-    size = itemsize(dtype)
-    blocks = N * (OH // boh) * (CO // bco)
-    steps = KH * (CI // bci)
-    flops_t = 2.0 * N * OH * OW * CO * KH * KW * CI / PEAK_FLOPS[name]
-    bytes_moved = (blocks * steps * conv_smem_bytes(boh, bco, bci, OW, KW,
-                                                    size)
+    plan = f32_plan(N, OH, OW, CO, KW, boh, bco, bci)
+    steps = KH * math.ceil(CI / bci)
+    eff = 1.0 if plan.tn == 8 else F32_NARROW_SHARE
+    block_s = (2.0 * plan.bm * plan.bn * KW * bci * steps
+               / (PEAK_FLOPS[name] / NUM_SMS) / eff)
+    bytes_moved = (plan.busy * steps * plan.stage_bytes
                    + N * OH * OW * CO * 4)
-    return max(flops_t, bytes_moved / HBM_BYTES_S,
-               blocks * steps * STEP_S / NUM_SMS)
+    return max(math.ceil(plan.busy / NUM_SMS) * block_s,
+               bytes_moved / HBM_BYTES_S) + LAUNCH_S
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -329,22 +395,31 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, pad: int,
         raise ValueError(f"invalid conv2d config ({boh}, {bco}, {bci}): {why}")
     OH, OW = conv_out_size(H, KH, 1, pad), conv_out_size(W, KW, 1, pad)
     b32 = bias.float().contiguous()
-    out = torch.empty(N, OH, OW, CO, dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), w.data_ptr(), b32.data_ptr(), out.data_ptr(), N, H,
-            W, CI, CO, KH, KW, pad, boh, bco, bci)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "float32":
+        # 16-byte copies: CI and CO up to multiples of 4, zero-padded
+        x, w = staged(x, w, F32_ALIGN)
+        CI, COp = w.shape[2], w.shape[3]
+        if COp != CO:
+            b32 = F.pad(b32, (0, COp - CO))
+    else:
+        COp = CO
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("x and w must be 16-byte aligned (cp.async)")
+    out = torch.empty(N, OH, OW, COp, dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), b32.data_ptr(), out.data_ptr(), N, H,
+            W, CI, COp, KH, KW, pad, boh, bco, bci)
     if name == "bfloat16":
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("x and w must be 16-byte aligned (cp.async)")
         err = LIB.load().conv2d_bf16_launch(
             *args, *warp_tile(boh * OW, bco),
             bf16_conv_buffers(boh, bco, bci, OW, KW), stream)
     else:
-        err = LIB.load().conv2d_f32_launch(*args, *thread_tile(boh * OW, bco),
+        plan = f32_plan(N, OH, OW, COp, KW, boh, bco, bci)
+        err = LIB.load().conv2d_f32_launch(*args, plan.bm, plan.stages,
                                            stream)
     check_launch(err, "conv2d")
     conv2d.launches += 1
-    return out
+    return out if COp == CO else out[..., :CO].contiguous()
 
 
 conv2d.launches = 0

@@ -63,10 +63,7 @@ import torch
 
 from .build import MAX_SMEM_BYTES, SM_SMEM_BYTES, CudaLibrary, check_launch
 
-MAX_THREADS = 256
-MICRO = (1, 2, 4, 8)
 WARP = 32
-K_ALIGN = 8
 NUM_SMS = 132
 # H100 SXM data-sheet peaks (dense) and memory rate; the per-step cost is
 # one k-step of one block (two barriers and a tile load), of which the
@@ -134,26 +131,6 @@ def library_instances(fn) -> List[Tuple[str, int, int]]:
             for i in range(n)]
 
 
-@lru_cache(maxsize=None)
-def thread_tile(rows: int, cols: int) -> Optional[Tuple[int, int]]:
-    """The micro-tile (TM, TN) each thread of a [rows, cols] output tile
-    computes: TM | rows, TN | cols, at most MAX_THREADS threads; the most
-    threads, then the squarest micro-tile, then the wider TN. None when
-    no micro-tile leaves few enough threads."""
-    best = None
-    for tm in MICRO:
-        for tn in MICRO:
-            if rows % tm or cols % tn:
-                continue
-            threads = (rows // tm) * (cols // tn)
-            if threads > MAX_THREADS:
-                continue
-            key = (threads, min(tm, tn), tn)
-            if best is None or key > best[0]:
-                best = (key, (tm, tn))
-    return None if best is None else best[1]
-
-
 def f32_thread_tile(bm: int, bn: int) -> int:
     """TN of the f32 instance's 8 x TN accumulator tile per thread
     (csrc/matmul.cu::F32Tile): 8, or 4 where 8 x 8 would leave a part of a
@@ -168,16 +145,22 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int, stages: int) -> int:
     return stages * (bm * (bk + F32_ROW_PAD) + bk * bn) * 4
 
 
-@lru_cache(maxsize=None)
-def f32_stages(bm: int, bn: int, bk: int) -> int:
-    """The f32 ring's depth: the most stages, up to F32_MAX_STAGES, that
+def ring_stages(stage_bytes: int) -> int:
+    """The depth of an f32 kernel's ring (the matmul's, the conv2d's) whose
+    stage takes ``stage_bytes``: the most stages, up to F32_MAX_STAGES, that
     leave room for two blocks in an SM's shared memory, and at least two
     (then one block per SM, if they fit 227 KB)."""
     s = F32_MAX_STAGES
-    while s > 2 and 2 * (matmul_smem_bytes(bm, bn, bk, s)
+    while s > 2 and 2 * (s * stage_bytes
                          + BLOCK_RESERVED_BYTES) > SM_SMEM_BYTES:
         s -= 1
     return s
+
+
+@lru_cache(maxsize=None)
+def f32_stages(bm: int, bn: int, bk: int) -> int:
+    """The f32 matmul ring's depth (:func:`ring_stages`)."""
+    return ring_stages(matmul_smem_bytes(bm, bn, bk, 1))
 
 
 def bf16_atoms(bm: int) -> Tuple[int, int]:
@@ -256,24 +239,6 @@ def config_is_valid(M: int, N: int, K: int, bm: int, bn: int, bk: int,
     return why is None, why
 
 
-def _divisors(n: int):
-    return [d for d in range(1, n + 1) if n % d == 0]
-
-
-def snap_up(v: int, dim: int, align: int) -> int:
-    """The smallest divisor of ``dim`` that is >= v and a multiple of
-    ``align``, else ``dim``."""
-    cands = [d for d in _divisors(dim) if d >= v and d % align == 0]
-    return min(cands) if cands else dim
-
-
-def shrink(v: int, dim: int, align: int) -> int:
-    """The next divisor of ``dim`` below v that is a multiple of
-    ``align`` (v itself when there is none)."""
-    cands = [d for d in _divisors(dim) if d < v and d % align == 0]
-    return max(cands) if cands else v
-
-
 def up_to(v: int, dim: int, choices) -> int:
     """The smallest of ``choices`` at least min(v, dim), else the largest."""
     want = min(max(v, 1), dim)
@@ -331,8 +296,10 @@ def staged(a: torch.Tensor, b: torch.Tensor, align: int):
     """(a, b) for a kernel that copies 16-byte rows (``align`` elements:
     ``TMA_ALIGN`` for bf16, ``F32_ALIGN`` for f32): the inputs themselves
     when K and N are multiples of ``align`` (no copy), else zero-padded
-    copies with K and N rounded up to multiples of it."""
-    K, N = b.shape
+    copies with K and N rounded up to multiples of it. K is a's last axis
+    and b's last but one, N b's last (so the conv2d's x [..., CI] and w
+    [KH, KW, CI, CO] stage as they are)."""
+    K, N = b.shape[-2:]
     pad_k, pad_n = -K % align, -N % align
     if pad_k:
         a = torch.nn.functional.pad(a, (0, pad_k))
