@@ -9,6 +9,9 @@
     python3 chip_smoke.py --only conv_f32  # phase 1, then the f32 conv2d's
                                        # part of phases 12 and 14; ends
                                        # {"partial": "conv_f32"}
+    python3 chip_smoke.py --only networks  # phases 1 and 21 alone, for work
+                                       # on the network-level evaluation;
+                                       # ends {"partial": "networks"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -185,9 +188,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
      device busy time (the union of kernel intervals), the idle share of
      the traced window and of the pretrain, each predictor fit and each
      selection phase, and the top kernels
-The last lines are a JSON object with phase 20's results, the card's name
-and power limit, a JSON object with each kernel's check and times, then
-{"ok": true, "device": {...}}.
+ 21. network-level evaluation through the command lines, in a temporary
+     VES_DATASET_ROOT, target "llvm -mcpu=skylake-avx512" (NET_TARGET):
+     cli.dump_network_info over the whole grid (108 entries; resnet_50
+     [1, 224] has 26 tasks); both committed corpora split into per-task
+     record files (29: resnet-18's 8 workload keys include 5 of
+     resnet-50's 26); cli.make_dataset --hold-out resnet-50 must keep
+     exactly resnet-18's 3 tasks outside the resnet-50 grid (48 records)
+     and --preset batch-size-1 every file whose key is in its grid;
+     cli.train_model on phase 17's dataset (within-task split 0.9, seed 0)
+     once per model of NET_MODELS at the default widths (MLP 256, LSTM
+     and MHA 256, TabNet 128 with n_d = n_a = 64 and 7 steps, 100 epochs
+     for the sequence models), each model's wall time, seconds per epoch
+     and six test metrics printed, all finite; the MLP's segment sums
+     through the kernel (forward launches == sums, backward == optimiser
+     steps, no plain call), none in the sequence models;
+     cli.eval_model_on_dataset --networks resnet_50 for each pickle: top-1
+     and top-5 scores in (0, 1], the MLP's through the forward kernel with
+     no plain call; the same mlp.pkl on the CPU (the plain version) picks
+     the same top-5 schedules in every task, gives the same scores, and
+     predicts within 1e-4 of max(1, max |score|); cli.estimate_network_
+     latency on the resnet-50 corpus prints 9.400 ms with 0 tasks missing
+     and equals the sum of weight x best cost computed here, which
+     cli.search's default estimate must equal too; the phase's seconds
+     are printed against its budget (NET_BUDGET_S)
+The last lines are JSON objects with phase 20's and phase 21's results,
+the card's name and power limit, a JSON object with each kernel's check
+and times, then {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -1426,6 +1453,7 @@ SEG = dict(hidden=256, batch=512, dim=164)
 SEG_TOL = 2e-6        # of max |out|, float64 plain version, spans <= 36 rows
 SEG_TOL_LONG = 2e-5   # one segment of 5,000 rows
 RESNET50_LOG = os.path.join(ROOT, "result/corpus/resnet_50-B1-llvm.json")
+RESNET18_LOG = os.path.join(ROOT, "result/corpus/resnet_18-B1-llvm.json")
 CONV_POOL_LOG = os.path.join(ROOT,
                              "result/conv2d_4k_chip/pool_conv2d_4k.json.gz")
 # phase 17's bands for the mlp on the test split. The JAX package's scripts
@@ -1495,10 +1523,11 @@ class CallCounts:
         self._hook.remove()
 
 
-def segment_phases(dev, peaks, kernels):
+def segment_phases(dev, peaks, kernels, shared=None):
     """Phases 15-19: the segment-sum kernels against their plain versions,
     their times, and the cost-model training paths that run them. Returns
-    the kernel's result record."""
+    the kernel's result record; phase 17's dataset goes into ``shared``
+    (for phase 21)."""
     from vae_extent_search_tpu_torch.cli import (
         eval_model_on_dataset,
         make_dataset,
@@ -1689,6 +1718,8 @@ def segment_phases(dev, peaks, kernels):
             ds = make_dataset.main([RESNET50_LOG, "--out-file", "ds.pkl"])
         feat_s = time.perf_counter() - t
         n_rec = len(ds)
+        if shared is not None:
+            shared["resnet50_ds"] = ds
         log(f"[17] make_dataset: {n_rec} records, {len(ds.tasks())} tasks "
             f"(min sample size 48) featurised in {feat_s:.2f} s = "
             f"{1e3 * feat_s / n_rec:.2f} s per 1,000 records (host)")
@@ -1928,6 +1959,341 @@ def segment_phases(dev, peaks, kernels):
                             "found": r["found"], "phase": r["phase"],
                             "train_size": r["train_size"], "wall_s": ps_s}},
     }
+
+
+# phase 21: the network workflow's target (the committed corpora's), the
+# sequence models' default widths and the limit of the phase's seconds
+NET_TARGET = "llvm -mcpu=skylake-avx512"
+NET_MODELS = ("mlp", "lstm", "mha", "tabnet", "random")
+NET_BUDGET_S = 150.0
+
+
+def split_by_task(logs, folder):
+    """The per-task layout of measure_records: one file per workload key,
+    named clean_name((workload_key, "llvm")).json, records in log order.
+    Returns the paths."""
+    from vae_extent_search_tpu_torch.cli.common import clean_name
+
+    groups = {}
+    for path in logs:
+        with open(path) as f:
+            for line in f:
+                if line.strip():
+                    key = json.loads(line)["i"][0][0]
+                    groups.setdefault(key, []).append(
+                        line.rstrip("\n") + "\n")
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for key, lines in groups.items():
+        p = os.path.join(folder, clean_name((key, "llvm")) + ".json")
+        with open(p, "w") as f:
+            f.writelines(lines)
+        paths.append(p)
+    return paths
+
+
+def network_phases(dev, kernels, dataset=None):
+    """Phase 21: the network-level evaluation workflow through the command
+    lines, in a temporary VES_DATASET_ROOT. ``dataset``: phase 17's
+    resnet-50 Dataset (made here when None). Returns its results and the
+    segment-sum launches of its path."""
+    import pickle
+
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        dump_network_info,
+        estimate_network_latency,
+        eval_model_on_dataset,
+        make_dataset,
+        search,
+        train_model,
+    )
+    from vae_extent_search_tpu_torch.models import load_model_pickle
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.models import variants as mv
+    from vae_extent_search_tpu_torch.models.embedding import embed_for_model
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import iter_records
+    from vae_extent_search_tpu_torch.records.networks import (
+        build_network_keys,
+        get_network_tasks,
+    )
+
+    seg = tss.segment_sum
+    t_phase = time.perf_counter()
+    out, fits = {}, {}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+        seg.backward_launches = 0
+
+    def others():
+        return {n: k.launches for n, k in kernels.items()
+                if n != "segment_sum" and k.launches}
+
+    def quiet(fn, *a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a)
+        return res, buf.getvalue()
+
+    # each model's fit_info, as fit_base leaves it
+    fit_orig = {cls: cls.fit_base for cls in (sm.MLPModelInternal,
+                                              mv.SequenceModelInternal)}
+
+    def recording(cls):
+        def fit_base(self, *a, **kw):
+            r = fit_orig[cls](self, *a, **kw)
+            fits[getattr(self, "arch", "mlp")] = dict(self.fit_info)
+            return r
+        return fit_base
+
+    env_before = os.environ.get("VES_DATASET_ROOT")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d):
+        os.environ["VES_DATASET_ROOT"] = os.path.join(d, "dataset")
+        common.set_dataset_root()
+        try:
+            # 1. the task tables of the whole grid
+            t = time.perf_counter()
+            dumped, _ = quiet(dump_network_info.main, ["--target", NET_TARGET])
+            grid = build_network_keys()
+            log(f"[21] dump_network_info --target '{NET_TARGET}': "
+                f"{len(dumped)} of {len(grid)} grid entries, "
+                f"{sum(dumped.values())} tasks, in "
+                f"{time.perf_counter() - t:.2f} s")
+            if len(dumped) != 108 or len(grid) != 108 or \
+                    dumped[("resnet_50", (1, 224))] != 26:
+                raise RuntimeError(f"[21] dumped {len(dumped)} entries: "
+                                   f"{dumped}")
+            # 2. the per-task record layout of both corpora
+            files = split_by_task([RESNET50_LOG, RESNET18_LOG],
+                                  common.MEASURE_RECORD_FOLDER)
+            r50 = {r.inp.task.workload_key for r in iter_records(RESNET50_LOG)}
+            r18 = {r.inp.task.workload_key for r in iter_records(RESNET18_LOG)}
+            log(f"[21] measure_records: {len(files)} per-task files (the "
+                f"resnet-50 corpus's {len(r50)} tasks and the resnet-18 "
+                f"corpus's {len(r18)}, {len(r50 & r18)} of them shared)")
+            if len(files) != len(r50 | r18) or r50 != {
+                    t_.workload_key for t_ in get_network_tasks(
+                        "resnet_50", 1, 224, NET_TARGET)[0]}:
+                raise RuntimeError(f"[21] {len(files)} record files")
+            # 3. hold-out and preset
+            t = time.perf_counter()
+            ho, text = quiet(make_dataset.main, files + [
+                "--hold-out", "resnet-50", "--min-sample-size", "1",
+                "--target", NET_TARGET, "--out-file", "holdout.pkl"])
+            ho_keys = {t_.workload_key for t_ in ho.tasks()}
+            log(f"[21] make_dataset --hold-out resnet-50: {len(ho.tasks())} "
+                f"tasks, {len(ho)} records, in {time.perf_counter() - t:.2f} "
+                f"s (featurising every file, host)")
+            held = set()
+            for b in (1, 4, 8):
+                for size in (224, 240, 256):
+                    held |= {t_.workload_key for t_ in get_network_tasks(
+                        "resnet_50", b, size, NET_TARGET)[0]}
+            if len(ho.tasks()) != 3 or len(ho) != 48 or ho_keys & held \
+                    or ho_keys != r18 - held:
+                raise RuntimeError(f"[21] hold-out: {len(ho.tasks())} tasks, "
+                                   f"{len(ho)} records")
+            pre, text = quiet(make_dataset.main, files + [
+                "--preset", "batch-size-1", "--target", NET_TARGET,
+                "--out-file", "preset.pkl"])
+            b1 = set()
+            for name, (b, size) in grid:
+                if b == 1:
+                    b1 |= {t_.workload_key for t_ in get_network_tasks(
+                        name, b, size, NET_TARGET)[0]}
+            want = sum(1 for k in r50 | r18 if k in b1)
+            kept = int(re.search(r"preset batch-size-1: (\d+) files",
+                                 text).group(1))
+            log(f"[21] make_dataset --preset batch-size-1: {kept} files kept "
+                f"of {len(files)} ({want} in the preset grid); {len(pre)} "
+                f"records in {len(pre.tasks())} tasks of >= 48")
+            if kept != want:
+                raise RuntimeError(f"[21] preset kept {kept} of {want}")
+
+            # 4. the five models at their default widths
+            if dataset is None:
+                dataset, _ = quiet(make_dataset.main,
+                                   [RESNET50_LOG, "--out-file", "ds.pkl"])
+            else:
+                with open("ds.pkl", "wb") as f:
+                    pickle.dump(dataset, f)
+            metrics, train = {}, {}
+            for cls in fit_orig:
+                cls.fit_base = recording(cls)
+            for name in NET_MODELS:
+                reset()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with CallCounts(sm, tss) as counts:
+                    res, _ = quiet(train_model.main, [
+                        "--dataset", "ds.pkl", "--models", name,
+                        "--seed", "0"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                metrics[name] = res[name]
+                info = fits.get(name, {})
+                ep = info.get("epochs", 0)
+                train[name] = dict(wall_s=wall, epochs=ep,
+                                   loop_s=info.get("loop_seconds"),
+                                   s_per_epoch=(info["loop_seconds"] / ep
+                                                if ep else None),
+                                   forward_launches=seg.launches,
+                                   backward_launches=seg.backward_launches,
+                                   steps=counts.steps)
+                log(f"[21] train_model --models {name}: {wall:.2f} s wall "
+                    f"(split, fit, test metrics, pickle)"
+                    + (f"; fit {info['loop_seconds']:.2f} s over {ep} "
+                       f"epochs = {info['loop_seconds'] / ep:.4f} s per "
+                       f"epoch" if ep else "")
+                    + "; " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in res[name].items())
+                    + f"; segment-sum launches {seg.launches} forward, "
+                    f"{seg.backward_launches} backward, {counts.steps} "
+                    f"optimiser steps, {counts.plain} plain calls")
+                if not all(np.isfinite(v) for v in res[name].values()):
+                    raise RuntimeError(f"[21] {name}: metrics {res[name]}")
+                if counts.plain or others():
+                    raise RuntimeError(f"[21] {name}: plain calls "
+                                       f"{counts.plain}, launches {others()}")
+                if name == "mlp" and not (
+                        seg.launches == counts.sums > 0
+                        and seg.backward_launches == counts.steps > 0):
+                    raise RuntimeError(f"[21] mlp: {seg.launches} forward "
+                                       f"launches for {counts.sums} sums, "
+                                       f"{seg.backward_launches} backward "
+                                       f"for {counts.steps} steps")
+                if name in ("lstm", "mha", "tabnet") and (
+                        counts.sums or seg.launches
+                        or ep != 100 or counts.steps != 100):
+                    raise RuntimeError(f"[21] {name}: {ep} epochs, "
+                                       f"{counts.steps} steps, "
+                                       f"{seg.launches} segment sums")
+            for cls, fn in fit_orig.items():
+                cls.fit_base = fn
+            seq_width = {n: (load_model_pickle(f"{n}.pkl", device="cpu")
+                             .hidden_dim) for n in ("lstm", "mha", "tabnet")}
+            if seq_width != {"lstm": 256, "mha": 256, "tabnet": 128}:
+                raise RuntimeError(f"[21] widths {seq_width}")
+
+            # 5. the network scores of every model
+            scores, eval_s = {}, {}
+            for name in NET_MODELS:
+                reset()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with CallCounts(sm, tss) as counts:
+                    sc, _ = quiet(eval_model_on_dataset.main, [
+                        "--model", f"{name}.pkl", "--networks", "resnet_50",
+                        "--target", NET_TARGET, "--cache-dir", "eval_cache"])
+                torch.cuda.synchronize()
+                eval_s[name] = time.perf_counter() - t
+                scores[name] = sc["resnet_50"]
+                log(f"[21] eval_model_on_dataset --networks resnet_50, "
+                    f"{name}: top-1 {scores[name][1]:.4f}, top-5 "
+                    f"{scores[name][5]:.4f}, {eval_s[name]:.2f} s wall"
+                    + (" (the network's dataset built from the per-file "
+                       "feature caches, then cached)"
+                       if name == NET_MODELS[0] else "")
+                    + f"; segment-sum launches {seg.launches} for "
+                    f"{counts.sums} sums, {counts.plain} plain calls")
+                if not all(0 < v <= 1 for v in scores[name].values()):
+                    raise RuntimeError(f"[21] {name}: scores {scores[name]}")
+                if counts.plain or others() or seg.backward_launches:
+                    raise RuntimeError(f"[21] {name}: plain {counts.plain}, "
+                                       f"launches {others()}")
+                if name == "mlp":
+                    eval_launches = seg.launches
+                    if not seg.launches == counts.sums > 0:
+                        raise RuntimeError(
+                            f"[21] mlp eval: {seg.launches} launches for "
+                            f"{counts.sums} sums")
+            # the same pickle on the CPU (the plain segment sum): the same
+            # picks and scores, predictions within 1e-4 of max(1, max |score|)
+            # (float32 sums in another order)
+            cpu_scores, _ = quiet(eval_model_on_dataset.main, [
+                "--model", "mlp.pkl", "--networks", "resnet_50", "--target",
+                NET_TARGET, "--cache-dir", "eval_cache", "--device", "cpu"])
+            cpu_scores = cpu_scores["resnet_50"]
+            tasks, _ = eval_model_on_dataset.network_task_datasets(
+                "resnet_50", NET_TARGET, "eval_cache")
+            on_card = load_model_pickle("mlp.pkl", device="cuda")
+            on_cpu = load_model_pickle("mlp.pkl", device="cpu")
+            max_err, same_picks, scale = 0.0, 0, 1.0
+            for ds_, task in tasks:
+                feats = embed_for_model(
+                    on_cpu, [np.asarray(f, np.float32)
+                             for f in ds_.features[task]], task.workload_key)
+                pg = on_card.predict_on_features(feats)
+                pc = on_cpu.predict_on_features(feats)
+                max_err = max(max_err, float(np.abs(pg - pc).max()))
+                scale = max(scale, float(np.abs(pc).max()))
+                same_picks += list(np.argsort(-pg)[:5]) == \
+                    list(np.argsort(-pc)[:5])
+            log(f"[21] mlp.pkl on the CPU (plain segment sum): top-1 "
+                f"{cpu_scores[1]:.6f}, top-5 {cpu_scores[5]:.6f} against the "
+                f"card's {scores['mlp'][1]:.6f}, {scores['mlp'][5]:.6f}; "
+                f"predictions within {max_err:.2e} (max |score| {scale:.3g}); "
+                f"the same top-5 picks in "
+                f"{same_picks} of {len(tasks)} tasks")
+            if cpu_scores != scores["mlp"] or max_err > 1e-4 * scale or \
+                    same_picks != len(tasks):
+                raise RuntimeError(f"[21] card and CPU differ: {cpu_scores} "
+                                   f"vs {scores['mlp']}, err {max_err}, "
+                                   f"picks {same_picks}/{len(tasks)}")
+
+            # 6. latency estimates
+            reset()
+            (total, missing), text = quiet(estimate_network_latency.main, [
+                RESNET50_LOG, "--target", NET_TARGET])
+            best = {}
+            for rec in iter_records(RESNET50_LOG):
+                if rec.res.error_no == 0:
+                    k = rec.inp.task.workload_key
+                    best[k] = min(best.get(k, float("inf")),
+                                  rec.res.mean_cost)
+            tasks_, weights = get_network_tasks("resnet_50", 1, 224,
+                                                NET_TARGET)
+            own = 0.0
+            for task, w in zip(tasks_, weights):
+                own += best[task.workload_key] * w
+            (d_ms, r_ms), text2 = quiet(search.main, [RESNET50_LOG,
+                                                      "--target", NET_TARGET])
+            log(f"[21] {text.strip()}; the sum of weight x best cost "
+                f"{own * 1e3:.6f} ms; search: {text2.strip()}")
+            if not (missing == 0 and f"{total * 1e3:.3f}" == "9.400"
+                    and total == own == d_ms and r_ms >= d_ms) or others() \
+                    or seg.launches:
+                raise RuntimeError(f"[21] estimate {total} ({missing} "
+                                   f"missing), own {own}, search {d_ms}, "
+                                   f"{r_ms}")
+        finally:
+            for cls, fn in fit_orig.items():
+                cls.fit_base = fn
+            if env_before is None:
+                os.environ.pop("VES_DATASET_ROOT", None)
+            else:
+                os.environ["VES_DATASET_ROOT"] = env_before
+            common.set_dataset_root()
+    secs = time.perf_counter() - t_phase
+    log(f"[21] phase 21: {secs:.1f} s (budget {NET_BUDGET_S:.0f} s)")
+    if secs > NET_BUDGET_S:
+        log(f"[21] over its budget of {NET_BUDGET_S:.0f} s")
+    launches = {"forward": train["mlp"]["forward_launches"] + eval_launches,
+                "backward": train["mlp"]["backward_launches"]}
+    return {"seconds": secs, "grid_entries": len(dumped),
+            "hold_out": {"tasks": len(ho.tasks()), "records": len(ho)},
+            "preset_files": kept, "metrics": metrics, "train": train,
+            "scores": {n: {str(k): v for k, v in s_.items()}
+                       for n, s_ in scores.items()},
+            "eval_s": eval_s,
+            "mlp_cpu_vs_card": {"max_abs_err": max_err,
+                                "same_top5_tasks": same_picks,
+                                "tasks": len(tasks)},
+            "estimate_ms": total * 1e3, "search_ms": [d_ms * 1e3, r_ms * 1e3],
+            "segment_sum_launches": launches}
 
 
 def kernel_wrappers():
@@ -2470,11 +2836,13 @@ def head_phases(dev, peaks, fh, th):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("head", "arms", "conv_f32"),
+    ap.add_argument("--only", choices=("head", "arms", "conv_f32",
+                                       "networks"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
-                         "part of phases 12 and 14; each ends with "
+                         "part of phases 12 and 14; networks: phases 1 and "
+                         "21 (the network-level evaluation); each ends with "
                          "{\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2584,6 +2952,13 @@ def main():
         print(json.dumps({"kernels": [record]}, default=float), flush=True)
         print(json.dumps({"partial": "conv_f32"}), flush=True)
         return
+    if args.only == "networks":
+        net = network_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"networks": net}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "networks"}), flush=True)
+        return
     if args.only == "arms":
         arms = arms_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -2598,13 +2973,22 @@ def main():
         print(json.dumps({"kernels": records}, default=float), flush=True)
         print(json.dumps({"partial": "head"}), flush=True)
         return
+    shared = {}
     records += [gbdt_phases(dev, peaks, fh, th),
                 *tuner_phases(dev, peaks, kernels),
-                segment_phases(dev, peaks, kernels)]
+                segment_phases(dev, peaks, kernels, shared)]
     arms = arms_phases(dev, kernels)
+    net = network_phases(dev, kernels, shared.get("resnet50_ds"))
+    # the segment sum's launches on phase 21's path join its record
+    seg_rec = records[-1]
+    seg_rec["launches_by_path"]["21"] = net["segment_sum_launches"]
+    for way in ("forward", "backward"):
+        seg_rec[f"{way}_launches"] += net["segment_sum_launches"][way]
+        seg_rec["launches"] += net["segment_sum_launches"][way]
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"arms": arms}, default=float), flush=True)
+    print(json.dumps({"networks": net}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "vae_extent_search_tpu_torch"
+TARGET = "llvm -mcpu=skylake-avx512"
 
 IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -37,16 +38,24 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.tune_kernel", "ops.segment_sum", "models.segment",
          "models.embedding", "features.per_store", "data.dataset",
          "cli.make_dataset", "cli.train_model", "cli.eval_model_on_dataset",
-         "utils", "utils.misc", "cli.trace_summary", "cli.matmul_sweep"}}
+         "utils", "utils.misc", "cli.trace_summary", "cli.matmul_sweep",
+         "records.networks", "records.tenset_workloads",
+         "records.dispatcher", "search.platforms", "search.analytic_hf",
+         "utils.schedule_selector", "models.variants", "cli.common",
+         "cli.dump_network_info", "cli.estimate_network_latency",
+         "cli.search"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 56, (missing, mods)
+assert not missing and len(mods) >= 69, (missing, mods)
 """
 
 
-def _run(args, **kw):
+def _run(args, env_extra=None, cwd=ROOT, **kw):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "2"  # pytest workers run side by side
-    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+    env.update(env_extra or {})
+    if cwd != ROOT:
+        env["PYTHONPATH"] = ROOT
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300, **kw)
 
 
@@ -100,3 +109,97 @@ def test_matmul_sweep_needs_cuda():
     proc = _run(["-m", f"{PKG}.cli.matmul_sweep", "--dims", "64"])
     assert proc.returncode != 0 and proc.stdout == ""
     assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def _network_root(tmp_path):
+    """A dataset root holding resnet_50's task pickle and its 26 per-task
+    record files (the first 48 records each), and a tiny MLP pickle."""
+    import json
+    import pickle
+
+    import numpy as np
+
+    from vae_extent_search_tpu_torch.cli import common
+    from vae_extent_search_tpu_torch.records.networks import (
+        get_network_tasks,
+    )
+
+    root = tmp_path / "ds"
+    (root / "network_info").mkdir(parents=True)
+    (root / "measure_records").mkdir()
+    tasks, weights = get_network_tasks("resnet_50", 1, 224, TARGET)
+    name = common.clean_name((("resnet_50", [1, 224]), TARGET))
+    with open(root / "network_info" / f"{name}.task.pkl", "wb") as f:
+        pickle.dump(([t.to_record() for t in tasks], weights), f)
+    groups = {}
+    with open(os.path.join(ROOT, "result/corpus/resnet_50-B1-llvm.json")) \
+            as f:
+        for line in f:
+            groups.setdefault(json.loads(line)["i"][0][0], []).append(line)
+    for key, lines in groups.items():
+        path = root / "measure_records" / (
+            common.clean_name((key, "llvm")) + ".json")
+        path.write_text("".join(lines[:48]))
+    rng = np.random.default_rng(0)
+    dense = lambda i, o: {  # noqa: E731
+        "w": rng.normal(0, 0.1, (i, o)).astype(np.float32),
+        "b": np.zeros(o, np.float32)}
+    with open(tmp_path / "mlp.pkl", "wb") as f:
+        pickle.dump({"config": {"in_dim": 174, "hidden_dim": 8},
+                     "params": {"segment_encoder": [dense(174, 8),
+                                                    dense(8, 8)],
+                                "l0": [dense(8, 8)], "l1": [dense(8, 8)],
+                                "decoder": dense(8, 1)},
+                     "fea_norm_vec": np.ones(174, np.float32),
+                     "use_workload_embedding": True,
+                     "workload_embed_total_dim": 10}, f)
+    return root
+
+
+
+def test_network_entry_points_need_cuda_unless_told_cpu(tmp_path):
+    """The network workflow's entry points that run a model
+    (train_model with a sequence model, eval_model_on_dataset --networks)
+    refuse without CUDA unless given --device cpu, and never move to the
+    CPU on their own; the host-only ones (dump_network_info,
+    estimate_network_latency, search) take no device."""
+    import pickle
+
+    root = _network_root(tmp_path)
+    env = {"VES_DATASET_ROOT": str(root)}
+    corpus = os.path.join(ROOT, "result/corpus/resnet_18-B1-llvm.json")
+    ev = ["-m", f"{PKG}.cli.eval_model_on_dataset", "--model",
+          str(tmp_path / "mlp.pkl"), "--networks", "resnet_50", "--target",
+          TARGET, "--cache-dir", str(tmp_path / "cache")]
+    mk = ["-m", f"{PKG}.cli.make_dataset", corpus, "--min-sample-size", "8",
+          "--out-file", str(tmp_path / "ds.pkl")]
+    assert _run(mk, env_extra=env).returncode == 0
+    tr = ["-m", f"{PKG}.cli.train_model", "--dataset",
+          str(tmp_path / "ds.pkl"), "--models", "lstm"]
+    if not torch.cuda.is_available():
+        for cmd in (ev, tr):
+            proc = _run(cmd, env_extra=env, cwd=tmp_path)
+            assert proc.returncode != 0
+            assert "torch.cuda.is_available() is False" in proc.stderr
+        assert not (tmp_path / "lstm.pkl").exists()
+        assert not (tmp_path / "cache").exists()
+    proc = _run(ev + ["--device", "cpu"], env_extra=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "=== resnet_50 (26 tasks) ===" in proc.stdout
+    assert "top-5 score" in proc.stdout
+    proc = _run(tr + ["--device", "cpu"], env_extra=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(tmp_path / "lstm.pkl", "rb") as f:
+        assert pickle.load(f)["arch"] == "lstm"
+    for cmd, want in (
+            (["-m", f"{PKG}.cli.dump_network_info", "--networks",
+              "resnet_18", "--target", TARGET], "all_tasks.pkl: "),
+            (["-m", f"{PKG}.cli.estimate_network_latency",
+              os.path.join(ROOT, "result/corpus/resnet_50-B1-llvm.json"),
+              "--target", TARGET], "estimated latency 9.400 ms (0 tasks"),
+            (["-m", f"{PKG}.cli.search", corpus, "--network", "resnet_18",
+              "--target", TARGET], "default_search estimated latency")):
+        proc = _run(cmd, env_extra={**env, "CUDA_VISIBLE_DEVICES": ""},
+                    cwd=tmp_path)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert want in proc.stdout

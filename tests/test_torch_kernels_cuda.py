@@ -719,3 +719,73 @@ def test_segment_sum_refuses_what_the_kernel_does_not_take(dev):
     got = tss.segment_sum(wide[:, ::2], offs)
     assert torch.allclose(got, tss.segment_sum(wide[:, ::2].contiguous(), offs))
     assert tss.segment_sum(x, offs[:1]).shape == (0, 4)
+
+
+def test_network_evaluation_through_the_kernel_equals_plain(dev, tmp_path,
+                                                           monkeypatch):
+    """eval_model_on_dataset --networks resnet_50 with one MLP pickle: on
+    the card every segment sum launches the forward kernel; on the CPU
+    (the plain version) the same pickle gives the same network scores,
+    the same top-5 picks per task, and predictions within 1e-4 of
+    max(1, max |score|) (float32 sums in another order). The 26 per-task
+    files hold the first 48 records of the committed resnet-50 corpus."""
+    import json
+    import os
+
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        dump_network_info,
+        eval_model_on_dataset,
+    )
+    from vae_extent_search_tpu_torch.models import load_model_pickle
+    from vae_extent_search_tpu_torch.models import segment as ts
+    from vae_extent_search_tpu_torch.models.embedding import embed_for_model
+
+    target = "llvm -mcpu=skylake-avx512"
+    corpus = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "result/corpus/resnet_50-B1-llvm.json")
+    monkeypatch.chdir(tmp_path)
+    for name in ("DATASET_ROOT", "NETWORK_INFO_FOLDER",
+                 "MEASURE_RECORD_FOLDER"):
+        monkeypatch.setattr(common, name, getattr(common, name))
+    common.set_dataset_root(str(tmp_path / "ds"))
+    dump_network_info.main(["--target", target, "--networks", "resnet_50"])
+    groups = {}
+    with open(corpus) as f:
+        for line in f:
+            groups.setdefault(json.loads(line)["i"][0][0], []).append(line)
+    os.makedirs(common.MEASURE_RECORD_FOLDER)
+    for key, lines in groups.items():
+        with open(os.path.join(common.MEASURE_RECORD_FOLDER,
+                               common.clean_name((key, "llvm")) + ".json"),
+                  "w") as f:
+            f.writelines(lines[:48])
+    model = ts.MLPModelInternal(in_dim=174, hidden_dim=64, device="cpu")
+    model.params = ts.init_segment_mlp_params(np.random.default_rng(3), 174,
+                                              64)
+    model.fea_norm_vec = np.full(174, 2.0, np.float32)
+    model.use_workload_embedding, model.workload_embed_total_dim = True, 10
+    model.save("mlp.pkl")
+
+    argv = ["--model", "mlp.pkl", "--networks", "resnet_50", "--target",
+            target, "--cache-dir", "cache"]
+    f0 = tss.segment_sum.launches
+    on_card = eval_model_on_dataset.main(argv)["resnet_50"]
+    torch.cuda.synchronize()
+    launches = tss.segment_sum.launches - f0
+    on_cpu = eval_model_on_dataset.main(argv + ["--device", "cpu"])
+    assert tss.segment_sum.launches - f0 == launches >= 26
+    assert on_cpu["resnet_50"] == on_card
+    assert all(0 < v <= 1 for v in on_card.values())
+    tasks, _ = eval_model_on_dataset.network_task_datasets("resnet_50",
+                                                           target, "cache")
+    assert len(tasks) == 26
+    gpu = load_model_pickle("mlp.pkl", device="cuda")
+    cpu = load_model_pickle("mlp.pkl", device="cpu")
+    for ds, task in tasks:
+        feats = embed_for_model(cpu, [np.asarray(x, np.float32)
+                                      for x in ds.features[task]],
+                                task.workload_key)
+        pg, pc = gpu.predict_on_features(feats), cpu.predict_on_features(feats)
+        assert np.abs(pg - pc).max() <= 1e-4 * max(1.0, np.abs(pc).max())
+        assert list(np.argsort(-pg)[:5]) == list(np.argsort(-pc)[:5])

@@ -3,7 +3,8 @@
 
 Parity: reference scripts/train_model.py:33-175: load dataset pickle(s),
 split (within_task / by_task / by_target), train the requested models
-("mlp", "mlp@lambdaRank", "gbdt", "xgb", "lgb"/"lgbm", "random"), report
+("mlp", "mlp@lambdaRank", "gbdt", "xgb", "lgb"/"lgbm", "random", and
+the sequence models "lstm", "mha", "tabnet"), report
 weighted RMSE / R2 / pairwise accuracy / MAPE / peak@1 / peak@5 per model,
 save <name>.pkl.
 
@@ -11,8 +12,7 @@ save <name>.pkl.
         --dataset dataset.pkl --models mlp
 
 Runs on CUDA by default; ``--device cpu`` runs on the CPU. Asking for CUDA
-on a host without a GPU is an error. The lstm/mha/tabnet sequence models
-(``models/variants.py``) are not ported yet and raise.
+on a host without a GPU is an error.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ..models.gbdt import (
     RandomModelInternal,
 )
 from ..models.segment import MLPModelInternal
+from ..models.variants import SequenceModelInternal
 
 METRIC_NAMES = ["RMSE", "R^2", "pairwise comparision accuracy", "mape",
                 "average peak score@1", "average peak score@5"]
@@ -87,8 +88,8 @@ def make_model(spec: str, in_dim: int, device="cuda", seed: int = 0):
         return GBDTModelInternal(
             backend="xgb" if kind == "xgb" else "auto", device=device)
     if kind in ("lstm", "mha", "tabnet"):
-        raise NotImplementedError(
-            f"model {kind!r} (models/variants.py) is not ported yet")
+        return SequenceModelInternal(arch=kind, in_dim=in_dim, seed=seed,
+                                     device=device)
     raise ValueError(f"unknown model spec {spec}")
 
 

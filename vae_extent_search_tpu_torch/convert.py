@@ -5,6 +5,9 @@ Both packages store a dense layer as ``{"w": [in, out], "b": [out]}``
 dicts; the port keeps that layout, so this module is the only place a
 layout would be mapped and the mapping is the identity. Arrays cross as
 numpy, which is how tests hand the same parameters to both packages.
+The sequence models (``models/variants.py``) cross as a pair: their
+parameter tree and TabNet's batch-norm running statistics (None for the
+LSTM and the MHA).
 """
 
 from __future__ import annotations
@@ -50,3 +53,17 @@ def clone_params(tree: Any, requires_grad: bool = False) -> Any:
     """Detached copies of every leaf (never aliases the input)."""
     return tree_map(
         lambda t: t.detach().clone().requires_grad_(requires_grad), tree)
+
+
+def variant_from_numpy(params: Any, bn_state: Any = None, device="cpu"):
+    """A sequence model's JAX-layout (params, bn_state) as numpy (or jax)
+    arrays -> the port's tensor trees on ``device``."""
+    return (params_from_numpy(params, device),
+            None if bn_state is None else params_from_numpy(bn_state, device))
+
+
+def variant_to_numpy(params: Any, bn_state: Any = None):
+    """The port's (params, bn_state) -> float32 numpy trees in the JAX
+    layout (what ``SequenceModelInternal.save`` pickles)."""
+    return (params_to_numpy(params),
+            None if bn_state is None else params_to_numpy(bn_state))

@@ -1,5 +1,6 @@
 """Model layers of the port: dense MLPs, the VAE, the cost predictor, the
-GBDT cost models and the per-store segment models."""
+GBDT cost models, the per-store segment models and the LSTM / MHA /
+TabNet sequence models."""
 
 
 def load_model_pickle(path: str, device="cuda"):
@@ -7,8 +8,8 @@ def load_model_pickle(path: str, device="cuda"):
     eval scripts take a model file of whatever family train_model
     produced. Tree internals pickle themselves; the segment models save
     dict blobs distinguished by their keys (the JAX package's layout, so
-    its MLP and SegmentVAE pickles load here too) and are placed on
-    ``device``."""
+    its MLP, SegmentVAE and sequence-model pickles load here too) and
+    are placed on ``device``."""
     import pickle
 
     with open(path, "rb") as f:
@@ -20,9 +21,9 @@ def load_model_pickle(path: str, device="cuda"):
 
         return SegmentVAEModelInternal.load(path, device=device)
     if "arch" in blob:
-        raise NotImplementedError(
-            "the lstm/mha/tabnet sequence models (models/variants.py) are "
-            "not ported yet")
+        from .variants import SequenceModelInternal
+
+        return SequenceModelInternal.load(path, device=device)
     from .segment import MLPModelInternal
 
     return MLPModelInternal.load(path, device=device)

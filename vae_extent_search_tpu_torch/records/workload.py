@@ -1,6 +1,5 @@
 """Workload registry: workload_key <-> compute definition (a copy of
-``vae_extent_search_tpu/records/workload.py`` without the TenSet
-hash-key inference).
+``vae_extent_search_tpu/records/workload.py``).
 
 Parity target: python/tvm/auto_scheduler/workload_registry.py:55-165
 (register_workload, make_workload_key, workload_key_to_tensors) and
@@ -77,9 +76,14 @@ def workload_key_to_tensors(workload_key: str) -> List[Tensor]:
     elif name in WORKLOAD_HASH_REGISTRY:
         result = WORKLOAD_HASH_REGISTRY[name](args)
     else:
-        # the JAX package infers TenSet hash workloads here
-        # (records/tenset_workloads.py); the port has no copy of it yet
-        raise KeyError(f"workload '{name}' is not registered")
+        from .tenset_workloads import infer_tenset_workload
+
+        result = infer_tenset_workload(name, args)
+        if result is None:
+            raise KeyError(
+                f"workload '{name}' is not registered and could not be "
+                f"inferred from its argument signature"
+            )
     if isinstance(result, Tensor):
         result = [result]
     return list(result)

@@ -14,13 +14,13 @@ factor 64, auto-unroll candidates {0,16,64,512}).
 A copy of ``vae_extent_search_tpu/search/sketch.py`` with the State-level
 Python GA only (``SketchPolicy.sample_initial_population``,
 ``evolutionary_search``, ``make_states``): the JAX package's native (C++)
-record-level GA, ``make_state_records`` which drives it, and the policy's
+record-level GA and ``make_state_records`` which drives it have no
+counterpart here, so ``make_states`` always runs the Python loop; the
 measure-round methods (``continue_search_one_round`` and its eps-greedy
-pick) have no counterpart here, so ``make_states`` always runs the Python
-loop. Only the CPU-target rules are kept (the self-tuning path samples
-its schedule space from an ``llvm`` task); the GPU-target rules (thread
-binding, shared-memory cache reads, cross-thread reduction) are not
-ported, and a GPU task is refused.
+pick) serve ``records/dispatcher.py``. Only the CPU-target rules are kept
+(the self-tuning path samples its schedule space from an ``llvm`` task);
+the GPU-target rules (thread binding, shared-memory cache reads,
+cross-thread reduction) are not ported, and a GPU task is refused.
 """
 
 from __future__ import annotations
@@ -1064,11 +1064,13 @@ class SketchPolicy:
             "evolutionary_search_mutation_prob": 0.85,
             "sample_init_min_population": 50,
             "max_innermost_split_factor": 64,
+            "eps_greedy": 0.05,
         }
         self.params.update(params or {})
         self.rng = random.Random(seed)
         self.verbose = verbose
         self.sketches = generate_sketches(task, seed)
+        self.measured_state_keys = set()
 
     def sample_initial_population(self, num: Optional[int] = None) -> List[State]:
         num = num or self.params["sample_init_min_population"]
@@ -1172,6 +1174,56 @@ class SketchPolicy:
 
         best = sorted(heap, key=lambda t: -t[0])
         return [st for _, _, st in best]
+
+    def _measured_key(self, st: State) -> str:
+        """Canonical dedup key: the bound state's printed form (candidate
+        states arrive both bound and unbound depending on the path)."""
+        try:
+            return self.task.compute_dag.infer_bound(st).to_str()
+        except Exception:
+            return st.to_str()
+
+    def continue_search_one_round(self, num_measure: int) -> List[State]:
+        """One search round: sample init population -> evolutionary search
+        -> eps-greedy pick (SketchPolicyNode::ContinueSearchOneRound,
+        sketch_policy.cc:242-283; measurement happens in the caller)."""
+        init_pop = self.sample_initial_population()
+        if not init_pop:
+            return []
+        best_states = self.evolutionary_search(init_pop, num_measure * 2)
+        random_states = self.sample_initial_population(num_measure)
+        picked = self.pick_states_eps_greedy(best_states, random_states,
+                                             num_measure)
+        out = []
+        for st in picked:
+            try:
+                out.append(self.task.compute_dag.infer_bound(st))
+            except Exception:
+                continue
+        return out
+
+    def pick_states_eps_greedy(self, best_states: List[State],
+                               random_states: List[State],
+                               num_measure: int) -> List[State]:
+        """Interleave best and eps-greedy random picks, dedup vs measured
+        (sketch_policy.cc:626-667)."""
+        num_rand = int(num_measure * self.params["eps_greedy"])
+        inputs = []
+        bi = ri = 0
+        while len(inputs) < num_measure:
+            if len(inputs) < num_measure - num_rand and bi < len(best_states):
+                st = best_states[bi]
+                bi += 1
+            elif ri < len(random_states):
+                st = random_states[ri]
+                ri += 1
+            else:
+                break
+            key = self._measured_key(st)
+            if key not in self.measured_state_keys:
+                self.measured_state_keys.add(key)
+                inputs.append(st)
+        return inputs
 
 
 def _make_pool_policy(task, evo_population, min_population, seed):
