@@ -12,6 +12,10 @@
     python3 chip_smoke.py --only networks  # phases 1 and 21 alone, for work
                                        # on the network-level evaluation;
                                        # ends {"partial": "networks"}
+    python3 chip_smoke.py --only online  # phases 1 and 22 alone, for work on
+                                       # the online tuning arm and the
+                                       # measurement layer; ends
+                                       # {"partial": "online"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -212,7 +216,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and equals the sum of weight x best cost computed here, which
      cli.search's default estimate must equal too; the phase's seconds
      are printed against its budget (NET_BUDGET_S)
-The last lines are JSON objects with phase 20's and phase 21's results,
+ 22. the online SegmentVAE tuning arm and the measurement layer, in a
+     temporary VES_DATASET_ROOT: cli.tune_vae at its defaults (conv2d_layer
+     1 x 14 x 14 x 128 -> 128, 3 x 3, on "llvm -mcpu=skylake-avx512", 2,000
+     candidates, measure size 64, 10 phases, VAE 200 epochs, regression
+     300, --select model, --runner analytic, noise 0.2, seed 2023) on the
+     card: a finite best equal to the log's minimum over its min(640,
+     unique states) records; every segment sum through the forward kernel
+     (forward launches == sums == 200 + 10 x 300 + 9 model selections),
+     every optimiser step through the backward kernel, no plain call; the
+     wall time of the GA, the featurising, the pretrain and each phase's
+     select / measure / fit; the last phase's regression encodes every
+     candidate on the card within 1e-4 of max(1, max |mu|) of the same
+     parameters on the CPU (the plain version), with the same top-64 picks
+     over the unmeasured ones. Then the collection pipeline on that task:
+     cli.dump_programs --n-states 2000, cli.measure_programs --runner
+     analytic_hf --noise 0.3 (flop_repeat_count costs in every record),
+     cli.remeasure --runner replay reproducing every record bit for bit,
+     cli.print_programs --idx 0. Then 64 of the candidates priced by
+     AnalyticRunner(noise=0.2) directly, through LocalServiceMeasureContext,
+     through runner_from_spec("service:...") against a tracker and server
+     it starts, and through CommandRunner with cli.toy_timer: the same
+     costs bit for bit (the timer's at its 9 significant digits) and error
+     codes. Then AnalyticRunner(fidelity="high") on 256 records of
+     result/conv2d_4k_chip/pool_conv2d_4k.json.gz (CUDA target; platforms
+     "auto" and "t4"): every cost finite, at least 90% distinct, is_gpu
+     store rows present. The phase's seconds are printed against its
+     budget (ONLINE_BUDGET_S)
+The last lines are JSON objects with phase 20's, 21's and 22's results,
 the card's name and power limit, a JSON object with each kernel's check
 and times, then {"ok": true, "device": {...}}.
 """
@@ -2296,6 +2327,306 @@ def network_phases(dev, kernels, dataset=None):
             "segment_sum_launches": launches}
 
 
+# phase 22: the collection pipeline's and the runners' sizes, and the limit
+# of the phase's seconds
+ONLINE = dict(n_states=2000, runner_states=64, hf_records=256,
+              hf_platforms=("auto", "t4"), pick=64, tol=1e-4)
+ONLINE_BUDGET_S = 180.0
+
+
+def online_phases(dev, kernels):
+    """Phase 22: the online SegmentVAE tuning arm (cli.tune_vae at its
+    defaults), the collection pipeline through its command lines, the
+    runners that must agree, and the high-fidelity GPU branch. Returns its
+    results and the segment-sum launches of the tuning loop. On a CPU
+    device (a dry run of the phase) no kernel may launch."""
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        dump_programs,
+        measure_programs,
+        print_programs,
+        remeasure,
+        tune_vae,
+    )
+    from vae_extent_search_tpu_torch.convert import (
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from vae_extent_search_tpu_torch.features.per_store import (
+        get_per_store_features_from_states,
+    )
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import (
+        SearchTask,
+        load_records,
+        make_workload_key,
+    )
+    from vae_extent_search_tpu_torch.search import measure as tm
+    from vae_extent_search_tpu_torch.search.analytic_hf import F_IS_GPU
+    from vae_extent_search_tpu_torch.search.measure_service import (
+        LocalServiceMeasureContext,
+        MeasureServer,
+        MeasureTracker,
+    )
+
+    seg = tss.segment_sum
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def others():
+        return {n: k.launches for n, k in kernels.items()
+                if n != "segment_sum" and k.launches}
+
+    def quiet(fn, *a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        return res, buf.getvalue()
+
+    env_before = os.environ.get("VES_DATASET_ROOT")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d):
+        os.environ["VES_DATASET_ROOT"] = os.path.join(d, "dataset")
+        common.set_dataset_root()
+        try:
+            # 1. the tuning arm at its defaults
+            for k in kernels.values():
+                k.launches = 0
+            seg.backward_launches = 0
+            details = {}
+            sync()
+            t = time.perf_counter()
+            with CallCounts(sm, tss) as counts:
+                (best, wall), text = quiet(
+                    tune_vae.main, ["--log-file", "tune_vae.json",
+                                    "--device", dev.type], details=details)
+            sync()
+            tune_s = time.perf_counter() - t
+            fwd, bwd = seg.launches, seg.backward_launches
+            for line in text.strip().splitlines():
+                log(f"[22] {line}")
+            secs = details["seconds"]
+            n_phases = len(secs["phases"])
+            log(f"[22] cli.tune_vae: {tune_s:.2f} s wall; GA "
+                f"{secs['generate']:.2f} s, featurising "
+                f"{secs['featurise']:.2f} s, pretrain {secs['pretrain']:.2f}"
+                f" s; per phase (select / measure / fit, s): "
+                + ", ".join(f"{p['select']:.3f} / {p['measure']:.3f} / "
+                            f"{p['fit']:.3f}" for p in secs["phases"]))
+            log(f"[22] segment sums called {counts.sums}, forward launches "
+                f"{fwd}; optimiser steps {counts.steps}, backward launches "
+                f"{bwd}; plain versions run {counts.plain}; other kernels "
+                f"{others()}")
+            recs = load_records("tune_vae.json")
+            ok = [r.res.costs[0] for r in recs if r.res.error_no == 0]
+            n_unique = len(details["states"])
+            want_recs = min(640, n_unique)
+            # one encode per VAE step, per regression step and per model
+            # selection (every phase but the first); one backward per step
+            want_steps = 200 + n_phases * 300
+            if not (np.isfinite(best) and len(recs) == want_recs
+                    and ok and best == min(ok) and n_phases == 10
+                    and counts.steps == want_steps
+                    and counts.sums == want_steps + n_phases - 1):
+                raise RuntimeError(
+                    f"[22] best {best}, {len(recs)} records of {want_recs}, "
+                    f"log minimum {min(ok) if ok else None}, {n_phases} "
+                    f"phases, {counts.sums} sums, {counts.steps} steps")
+            if on_card and not (fwd == counts.sums and bwd == counts.steps
+                                and counts.plain == 0):
+                raise RuntimeError(f"[22] a segment sum missed the kernel: "
+                                   f"{fwd} forward launches for "
+                                   f"{counts.sums} sums, {bwd} backward for "
+                                   f"{counts.steps} steps, {counts.plain} "
+                                   "plain calls")
+            if others() or (not on_card and (fwd or bwd)):
+                raise RuntimeError(f"[22] launches {fwd}, {bwd}, {others()}")
+            # the last phase's regression on every candidate: the kernel
+            # (the card) against the plain version (the CPU), same parameters
+            p = details["pred_params"]
+            args = [details[k] for k in ("rows", "seg_ids", "offsets")]
+            n_seg = details["n_seg"]
+            mu_g, s_g = tune_vae.encode_candidates(p, *args, n_seg)
+            mu_c, s_c = tune_vae.encode_candidates(
+                params_from_numpy(params_to_numpy(p)),
+                *[a.cpu() for a in args], n_seg)
+            err = float(np.abs(mu_g - mu_c).max())
+            scale = max(1.0, float(np.abs(mu_c).max()))
+            rest = np.flatnonzero(~details["measured"])
+            picks_g = rest[np.argsort(-s_g[rest])][:ONLINE["pick"]]
+            picks_c = rest[np.argsort(-s_c[rest])][:ONLINE["pick"]]
+            log(f"[22] the last regression on all {n_seg} candidates "
+                f"({args[0].shape[0]} rows): mu on the card within "
+                f"{err:.2e} of the CPU's (max |mu| {scale:.3g}); top "
+                f"{ONLINE['pick']} of {len(rest)} unmeasured picks "
+                f"{'equal' if list(picks_g) == list(picks_c) else 'differ'}")
+            if err > ONLINE["tol"] * scale or list(picks_g) != list(picks_c):
+                raise RuntimeError(f"[22] card and CPU encodes differ: "
+                                   f"{err} (scale {scale})")
+            out["tune_vae"] = {
+                "best": best, "wall_s": tune_s, "records": len(recs),
+                "unique_states": n_unique, "seconds": secs,
+                "sums": counts.sums, "steps": counts.steps,
+                "forward_launches": fwd, "backward_launches": bwd,
+                "mu_max_abs_err": err, "mu_scale": scale,
+                "same_top_picks": True}
+            launches = {"forward": fwd, "backward": bwd}
+            task = SearchTask(make_workload_key(*tune_vae.DEFAULT_WORKLOAD),
+                              "llvm -mcpu=skylake-avx512")
+            # bound as a record's replay binds them (the GA's states may
+            # hold stages whose ranges a compute_at reset)
+            states = [task.compute_dag.infer_bound(st) for st in
+                      details["states"][:ONLINE["runner_states"]]]
+            del details, p, args
+
+            # 2. the collection pipeline on the same task
+            t = time.perf_counter()
+            dumped, _ = quiet(dump_programs.main, [
+                "--workload-key", task.workload_key, "--target", task.target,
+                "--n-states", str(ONLINE["n_states"])])
+            dump_s = time.perf_counter() - t
+            (pool, n_pool), = dumped.items()
+            t = time.perf_counter()
+            measured, _ = quiet(measure_programs.main, [
+                "--runner", "analytic_hf", "--noise", "0.3"])
+            measure_s = time.perf_counter() - t
+            (mlog, n_meas), = measured.items()
+            t = time.perf_counter()
+            n_rep, _ = quiet(remeasure.main, [
+                pool, "replayed.json", "--runner", "replay",
+                "--replay-log", mlog])
+            replay_s = time.perf_counter() - t
+            mrecs, rrecs = load_records(mlog), load_records("replayed.json")
+            reps = tm.flop_repeat_count(task.compute_dag.flop_ct)
+            # replay looks a state up by its printed bound form: records
+            # whose states print alike replay the last such record's costs
+            printed = [r.inp.recover_state().to_str() for r in mrecs]
+            last = {k: i for i, k in enumerate(printed)}
+            shared = sum(last[k] != i for i, k in enumerate(printed))
+            same = [a.inp.step_records == b.inp.step_records
+                    and (b.res.costs, b.res.error_no)
+                    == (mrecs[last[k]].res.costs, mrecs[last[k]].res.error_no)
+                    for a, b, k in zip(mrecs, rrecs, printed)]
+            own = sum(a.res.costs == b.res.costs
+                      for a, b in zip(mrecs, rrecs))
+            shown, text = quiet(print_programs.main, [mlog, "--idx", "0"])
+            log(f"[22] dump_programs --n-states {ONLINE['n_states']}: "
+                f"{n_pool} states in {dump_s:.2f} s; measure_programs "
+                f"--runner analytic_hf --noise 0.3: {n_meas} records, "
+                f"{reps} costs each, in {measure_s:.2f} s; remeasure "
+                f"--runner replay: {n_rep} records in {replay_s:.2f} s, "
+                f"{sum(same)} equal bit for bit to the record they replay "
+                f"({own} to their own: {shared} print as a later record "
+                f"does); print_programs --idx 0: "
+                f"{len(text.splitlines())} lines")
+            if not (n_pool == n_meas == n_rep == len(mrecs) == len(rrecs)
+                    == sum(same) > 0
+                    and all(len(r.res.costs) == reps for r in mrecs)
+                    and len(shown) == 1
+                    and text.startswith("=== program 0  cost ")
+                    and shown[0][0].to_str(True) in text):
+                raise RuntimeError(f"[22] pipeline: {n_pool}, {n_meas}, "
+                                   f"{n_rep}, {sum(same)} equal")
+            out["pipeline"] = {"states": n_pool, "dump_s": dump_s,
+                               "measure_s": measure_s, "replay_s": replay_s,
+                               "costs_per_record": reps,
+                               "replay_equal": sum(same),
+                               "replay_equal_own": own,
+                               "printed_like_a_later_record": shared}
+
+            # 3. four routes to the same analytic costs
+            t = time.perf_counter()
+            direct = tm.AnalyticRunner(noise=0.2).run(task, states)
+            with LocalServiceMeasureContext() as ctx:
+                local = ctx.runner.run(task, states)
+            tracker = MeasureTracker()
+            server = MeasureServer(tm.AnalyticRunner(noise=0.2), key="h100",
+                                   tracker_addr=tracker.addr)
+            try:
+                host, port = tracker.addr
+                spec = f"service:h100@{host}:{port}"
+                service = tm.runner_from_spec(spec).run(task, states)
+            finally:
+                server.close()
+                tracker.close()
+            env_pp = os.environ.get("PYTHONPATH")
+            os.environ["PYTHONPATH"] = ROOT
+            try:
+                command = tm.CommandRunner(
+                    f"{sys.executable} -m "
+                    "vae_extent_search_tpu_torch.cli.toy_timer",
+                    timeout=300).run(task, states)
+            finally:
+                if env_pp is None:
+                    os.environ.pop("PYTHONPATH")
+                else:
+                    os.environ["PYTHONPATH"] = env_pp
+            runners_s = time.perf_counter() - t
+
+            def key(results, wire=False):
+                return [([float(f"{c:.9g}") for c in r.costs] if wire
+                         else r.costs, r.error_no) for r in results]
+
+            agree = {"local_service": key(local) == key(direct),
+                     "service_spec": key(service) == key(direct),
+                     "command": key(command) == key(direct, wire=True)}
+            n_ok = sum(r.error_no == 0 for r in direct)
+            log(f"[22] {len(states)} states, AnalyticRunner(noise=0.2) "
+                f"directly ({n_ok} measured) against "
+                f"LocalServiceMeasureContext, runner_from_spec('{spec}') and "
+                f"CommandRunner with cli.toy_timer (its lines hold 9 "
+                f"significant digits): {agree}, in {runners_s:.2f} s")
+            if not all(agree.values()) or n_ok != len(states):
+                raise RuntimeError(f"[22] runners disagree: {agree}")
+            out["runners"] = {"states": len(states), "agree": agree,
+                              "seconds": runners_s}
+
+            # 4. the high-fidelity GPU branch on committed CUDA records
+            t = time.perf_counter()
+            hrecs = load_records(CONV_POOL_LOG,
+                                 max_lines=ONLINE["hf_records"])
+            htask = hrecs[0].inp.task
+            hstates = [r.inp.recover_state(infer_bound=True) for r in hrecs]
+            feats = get_per_store_features_from_states(hstates, htask)
+            gpu_rows = sum(int((f[:, F_IS_GPU] > 0.5).sum()) for f in feats)
+            out["hf_gpu"] = {"records": len(hrecs), "is_gpu_rows": gpu_rows}
+            for plat in ONLINE["hf_platforms"]:
+                res = tm.AnalyticRunner(fidelity="high", noise=0.0,
+                                        platform=plat).run(htask, hstates)
+                costs = [r.costs[0] for r in res if r.error_no == 0]
+                distinct = len(set(costs))
+                log(f"[22] AnalyticRunner(fidelity='high', platform="
+                    f"'{plat}') on {len(hrecs)} records of {htask.target!r}"
+                    f" ({gpu_rows} is_gpu store rows): {len(costs)} "
+                    f"finite, {distinct} distinct")
+                if not (len(costs) == len(hrecs) and gpu_rows > 0
+                        and all(np.isfinite(costs))
+                        and distinct >= 0.9 * len(costs)):
+                    raise RuntimeError(f"[22] hf {plat}: {len(costs)} "
+                                       f"costs, {distinct} distinct")
+                out["hf_gpu"][plat] = {"finite": len(costs),
+                                       "distinct": distinct}
+            out["hf_gpu"]["seconds"] = time.perf_counter() - t
+        finally:
+            if env_before is None:
+                os.environ.pop("VES_DATASET_ROOT", None)
+            else:
+                os.environ["VES_DATASET_ROOT"] = env_before
+            common.set_dataset_root()
+    secs = time.perf_counter() - t_phase
+    log(f"[22] phase 22: {secs:.1f} s (budget {ONLINE_BUDGET_S:.0f} s)")
+    if secs > ONLINE_BUDGET_S:
+        log(f"[22] over its budget of {ONLINE_BUDGET_S:.0f} s")
+    out["seconds"] = secs
+    out["segment_sum_launches"] = launches
+    return out
+
+
 def kernel_wrappers():
     """The five kernels' wrappers by name (each counts its launches)."""
     from vae_extent_search_tpu_torch.ops import conv2d as oc
@@ -2837,12 +3168,14 @@ def head_phases(dev, peaks, fh, th):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
-                                       "networks"),
+                                       "networks", "online"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
                          "part of phases 12 and 14; networks: phases 1 and "
-                         "21 (the network-level evaluation); each ends with "
+                         "21 (the network-level evaluation); online: phases "
+                         "1 and 22 (the online tuning arm and the "
+                         "measurement layer); each ends with "
                          "{\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2952,6 +3285,13 @@ def main():
         print(json.dumps({"kernels": [record]}, default=float), flush=True)
         print(json.dumps({"partial": "conv_f32"}), flush=True)
         return
+    if args.only == "online":
+        online = online_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"online": online}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "online"}), flush=True)
+        return
     if args.only == "networks":
         net = network_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -2979,16 +3319,19 @@ def main():
                 segment_phases(dev, peaks, kernels, shared)]
     arms = arms_phases(dev, kernels)
     net = network_phases(dev, kernels, shared.get("resnet50_ds"))
-    # the segment sum's launches on phase 21's path join its record
+    online = online_phases(dev, kernels)
+    # the segment sum's launches on phase 21's and 22's paths join its record
     seg_rec = records[-1]
-    seg_rec["launches_by_path"]["21"] = net["segment_sum_launches"]
-    for way in ("forward", "backward"):
-        seg_rec[f"{way}_launches"] += net["segment_sum_launches"][way]
-        seg_rec["launches"] += net["segment_sum_launches"][way]
+    for tag, res in (("21", net), ("22", online)):
+        seg_rec["launches_by_path"][tag] = res["segment_sum_launches"]
+        for way in ("forward", "backward"):
+            seg_rec[f"{way}_launches"] += res["segment_sum_launches"][way]
+            seg_rec["launches"] += res["segment_sum_launches"][way]
 
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"arms": arms}, default=float), flush=True)
     print(json.dumps({"networks": net}, default=float), flush=True)
+    print(json.dumps({"online": online}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

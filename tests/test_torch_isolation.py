@@ -43,9 +43,11 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "records.dispatcher", "search.platforms", "search.analytic_hf",
          "utils.schedule_selector", "models.variants", "cli.common",
          "cli.dump_network_info", "cli.estimate_network_latency",
-         "cli.search"}}
+         "cli.search", "search.measure_service", "cli.dump_programs",
+         "cli.measure_programs", "cli.remeasure", "cli.print_programs",
+         "cli.toy_timer", "cli.tune_vae"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 69, (missing, mods)
+assert not missing and len(mods) >= 76, (missing, mods)
 """
 
 
@@ -203,3 +205,30 @@ def test_network_entry_points_need_cuda_unless_told_cpu(tmp_path):
                     cwd=tmp_path)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert want in proc.stdout
+
+
+def test_tune_vae_needs_cuda_unless_told_cpu(tmp_path):
+    """The online tuning arm puts its rows on CUDA by default and refuses
+    without a card; the collection command lines do host work only and
+    take no device."""
+    cli = ["-m", f"{PKG}.cli.tune_vae", "--n-candidates", "16",
+           "--measure-size", "4", "--n-phases", "1", "--log-file",
+           str(tmp_path / "tune.json")]
+    if not torch.cuda.is_available():
+        proc = _run(cli)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+        assert not (tmp_path / "tune.json").exists()
+    for mod in ("dump_programs", "measure_programs", "remeasure",
+                "print_programs"):
+        proc = _run(["-m", f"{PKG}.cli.{mod}", "--help"])
+        assert proc.returncode == 0 and "--device" not in proc.stdout, mod
+    # the toy timer, run on its own, loads neither jax nor the JAX package
+    code = ("import sys, runpy; sys.argv = ['toy_timer', 'in', 'out']\n"
+            "try:\n    runpy.run_module('" + PKG + ".cli.toy_timer', "
+            "run_name='__main__')\nexcept FileNotFoundError:\n    pass\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'vae_extent_search_tpu')]\n"
+            "assert not bad, bad")
+    proc = _run(["-c", code], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

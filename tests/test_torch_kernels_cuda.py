@@ -789,3 +789,65 @@ def test_network_evaluation_through_the_kernel_equals_plain(dev, tmp_path,
         pg, pc = gpu.predict_on_features(feats), cpu.predict_on_features(feats)
         assert np.abs(pg - pc).max() <= 1e-4 * max(1.0, np.abs(pc).max())
         assert list(np.argsort(-pg)[:5]) == list(np.argsort(-pc)[:5])
+
+
+def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
+    """A small cli.tune_vae run on the card: every segment sum of the loop
+    launches the forward kernel (one per VAE and regression step and per
+    model selection) and every optimiser step the backward kernel, with no
+    plain version run; the last phase's regression, moved to the CPU with
+    the same parameters (plain versions), encodes the candidates within
+    1e-4 of max(1, max |mu|) and picks the same top 16 unmeasured ones."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from vae_extent_search_tpu_torch.cli import tune_vae
+    from vae_extent_search_tpu_torch.convert import params_to_numpy
+    from vae_extent_search_tpu_torch.models import segment as ts
+    from vae_extent_search_tpu_torch.records import make_workload_key
+    from vae_extent_search_tpu_torch.records.task import SearchTask
+
+    task = SearchTask(make_workload_key(
+        "conv2d_layer", (1, 14, 14, 32, 32, 3, 3, [1, 1], [1, 1])),
+        "llvm -mcpu=skylake-avx512")
+    calls = {"sums": 0, "plain": 0, "steps": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ts, "segment_sum_rows", counted("sums", ts.segment_sum_rows))
+    for name in ("segment_sum_plain", "segment_sum_grad_plain"):
+        mp.setattr(tss, name, counted("plain", getattr(tss, name)))
+    hook = register_optimizer_step_post_hook(
+        lambda *a: calls.__setitem__("steps", calls["steps"] + 1))
+    f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
+    details = {}
+    try:
+        best, _ = tune_vae.run_tuning(
+            task, n_candidates=96, measure_size=16, n_phases=3,
+            vae_epochs=20, reg_epochs=30, select="model",
+            log_file=str(tmp_path / "tune.json"), verbose=False,
+            device="cuda", details=details)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        mp.undo()
+    fwd = tss.segment_sum.launches - f0
+    bwd = tss.segment_sum.backward_launches - b0
+    assert np.isfinite(best) and calls["plain"] == 0
+    assert calls["steps"] == bwd == 20 + 3 * 30
+    assert calls["sums"] == fwd == 20 + 3 * 30 + 2
+    p = details["pred_params"]
+    args = [details[k] for k in ("rows", "seg_ids", "offsets")]
+    mu_g, s_g = tune_vae.encode_candidates(p, *args, details["n_seg"])
+    mu_c, s_c = tune_vae.encode_candidates(
+        params_from_numpy(params_to_numpy(p)), *[a.cpu() for a in args],
+        details["n_seg"])
+    assert tss.segment_sum.launches - f0 == fwd + 1
+    assert np.abs(mu_g - mu_c).max() <= 1e-4 * max(1.0, np.abs(mu_c).max())
+    rest = np.flatnonzero(~details["measured"])
+    assert list(rest[np.argsort(-s_g[rest])][:16]) == \
+        list(rest[np.argsort(-s_c[rest])][:16])

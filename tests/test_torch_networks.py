@@ -77,7 +77,7 @@ def roots(tmp_path, monkeypatch):
     sys.modules["common"] = jcommon      # what the JAX scripts import
     for mod in (common, jcommon):
         for name in ("DATASET_ROOT", "NETWORK_INFO_FOLDER",
-                     "MEASURE_RECORD_FOLDER"):
+                     "MEASURE_RECORD_FOLDER", "TO_MEASURE_PROGRAM_FOLDER"):
             monkeypatch.setattr(mod, name, getattr(mod, name))
     common.set_dataset_root(str(tmp_path / "port"))
     jroot = str(tmp_path / "jax")
@@ -258,10 +258,12 @@ class _StepMeasurer:
         return out
 
 
-def test_apply_history_best_or_sample_equal(monkeypatch):
+def test_apply_history_best_or_sample_equal(monkeypatch, tmp_path):
     """A hit returns the recorded best without sampling; a miss samples
     the same states (Python's random, seed 2023 of the sketch policy)
-    and then holds the same best cost."""
+    and then holds the same best cost. Without a measurer both measure
+    the samples with the analytic runner and append the same records to
+    their log files (apart from the timestamps)."""
     # the JAX package takes its native GA when its library is built: the
     # port holds the Python loop's samples
     monkeypatch.setattr(jsketch.SketchPolicy, "_evolutionary_search_native",
@@ -278,8 +280,25 @@ def test_apply_history_best_or_sample_equal(monkeypatch):
     assert tm.seen == jm.seen == []
     assert ta.best_cost("llvm", miss) == ja.best_cost("llvm", miss)
     assert tm.seen == jm.seen and len(tm.seen) == 4
-    with pytest.raises(NotImplementedError, match="measurer"):
-        tdisp.ApplyHistoryBestOrSample([]).query("llvm", miss)
+    logs = [str(tmp_path / f"{side}.json") for side in ("jax", "port")]
+    jd = jdisp.ApplyHistoryBestOrSample([], log_file=logs[0])
+    td = tdisp.ApplyHistoryBestOrSample([], log_file=logs[1])
+    jr, tr = jd.query("llvm", miss), td.query("llvm", miss)
+    assert tr is not None and tr.res.costs == jr.res.costs
+    assert tserde.record_to_json(tr).split('"r"')[0] == \
+        jserde.record_to_json(jr).split('"r"')[0]
+
+    def untimed(path):
+        out = []
+        for line in open(path):
+            rec = json.loads(line)
+            rec["r"][3] = 0
+            out.append(rec)
+        return out
+
+    assert untimed(logs[1]) == untimed(logs[0])
+    assert len(untimed(logs[1])) == 8
+    assert all(r["r"][1] == 0 for r in untimed(logs[1]))
 
 
 @pytest.mark.parametrize("pair", [

@@ -14,14 +14,18 @@ import os
 import pickle
 
 DATASET_ROOT = NETWORK_INFO_FOLDER = MEASURE_RECORD_FOLDER = ""
+TO_MEASURE_PROGRAM_FOLDER = ""
 
 
 def set_dataset_root(root=None):
     """Point the folders at ``root``, or at ``$VES_DATASET_ROOT`` (default
     ``dataset``) when ``root`` is None."""
-    global DATASET_ROOT, NETWORK_INFO_FOLDER, MEASURE_RECORD_FOLDER
+    global DATASET_ROOT, NETWORK_INFO_FOLDER, MEASURE_RECORD_FOLDER, \
+        TO_MEASURE_PROGRAM_FOLDER
     DATASET_ROOT = root or os.environ.get("VES_DATASET_ROOT", "dataset")
     NETWORK_INFO_FOLDER = os.path.join(DATASET_ROOT, "network_info")
+    TO_MEASURE_PROGRAM_FOLDER = os.path.join(DATASET_ROOT,
+                                             "to_measure_programs")
     MEASURE_RECORD_FOLDER = os.path.join(DATASET_ROOT, "measure_records")
 
 

@@ -9,8 +9,8 @@ decode_workload_key flattening.
 
 A copy of ``vae_extent_search_tpu/records/dispatcher.py``. On a miss,
 ``ApplyHistoryBestOrSample`` samples through the port's ``SketchPolicy``
-(its CPU-target rules) and measures with the measurer it is given: the
-JAX package's analytic default runner is not ported (ROADMAP queue 1 #3).
+(its CPU-target rules) and measures with the measurer it is given, or
+with the analytic runner (``search/measure.py``) as the JAX package does.
 """
 
 from __future__ import annotations
@@ -187,9 +187,8 @@ class ApplyHistoryBestOrSample(ApplyHistoryBest):
     ApplyHistoryBestOrSample: sample an init population with zero GA
     iterations, measure the top picks, reload, re-query).
 
-    The measurer is injected: the JAX package's analytic default
-    (``AnalyticRunner``) has no counterpart in the port yet, so a miss
-    without a measurer raises.
+    The measurer is injected (analytic by default: a ``ProgramMeasurer``
+    over ``AnalyticRunner``, which appends to ``log_file`` where given).
     """
 
     def __init__(self, records=None, include_compatible: bool = True,
@@ -204,14 +203,16 @@ class ApplyHistoryBestOrSample(ApplyHistoryBest):
         self.log_file = log_file
 
     def _sample(self, target: str, workload_key: str):
+        from ..search.measure import (
+            AnalyticRunner,
+            EmptyBuilder,
+            ProgramMeasurer,
+            RecordToFile,
+        )
         from ..search.sketch import RandomCostModel, SketchPolicy
-        from .serde import MeasureInput, MeasureRecord, save_records
+        from .serde import MeasureInput, MeasureRecord
         from .task import SearchTask
 
-        if self.measurer is None:
-            raise NotImplementedError(
-                "ApplyHistoryBestOrSample needs a measurer: the analytic "
-                "runner (search/measure.py AnalyticRunner) is not ported")
         task = SearchTask(workload_key, target)
         policy = SketchPolicy(
             task,
@@ -225,7 +226,11 @@ class ApplyHistoryBestOrSample(ApplyHistoryBest):
         states = policy.continue_search_one_round(self.num_measure)
         if not states:
             return
-        results = self.measurer.measure(task, states)
+        callbacks = [RecordToFile(self.log_file)] if self.log_file else []
+        measurer = self.measurer or ProgramMeasurer(
+            EmptyBuilder(), AnalyticRunner(), callbacks=callbacks
+        )
+        results = measurer.measure(task, states)
         recs = [
             MeasureRecord(
                 MeasureInput(task, [s.to_record()
@@ -234,8 +239,6 @@ class ApplyHistoryBestOrSample(ApplyHistoryBest):
             )
             for st, res in zip(states, results)
         ]
-        if self.log_file:
-            save_records(self.log_file, recs, mode="a")
         self.update(recs)
 
     def query(self, target: str, workload_key: str):

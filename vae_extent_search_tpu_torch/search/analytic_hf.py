@@ -1,11 +1,21 @@
-"""High-fidelity analytic cost model: the port's part of it.
+"""High-fidelity analytic cost: a roofline model over per-store features
+(a copy of ``vae_extent_search_tpu/search/analytic_hf.py``, plain numpy,
+the same float64 expressions in the same order).
 
-A partial copy of ``vae_extent_search_tpu/search/analytic_hf.py``: the
-per-store feature-index constants, the roofline constants ``HFHardware``
-and ``DEFAULT_HW``, which ``search/platforms.py`` gives each platform.
-The analytic cost itself (the roofline over the 164 per-store features
-and the runner that prices schedules with it) is not ported yet: it is
-queued with the JAX package's analytic runners (ROADMAP queue 1 #3).
+The base ``AnalyticRunner`` cost (search/measure.py) prices only coarse,
+quantized schedule properties (parallel extent, vector length, innermost
+tile volume), so large families of schedules collapse onto exact-cost
+plateaus. This module prices what the per-store featuriser measures
+(features/per_store.py): per-BufferStore op counts, vectorize / parallel /
+thread structure and per-buffer touched bytes, cache lines and reuse
+distances, so distinct schedules get distinct costs while staying
+deterministic and machine-free. ``search/platforms.py`` gives each
+platform its ``HFHardware``.
+
+The cost is a deterministic function of the 164-dim per-store feature
+matrix: corpora measured with it suit extent-feature arms, not the
+training or evaluation of per-store-feature cost models, which would
+only be fitting the function.
 
 Feature-vector layout (extract_store_features order, 164 floats, all
 slog = sign(x)*log2(|x|+1) except one-hots and the AI curve):
@@ -26,6 +36,8 @@ slog = sign(x)*log2(|x|+1) except one-hots and the AI curve):
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 # group-1 op-count slots
 F_FLOAT_ADD, F_FLOAT_MUL, F_FLOAT_DIV, F_FLOAT_CMP, F_FLOAT_MATH = 1, 2, 3, 4, 5
@@ -76,3 +88,115 @@ class HFHardware:
 
 
 DEFAULT_HW = HFHardware()
+
+
+def _unslog(v: np.ndarray) -> np.ndarray:
+    """Exact inverse of the featurizer's slog for non-negative values."""
+    return np.exp2(np.abs(v)) - 1.0
+
+
+def hf_cost_from_features(feats: np.ndarray,
+                          hw: HFHardware = DEFAULT_HW) -> float:
+    """Roofline cost (seconds) of one program from its per-store
+    feature matrix [n_stores, 164]. Returns +inf for the all-zero
+    error-row convention (feature.py:114-116 analogue: unlowerable
+    states featurize to a single zero row)."""
+    f = np.asarray(feats, np.float64)
+    if f.ndim != 2 or f.shape[0] == 0 or not np.any(f):
+        return float("inf")
+
+    r = _unslog
+
+    # ---- compute side: weighted scalar-op work per store ----
+    w_float = (r(f[:, F_FLOAT_ADD]) + r(f[:, F_FLOAT_MUL])
+               + 2.5 * r(f[:, F_FLOAT_DIV]) + r(f[:, F_FLOAT_CMP])
+               + 6.0 * r(f[:, F_FLOAT_MATH]))
+    w_int = (r(f[:, F_INT_ADD]) + r(f[:, F_INT_MUL])
+             + 2.5 * r(f[:, F_INT_DIV]) + r(f[:, F_INT_CMP])
+             + 6.0 * r(f[:, F_INT_MATH]) + r(f[:, F_BOOL])
+             + r(f[:, F_SELECT]))
+    work = w_float + 0.3 * w_int          # addressing partly hidden
+
+    is_gpu = f[:, F_IS_GPU] > 0.5
+
+    # CPU vectorization: vectorized stores run up to ~0.85*VW faster;
+    # over-long vectors spill (same shape as the base runner's rule)
+    vec_len = r(f[:, F_VEC_LEN])
+    vw = float(hw.vector_width)
+    lane_eff = np.minimum(vec_len, vw) / vw
+    spill = np.where(vec_len > 4 * vw, (4 * vw) / np.maximum(vec_len, 1.0),
+                     1.0)
+    vec_speed = np.where(vec_len >= 1.0,
+                         1.0 + (vw - 1.0) * 0.85 * lane_eff * spill, 1.0)
+
+    # CPU core parallelism: the featurizer's parallel_prod is the
+    # product of parallel-annotated extents over the store's stack
+    par_prod = r(f[:, F_PAR_PROD])
+    cores = np.minimum(np.maximum(par_prod, 1.0), float(hw.num_cores))
+    par_speed = np.where(par_prod > 1.0, 0.95 * cores, 1.0)
+
+    # GPU: total resident parallelism with an occupancy ramp on block
+    # size; work is already the grid-total op count (thread extents are
+    # folded into outer_loop_prod per feature.cc:613-659 semantics)
+    threads = (r(f[:, F_THREAD_X]) * r(f[:, F_THREAD_X + 1])
+               * r(f[:, F_THREAD_X + 2]))
+    blocks = (r(f[:, F_BLOCK_X]) * r(f[:, F_BLOCK_X + 1])
+              * r(f[:, F_BLOCK_X + 2]))
+    threads = np.maximum(threads, 1.0)
+    blocks = np.maximum(blocks, 1.0)
+    occupancy = 0.3 + 0.7 * np.minimum(threads, 768.0) / 768.0
+    fill = np.minimum(blocks * threads, hw.gpu_max_par) / hw.gpu_max_par
+    gpu_util = occupancy * np.minimum(1.0, 0.15 + 0.85 * fill)
+
+    compute_t = np.where(
+        is_gpu,
+        work / (hw.gpu_peak_ips * gpu_util),
+        work / (hw.scalar_ips * vec_speed * par_speed),
+    )
+
+    # instruction-cache pressure from huge unrolled bodies (the base
+    # runner's >512 rule, smooth variant)
+    au = r(f[:, F_AUTO_UNROLL])
+    compute_t = compute_t * np.where(au > 512.0, 1.08, 1.0)
+
+    # ---- memory side: per-buffer cache-hierarchy traffic ----
+    log_l1 = np.log2(hw.l1_bytes)
+    log_l2 = np.log2(hw.l2_bytes)
+    log_ws = np.log2(hw.dram_ws_bytes)
+    mem_t = np.zeros(f.shape[0])
+    for b in range(N_BUFS):
+        base = BUF_BASE + b * BUF_STRIDE
+        block = f[:, base:base + BUF_STRIDE]
+        present = np.any(block != 0.0, axis=1)
+        lines = r(block[:, B_LINES])
+        unique_lines = r(block[:, B_UNIQUE_LINES])
+        rdb = r(block[:, B_REUSE_DIS_BYTES])
+        # reuse distance -> miss ratios, piecewise-linear in log-bytes
+        # (smooth, so tile-size changes move the cost continuously)
+        t = np.log2(rdb + 1.0)
+        miss_l2 = np.clip((t - log_l1) / (log_l2 - log_l1), 0.0, 1.0)
+        miss_dram = np.clip((t - log_l2) / (log_ws - log_l2), 0.0, 1.0)
+        hot = np.maximum(lines - unique_lines, 0.0) * hw.cache_line
+        cold = unique_lines * hw.cache_line
+        dram_b = cold + miss_dram * hot
+        l2_b = np.maximum(miss_l2 - miss_dram, 0.0) * hot
+        l1_b = hot
+        t_cpu = (dram_b / hw.bw_dram                 # DRAM BW is shared
+                 + l2_b / (hw.bw_l2 * par_speed)
+                 + l1_b / (hw.bw_l1 * par_speed))
+        t_gpu = (dram_b / hw.gpu_bw_dram
+                 + (l2_b + l1_b) / hw.gpu_bw_smem)
+        mem_t += np.where(present, np.where(is_gpu, t_gpu, t_cpu), 0.0)
+
+    # roofline overlap per store, summed over stores
+    per_store = (np.maximum(compute_t, mem_t)
+                 + hw.overlap * np.minimum(compute_t, mem_t))
+    total = float(np.sum(per_store)) + hw.launch_s
+    return max(total, 1e-9)
+
+
+def hf_costs_batch(feats_list, hw: HFHardware = DEFAULT_HW):
+    """[n] costs for a list of per-store feature matrices (None or
+    all-zero entries -> +inf)."""
+    return [float("inf") if fm is None else hf_cost_from_features(fm, hw)
+            for fm in feats_list]

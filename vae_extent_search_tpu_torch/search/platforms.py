@@ -1,6 +1,6 @@
 """Analytic hardware platform registry: TenSet's 6-platform dimension.
 
-A copy of ``vae_extent_search_tpu/search/platforms.py`` (its ``HFHardware`` comes from the port's partial ``search/analytic_hf.py``).
+A copy of ``vae_extent_search_tpu/search/platforms.py``.
 
 The reference dataset spans six hardware platforms (reference
 README.md:20-27 — Intel Platinum 8272CL, Intel E5-2673 v4, AMD EPYC
