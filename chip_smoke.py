@@ -16,6 +16,9 @@
                                        # the online tuning arm and the
                                        # measurement layer; ends
                                        # {"partial": "online"}
+    python3 chip_smoke.py --only cuda_target  # phases 1 and 23 alone, for
+                                       # work on the GA's GPU-target rules;
+                                       # ends {"partial": "cuda_target"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -214,7 +217,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      predicts within 1e-4 of max(1, max |score|); cli.estimate_network_
      latency on the resnet-50 corpus prints 9.400 ms with 0 tasks missing
      and equals the sum of weight x best cost computed here, which
-     cli.search's default estimate must equal too; the phase's seconds
+     cli.search's default estimate must equal too; then the network
+     scripts (NET_SCRIPTS): cli.few_shot_eval --base mlp.pkl on phase 17's
+     dataset in the modes zero, local, fine_tune and plus at K 8 on 8
+     tasks, and cli.hyperparameter_opt --model mlp --algo local for three
+     random trials: every metric finite, every segment sum through the
+     forward kernel and every optimiser step through the backward kernel,
+     no plain call, the best config and its metric printed;
+     cli.print_all_tasks lists all_tasks.pkl, cli.json_to_task_pkl pickles
+     the resnet-18 corpus (128 records, 8 tasks) and
+     cli.network2measure_records concatenates resnet_50's per-task files
+     (every record of its 26 tasks, none missing); the phase's seconds
      are printed against its budget (NET_BUDGET_S)
  22. the online SegmentVAE tuning arm and the measurement layer, in a
      temporary VES_DATASET_ROOT: cli.tune_vae at its defaults (conv2d_layer
@@ -243,9 +256,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
      "auto" and "t4"): every cost finite, at least 90% distinct, is_gpu
      store rows present. The phase's seconds are printed against its
      budget (ONLINE_BUDGET_S)
-The last lines are JSON objects with phase 20's, 21's and 22's results,
-the card's name and power limit, a JSON object with each kernel's check
-and times, then {"ok": true, "device": {...}}.
+ 23. the GA's GPU-target rules end to end, in a temporary
+     VES_DATASET_ROOT (CUDA_TARGET): cli.dump_programs with the committed
+     headline pool's own command (conv2d_layer 1 x 56 x 56 x 64 -> 64, 3 x
+     3, --target cuda --n-states 4000 --seed 2023), then
+     cli.measure_programs --runner analytic_hf --noise 0: 4,000 states
+     distinct as the GA keys them (its printed form, bound or not; their
+     step lists distinct to 99.9%), each with blockIdx and threadIdx binds
+     and a .shared cache stage, every record recovering to its GA state's
+     printed bound form,
+     every cost finite and at least 90% distinct; the GA's and the
+     featuriser's seconds and the records shared with the committed pool
+     printed. Then cli.vae_extent_search --record-file on that log at full
+     width (hidden 256, latent 64, 500 VAE and 1000 predictor epochs), seed
+     2000, --max-phases CUDA_TARGET["max_phases"] (cut for the time limit):
+     one fused-head launch per selection phase; whether it found the
+     pool's optimum, and in how many phases, printed, not gated. Then
+     cli.tune_vae --target cuda --runner analytic_hf on that task with
+     --n-candidates cut to CUDA_TARGET["tune_candidates"], its other
+     options at their defaults, held as in phase 22. The phase's seconds
+     are printed against its budget (CUDA_TARGET_BUDGET_S)
+The last lines are JSON objects with phase 20's, 21's, 22's and 23's
+results, the card's name and power limit, a JSON object with each kernel's
+check and times, then {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -1997,6 +2030,10 @@ def segment_phases(dev, peaks, kernels, shared=None):
 NET_TARGET = "llvm -mcpu=skylake-avx512"
 NET_MODELS = ("mlp", "lstm", "mha", "tabnet", "random")
 NET_BUDGET_S = 150.0
+# phase 21's runs of the network scripts, cut for the time limit: K 8 on 8
+# tasks, and three random trials of the MLP's hyperparameters
+NET_SCRIPTS = {"few_shot": ["--k", "8", "--max-tasks", "8"],
+               "hyperparameter_opt": ["--n-random", "3", "--n-local", "0"]}
 
 
 def split_by_task(logs, folder):
@@ -2021,6 +2058,127 @@ def split_by_task(logs, folder):
             f.writelines(lines)
         paths.append(p)
     return paths
+
+
+def network_scripts(dev, kernels, r50):
+    """Phase 21's runs of the network scripts, in its dataset root and
+    working directory (mlp.pkl, ds.pkl, the task tables and the per-task
+    record files): the few-shot modes from mlp.pkl on phase 17's dataset
+    (not a held-out platform: the run drives the modes), a short
+    hyperparameter search of the MLP, and the host tools. ``r50``: the
+    resnet-50 corpus's workload keys. Returns (results, segment-sum
+    launches). On a CPU device (a dry run) no kernel may launch."""
+    import pickle
+
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        few_shot_eval,
+        hyperparameter_opt,
+        json_to_task_pkl,
+        network2measure_records,
+        print_all_tasks,
+    )
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import iter_records
+
+    seg = tss.segment_sum
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def others():
+        return {n: k.launches for n, k in kernels.items()
+                if n != "segment_sum" and k.launches}
+
+    def quiet(fn, *a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a)
+        return res, buf.getvalue()
+
+    scripts = {}
+    for mod, argv in (
+            (few_shot_eval, ["--base", "mlp.pkl", "--dataset", "ds.pkl",
+                             "--out-csv", "few_shot.csv",
+                             *NET_SCRIPTS["few_shot"]]),
+            (hyperparameter_opt, ["--dataset", "ds.pkl", "--model", "mlp",
+                                  "--algo", "local",
+                                  *NET_SCRIPTS["hyperparameter_opt"]])):
+        name = mod.__name__.rsplit(".", 1)[1]
+        argv = argv + ["--device", dev.type]
+        for k in kernels.values():
+            k.launches = 0
+        seg.backward_launches = 0
+        sync()
+        t = time.perf_counter()
+        with CallCounts(sm, tss) as counts:
+            res, text = quiet(mod.main, argv)
+        sync()
+        wall = time.perf_counter() - t
+        for line in text.strip().splitlines()[-6:]:
+            log(f"[21] {name}: {line}")
+        log(f"[21] {name} {' '.join(argv)}: {wall:.2f} s; segment-sum "
+            f"launches {seg.launches} forward for {counts.sums} sums, "
+            f"{seg.backward_launches} backward for {counts.steps} optimiser "
+            f"steps, {counts.plain} plain calls")
+        if name == "few_shot_eval":
+            vals = [r[m] for r in res for m in ("pairwise", "peak@1",
+                                                "peak@5")]
+            ok = [r["mode"] for r in res] == [
+                "zero", "local", "fine_tune", "plus"] and all(
+                np.isfinite(vals)) and os.path.exists("few_shot.csv")
+            scripts[name] = {"rows": res, "wall_s": wall}
+        else:
+            best_cfg, best_val = res
+            ok = np.isfinite(best_val) and "BEST: " in text
+            scripts[name] = {"best": best_cfg, "metric": best_val,
+                             "trials": text.count(" -> ") - 1,
+                             "wall_s": wall}
+        scripts[name].update(sums=counts.sums, steps=counts.steps,
+                             forward_launches=seg.launches,
+                             backward_launches=seg.backward_launches)
+        through = (seg.launches == counts.sums > 0
+                   and seg.backward_launches == counts.steps > 0
+                   and counts.plain == 0) if on_card else (
+            seg.launches == seg.backward_launches == 0)
+        if not ok or others() or not through:
+            raise RuntimeError(f"[21] {name}: {res}, plain {counts.plain}, "
+                               f"launches {seg.launches}, "
+                               f"{seg.backward_launches}, {others()}")
+    t = time.perf_counter()
+    tasks_all, text = quiet(print_all_tasks.main, [])
+    n_listed = len(text.splitlines())
+    _, text_j = quiet(json_to_task_pkl.main, [RESNET18_LOG, "--out",
+                                              "r18.task.pkl"])
+    with open("r18.task.pkl", "rb") as f:
+        r18 = pickle.load(f)
+    r50_pkl = os.path.join(common.NETWORK_INFO_FOLDER, common.clean_name(
+        (("resnet_50", [1, 224]), NET_TARGET)) + ".task.pkl")
+    n_cat, text_n = quiet(network2measure_records.main, [
+        "--network-task-pkl", r50_pkl, "--out-file", "r50.json"])
+    want_cat = sum(1 for path in (RESNET50_LOG, RESNET18_LOG)
+                   for r in iter_records(path)
+                   if r.inp.task.workload_key in r50)
+    log(f"[21] print_all_tasks: {n_listed} tasks listed; json_to_task_pkl: "
+        f"{text_j.strip()}; network2measure_records resnet_50: "
+        f"{text_n.strip()} ({want_cat} in its per-task files); "
+        f"{time.perf_counter() - t:.2f} s")
+    if not (n_listed == len(tasks_all) == len(
+            common.load_and_register_tasks()) > 0
+            and len(r18[0]) == 128 and len(r18[3]) == 8
+            and n_cat == want_cat and "missing" not in text_n):
+        raise RuntimeError(f"[21] tools: {n_listed}, {len(r18[0])}, "
+                           f"{n_cat} of {want_cat}")
+    scripts["tools"] = {"tasks_listed": n_listed,
+                        "task_pkl_records": len(r18[0]),
+                        "network_records": n_cat}
+    trained = [v for k, v in scripts.items() if k != "tools"]
+    return scripts, {
+        "forward": sum(v["forward_launches"] for v in trained),
+        "backward": sum(v["backward_launches"] for v in trained)}
 
 
 def network_phases(dev, kernels, dataset=None):
@@ -2300,6 +2458,9 @@ def network_phases(dev, kernels, dataset=None):
                 raise RuntimeError(f"[21] estimate {total} ({missing} "
                                    f"missing), own {own}, search {d_ms}, "
                                    f"{r_ms}")
+
+            # 7. the network scripts
+            scripts, launches_scripts = network_scripts(dev, kernels, r50)
         finally:
             for cls, fn in fit_orig.items():
                 cls.fit_base = fn
@@ -2312,8 +2473,10 @@ def network_phases(dev, kernels, dataset=None):
     log(f"[21] phase 21: {secs:.1f} s (budget {NET_BUDGET_S:.0f} s)")
     if secs > NET_BUDGET_S:
         log(f"[21] over its budget of {NET_BUDGET_S:.0f} s")
-    launches = {"forward": train["mlp"]["forward_launches"] + eval_launches,
-                "backward": train["mlp"]["backward_launches"]}
+    launches = {"forward": train["mlp"]["forward_launches"] + eval_launches
+                + launches_scripts["forward"],
+                "backward": train["mlp"]["backward_launches"]
+                + launches_scripts["backward"]}
     return {"seconds": secs, "grid_entries": len(dumped),
             "hold_out": {"tasks": len(ho.tasks()), "records": len(ho)},
             "preset_files": kept, "metrics": metrics, "train": train,
@@ -2324,7 +2487,7 @@ def network_phases(dev, kernels, dataset=None):
                                 "same_top5_tasks": same_picks,
                                 "tasks": len(tasks)},
             "estimate_ms": total * 1e3, "search_ms": [d_ms * 1e3, r_ms * 1e3],
-            "segment_sum_launches": launches}
+            "scripts": scripts, "segment_sum_launches": launches}
 
 
 # phase 22: the collection pipeline's and the runners' sizes, and the limit
@@ -2332,6 +2495,118 @@ def network_phases(dev, kernels, dataset=None):
 ONLINE = dict(n_states=2000, runner_states=64, hf_records=256,
               hf_platforms=("auto", "t4"), pick=64, tol=1e-4)
 ONLINE_BUDGET_S = 180.0
+
+
+def tune_vae_checked(tag, argv, kernels, on_card, pick, tol):
+    """cli.tune_vae.main(argv) (10 phases, 200 VAE and 300 regression
+    epochs) with its checks: a finite best equal to the log's minimum over
+    its min(640, unique states) records; every segment sum through the
+    forward kernel (forward launches == sums == 200 + 10 x 300 + 9 model
+    selections), every optimiser step through the backward kernel, no plain
+    call (on a CPU device, no launch at all); the last phase's regression
+    on every candidate on the card within ``tol`` of max(1, max |mu|) of
+    the same parameters on the CPU (the plain version), with the same top
+    ``pick`` over the unmeasured ones. Returns (results, segment-sum
+    launches, the candidate states)."""
+    from vae_extent_search_tpu_torch.cli import tune_vae
+    from vae_extent_search_tpu_torch.convert import (
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import load_records
+
+    seg = tss.segment_sum
+
+    def others():
+        return {n: k.launches for n, k in kernels.items()
+                if n != "segment_sum" and k.launches}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for k in kernels.values():
+        k.launches = 0
+    seg.backward_launches = 0
+    details = {}
+    sync()
+    t = time.perf_counter()
+    with CallCounts(sm, tss) as counts:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            best, _ = tune_vae.main(argv, details=details)
+    sync()
+    tune_s = time.perf_counter() - t
+    fwd, bwd = seg.launches, seg.backward_launches
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[{tag}] {line}")
+    secs = details["seconds"]
+    n_phases = len(secs["phases"])
+    log(f"[{tag}] cli.tune_vae: {tune_s:.2f} s wall; GA "
+        f"{secs['generate']:.2f} s, featurising "
+        f"{secs['featurise']:.2f} s, pretrain {secs['pretrain']:.2f}"
+        f" s; per phase (select / measure / fit, s): "
+        + ", ".join(f"{p['select']:.3f} / {p['measure']:.3f} / "
+                    f"{p['fit']:.3f}" for p in secs["phases"]))
+    log(f"[{tag}] segment sums called {counts.sums}, forward launches "
+        f"{fwd}; optimiser steps {counts.steps}, backward launches "
+        f"{bwd}; plain versions run {counts.plain}; other kernels "
+        f"{others()}")
+    recs = load_records(argv[argv.index("--log-file") + 1])
+    ok = [r.res.costs[0] for r in recs if r.res.error_no == 0]
+    n_unique = len(details["states"])
+    want_recs = min(640, n_unique)
+    # one encode per VAE step, per regression step and per model
+    # selection (every phase but the first); one backward per step
+    want_steps = 200 + n_phases * 300
+    if not (np.isfinite(best) and len(recs) == want_recs
+            and ok and best == min(ok) and n_phases == 10
+            and counts.steps == want_steps
+            and counts.sums == want_steps + n_phases - 1):
+        raise RuntimeError(
+            f"[{tag}] best {best}, {len(recs)} records of {want_recs}, "
+            f"log minimum {min(ok) if ok else None}, {n_phases} "
+            f"phases, {counts.sums} sums, {counts.steps} steps")
+    if on_card and not (fwd == counts.sums and bwd == counts.steps
+                        and counts.plain == 0):
+        raise RuntimeError(f"[{tag}] a segment sum missed the kernel: "
+                           f"{fwd} forward launches for "
+                           f"{counts.sums} sums, {bwd} backward for "
+                           f"{counts.steps} steps, {counts.plain} "
+                           "plain calls")
+    if others() or (not on_card and (fwd or bwd)):
+        raise RuntimeError(f"[{tag}] launches {fwd}, {bwd}, {others()}")
+    # the last phase's regression on every candidate: the kernel (the
+    # card) against the plain version (the CPU), same parameters
+    p = details["pred_params"]
+    args = [details[k] for k in ("rows", "seg_ids", "offsets")]
+    n_seg = details["n_seg"]
+    mu_g, s_g = tune_vae.encode_candidates(p, *args, n_seg)
+    mu_c, s_c = tune_vae.encode_candidates(
+        params_from_numpy(params_to_numpy(p)),
+        *[a.cpu() for a in args], n_seg)
+    err = float(np.abs(mu_g - mu_c).max())
+    scale = max(1.0, float(np.abs(mu_c).max()))
+    rest = np.flatnonzero(~details["measured"])
+    picks_g = rest[np.argsort(-s_g[rest])][:pick]
+    picks_c = rest[np.argsort(-s_c[rest])][:pick]
+    log(f"[{tag}] the last regression on all {n_seg} candidates "
+        f"({args[0].shape[0]} rows): mu on the card within "
+        f"{err:.2e} of the CPU's (max |mu| {scale:.3g}); top "
+        f"{pick} of {len(rest)} unmeasured picks "
+        f"{'equal' if list(picks_g) == list(picks_c) else 'differ'}")
+    if err > tol * scale or list(picks_g) != list(picks_c):
+        raise RuntimeError(f"[{tag}] card and CPU encodes differ: "
+                           f"{err} (scale {scale})")
+    res = {"best": best, "wall_s": tune_s, "records": len(recs),
+           "unique_states": n_unique, "seconds": secs,
+           "sums": counts.sums, "steps": counts.steps,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "mu_max_abs_err": err, "mu_scale": scale,
+           "same_top_picks": True}
+    return res, {"forward": fwd, "backward": bwd}, details["states"]
 
 
 def online_phases(dev, kernels):
@@ -2348,15 +2623,9 @@ def online_phases(dev, kernels):
         remeasure,
         tune_vae,
     )
-    from vae_extent_search_tpu_torch.convert import (
-        params_from_numpy,
-        params_to_numpy,
-    )
     from vae_extent_search_tpu_torch.features.per_store import (
         get_per_store_features_from_states,
     )
-    from vae_extent_search_tpu_torch.models import segment as sm
-    from vae_extent_search_tpu_torch.ops import segment_sum as tss
     from vae_extent_search_tpu_torch.records import (
         SearchTask,
         load_records,
@@ -2370,18 +2639,9 @@ def online_phases(dev, kernels):
         MeasureTracker,
     )
 
-    seg = tss.segment_sum
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
     out = {}
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    def others():
-        return {n: k.launches for n, k in kernels.items()
-                if n != "segment_sum" and k.launches}
 
     def quiet(fn, *a, **kw):
         buf = io.StringIO()
@@ -2395,94 +2655,16 @@ def online_phases(dev, kernels):
         common.set_dataset_root()
         try:
             # 1. the tuning arm at its defaults
-            for k in kernels.values():
-                k.launches = 0
-            seg.backward_launches = 0
-            details = {}
-            sync()
-            t = time.perf_counter()
-            with CallCounts(sm, tss) as counts:
-                (best, wall), text = quiet(
-                    tune_vae.main, ["--log-file", "tune_vae.json",
-                                    "--device", dev.type], details=details)
-            sync()
-            tune_s = time.perf_counter() - t
-            fwd, bwd = seg.launches, seg.backward_launches
-            for line in text.strip().splitlines():
-                log(f"[22] {line}")
-            secs = details["seconds"]
-            n_phases = len(secs["phases"])
-            log(f"[22] cli.tune_vae: {tune_s:.2f} s wall; GA "
-                f"{secs['generate']:.2f} s, featurising "
-                f"{secs['featurise']:.2f} s, pretrain {secs['pretrain']:.2f}"
-                f" s; per phase (select / measure / fit, s): "
-                + ", ".join(f"{p['select']:.3f} / {p['measure']:.3f} / "
-                            f"{p['fit']:.3f}" for p in secs["phases"]))
-            log(f"[22] segment sums called {counts.sums}, forward launches "
-                f"{fwd}; optimiser steps {counts.steps}, backward launches "
-                f"{bwd}; plain versions run {counts.plain}; other kernels "
-                f"{others()}")
-            recs = load_records("tune_vae.json")
-            ok = [r.res.costs[0] for r in recs if r.res.error_no == 0]
-            n_unique = len(details["states"])
-            want_recs = min(640, n_unique)
-            # one encode per VAE step, per regression step and per model
-            # selection (every phase but the first); one backward per step
-            want_steps = 200 + n_phases * 300
-            if not (np.isfinite(best) and len(recs) == want_recs
-                    and ok and best == min(ok) and n_phases == 10
-                    and counts.steps == want_steps
-                    and counts.sums == want_steps + n_phases - 1):
-                raise RuntimeError(
-                    f"[22] best {best}, {len(recs)} records of {want_recs}, "
-                    f"log minimum {min(ok) if ok else None}, {n_phases} "
-                    f"phases, {counts.sums} sums, {counts.steps} steps")
-            if on_card and not (fwd == counts.sums and bwd == counts.steps
-                                and counts.plain == 0):
-                raise RuntimeError(f"[22] a segment sum missed the kernel: "
-                                   f"{fwd} forward launches for "
-                                   f"{counts.sums} sums, {bwd} backward for "
-                                   f"{counts.steps} steps, {counts.plain} "
-                                   "plain calls")
-            if others() or (not on_card and (fwd or bwd)):
-                raise RuntimeError(f"[22] launches {fwd}, {bwd}, {others()}")
-            # the last phase's regression on every candidate: the kernel
-            # (the card) against the plain version (the CPU), same parameters
-            p = details["pred_params"]
-            args = [details[k] for k in ("rows", "seg_ids", "offsets")]
-            n_seg = details["n_seg"]
-            mu_g, s_g = tune_vae.encode_candidates(p, *args, n_seg)
-            mu_c, s_c = tune_vae.encode_candidates(
-                params_from_numpy(params_to_numpy(p)),
-                *[a.cpu() for a in args], n_seg)
-            err = float(np.abs(mu_g - mu_c).max())
-            scale = max(1.0, float(np.abs(mu_c).max()))
-            rest = np.flatnonzero(~details["measured"])
-            picks_g = rest[np.argsort(-s_g[rest])][:ONLINE["pick"]]
-            picks_c = rest[np.argsort(-s_c[rest])][:ONLINE["pick"]]
-            log(f"[22] the last regression on all {n_seg} candidates "
-                f"({args[0].shape[0]} rows): mu on the card within "
-                f"{err:.2e} of the CPU's (max |mu| {scale:.3g}); top "
-                f"{ONLINE['pick']} of {len(rest)} unmeasured picks "
-                f"{'equal' if list(picks_g) == list(picks_c) else 'differ'}")
-            if err > ONLINE["tol"] * scale or list(picks_g) != list(picks_c):
-                raise RuntimeError(f"[22] card and CPU encodes differ: "
-                                   f"{err} (scale {scale})")
-            out["tune_vae"] = {
-                "best": best, "wall_s": tune_s, "records": len(recs),
-                "unique_states": n_unique, "seconds": secs,
-                "sums": counts.sums, "steps": counts.steps,
-                "forward_launches": fwd, "backward_launches": bwd,
-                "mu_max_abs_err": err, "mu_scale": scale,
-                "same_top_picks": True}
-            launches = {"forward": fwd, "backward": bwd}
+            res, launches, states = tune_vae_checked(
+                "22", ["--log-file", "tune_vae.json", "--device", dev.type],
+                kernels, on_card, ONLINE["pick"], ONLINE["tol"])
+            out["tune_vae"] = res
             task = SearchTask(make_workload_key(*tune_vae.DEFAULT_WORKLOAD),
                               "llvm -mcpu=skylake-avx512")
             # bound as a record's replay binds them (the GA's states may
             # hold stages whose ranges a compute_at reset)
             states = [task.compute_dag.infer_bound(st) for st in
-                      details["states"][:ONLINE["runner_states"]]]
-            del details, p, args
+                      states[:ONLINE["runner_states"]]]
 
             # 2. the collection pipeline on the same task
             t = time.perf_counter()
@@ -2624,6 +2806,203 @@ def online_phases(dev, kernels):
         log(f"[22] over its budget of {ONLINE_BUDGET_S:.0f} s")
     out["seconds"] = secs
     out["segment_sum_launches"] = launches
+    return out
+
+
+# phase 23: the committed headline pool's own command
+# (result/conv2d_4k_chip/README.md: dump_programs --target cuda --n-states
+# 4000 --seed 2023) and its measuring (result/conv2d_4k_hf/README.md:
+# --runner analytic_hf --noise 0), the headline experiment on that log, and
+# the online arm on that cuda task; the search's phases and tune_vae's
+# candidates are cut for the time limit
+CUDA_TARGET = dict(
+    workload_key='["conv2d_layer", 1, 56, 56, 64, 64, 3, 3, [1,1], [1,1]]',
+    n_states=4000, seed=2023, search_seed=2000, max_phases=6,
+    tune_candidates=1000, pick=64, tol=1e-4)
+CUDA_TARGET_BUDGET_S = 300.0
+
+
+def cuda_target_phases(dev, kernels):
+    """Phase 23: the GA's GPU-target rules make the headline pool on the
+    card's host, the analytic_hf runner measures it, cli.vae_extent_search
+    runs on the log it gives, and cli.tune_vae runs on that cuda task.
+    Returns its results and the fused head's and the segment sum's
+    launches on its paths."""
+    import gzip
+
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        dump_programs,
+        measure_programs,
+        vae_extent_search,
+    )
+    from vae_extent_search_tpu_torch.records import load_records
+    from vae_extent_search_tpu_torch.records.serde import record_from_json
+
+    cfg = CUDA_TARGET
+    on_card = dev.type == "cuda"
+    fh = kernels["fused_head_stats"]
+    t_phase = time.perf_counter()
+    out = {}
+
+    def others(name):
+        return {n: k.launches for n, k in kernels.items()
+                if n != name and k.launches}
+
+    def quiet(fn, *a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        return res, buf.getvalue()
+
+    env_before = os.environ.get("VES_DATASET_ROOT")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d):
+        os.environ["VES_DATASET_ROOT"] = os.path.join(d, "dataset")
+        common.set_dataset_root()
+        made = []
+        orig_make_states = dump_programs.make_states
+
+        def keep_states(*a, **kw):
+            made.extend(orig_make_states(*a, **kw))
+            return made
+
+        try:
+            # (a) the pool: the GA, then the high-fidelity runner
+            dump_programs.make_states = keep_states
+            t = time.perf_counter()
+            dumped, _ = quiet(dump_programs.main, [
+                "--workload-key", cfg["workload_key"], "--target", "cuda",
+                "--n-states", str(cfg["n_states"]), "--seed",
+                str(cfg["seed"])])
+            ga_s = time.perf_counter() - t
+            dump_programs.make_states = orig_make_states
+            (pool, n_pool), = dumped.items()
+            t = time.perf_counter()
+            measured, _ = quiet(measure_programs.main, [
+                "--runner", "analytic_hf", "--noise", "0"])
+            measure_s = time.perf_counter() - t
+            (mlog, n_meas), = measured.items()
+            t = time.perf_counter()
+            recs = load_records(mlog)
+            task = recs[0].inp.task
+            n_states = len({st.to_str() for st in made})
+            steps = [json.dumps(r.inp.step_records) for r in recs]
+            printed, bound_ok, binds_ok = [], 0, 0
+            for rec, st in zip(recs, made):
+                rst = rec.inp.recover_state(infer_bound=True)
+                printed.append(rst.to_str())
+                bound_ok += printed[-1] == \
+                    task.compute_dag.infer_bound(st).to_str()
+                annos = {it.annotation for stg in rst.stages
+                         for it in stg.iters}
+                binds_ok += {5, 6} <= annos and any(
+                    stg.op.name.endswith(".shared") for stg in rst.stages)
+            check_s = time.perf_counter() - t
+            costs = [r.res.costs[0] for r in recs if r.res.error_no == 0]
+            finite = [c for c in costs if np.isfinite(c)]
+            distinct = len(set(finite))
+            with gzip.open(CONV_POOL_LOG, "rt") as f:
+                committed = {json.dumps(record_from_json(line)
+                                        .inp.step_records) for line in f}
+            shared = sum(x in committed for x in steps)
+            log(f"[23] dump_programs --workload-key '{cfg['workload_key']}' "
+                f"--target cuda --n-states {cfg['n_states']} --seed "
+                f"{cfg['seed']}: {n_pool} states, {n_states} distinct as the "
+                f"GA keys them (printed as it holds them, bound or not), "
+                f"{len(set(steps))} distinct step lists and "
+                f"{len(set(printed))} distinct printed bound forms, GA "
+                f"{ga_s:.2f} s (host); measure_programs --runner "
+                f"analytic_hf --noise 0: {n_meas} records in {measure_s:.2f}"
+                f" s (the per-store featuriser, host), {len(finite)} finite "
+                f"costs, {distinct} distinct; {binds_ok} states with "
+                f"blockIdx and threadIdx binds and a .shared cache stage; "
+                f"{bound_ok} records recover to their state's printed bound "
+                f"form ({check_s:.2f} s); {shared} step lists also in the "
+                f"committed pool")
+            # the Python GA keys a state by its printed form as it holds
+            # it, bound or not (as the JAX package's Python GA does), so a
+            # schedule may come twice, bound and unbound: the step lists
+            # are held distinct to 99.9%
+            if not (n_pool == n_meas == len(recs) == len(made)
+                    == cfg["n_states"] == n_states
+                    == binds_ok == bound_ok == len(finite) == len(costs)
+                    and len(set(steps)) >= 0.999 * n_states
+                    and distinct >= 0.9 * len(finite)
+                    and task.target == "cuda"):
+                raise RuntimeError(f"[23] pool: {n_pool} dumped, {n_meas} "
+                                   f"measured, {n_states} distinct states, "
+                                   f"{len(set(steps))} distinct step lists, "
+                                   f"{binds_ok} bound, {bound_ok} recovered,"
+                                   f" {len(finite)} finite, {distinct} "
+                                   "distinct costs")
+            out["pool"] = {"states": n_pool, "ga_s": ga_s,
+                           "measure_s": measure_s,
+                           "distinct_step_lists": len(set(steps)),
+                           "distinct_printed": len(set(printed)),
+                           "distinct_costs": distinct, "best": min(finite),
+                           "in_committed_pool": shared}
+            del made[:], printed, recs
+
+            # (b) the headline experiment on that log, at full width
+            for k in kernels.values():
+                k.launches = 0
+            t = time.perf_counter()
+            _, text = quiet(vae_extent_search.main, [
+                "--record-file", mlog, "--out-dir", "search",
+                "--seeds", str(cfg["search_seed"]), "--max-phases",
+                str(cfg["max_phases"]), "--device", dev.type])
+            search_s = time.perf_counter() - t
+            fh_launches = fh.launches
+            csvs = [f for f in os.listdir("search")
+                    if f.startswith("vae_extent_search_")]
+            with open(os.path.join("search", csvs[0])) as f:
+                row = next(csv.DictReader(f))
+            phases = int(row["phase"])
+            pool_line = text.splitlines()[0]
+            log(f"[23] cli.vae_extent_search --record-file <that log> "
+                f"--seeds {cfg['search_seed']} --max-phases "
+                f"{cfg['max_phases']} (hidden 256, latent 64, 500 VAE and "
+                f"1000 predictor epochs): {pool_line}; found the pool's "
+                f"optimum: {row['found'] == '1'}, in {phases} phases, "
+                f"train_size {row['train_size']}; {search_s:.1f} s wall incl."
+                f" featurising the log; fused-head launches {fh_launches} for"
+                f" {phases} selection phases; other kernels "
+                f"{others('fused_head_stats')}")
+            if on_card and (fh_launches != phases or phases == 0):
+                raise RuntimeError(f"[23] {fh_launches} fused-head launches "
+                                   f"for {phases} phases")
+            if others("fused_head_stats") or (not on_card and fh_launches):
+                raise RuntimeError(f"[23] launches {others('')}")
+            out["search"] = {"pool": pool_line, "found": int(row["found"]),
+                             "phase": phases,
+                             "train_size": float(row["train_size"]),
+                             "wall_s": search_s,
+                             "fused_head_launches": fh_launches}
+
+            # (c) the online arm on that cuda task
+            res, seg_launches, _ = tune_vae_checked(
+                "23", ["--target", "cuda", "--runner", "analytic_hf",
+                       "--workload-key", cfg["workload_key"],
+                       "--n-candidates", str(cfg["tune_candidates"]),
+                       "--log-file", "tune_vae.json", "--device", dev.type],
+                kernels, on_card, cfg["pick"], cfg["tol"])
+            log(f"[23] (tune_vae's --n-candidates cut from 2,000 to "
+                f"{cfg['tune_candidates']} for the time limit)")
+            out["tune_vae"] = res
+        finally:
+            dump_programs.make_states = orig_make_states
+            if env_before is None:
+                os.environ.pop("VES_DATASET_ROOT", None)
+            else:
+                os.environ["VES_DATASET_ROOT"] = env_before
+            common.set_dataset_root()
+    secs = time.perf_counter() - t_phase
+    log(f"[23] phase 23: {secs:.1f} s (budget {CUDA_TARGET_BUDGET_S:.0f} s)")
+    if secs > CUDA_TARGET_BUDGET_S:
+        log(f"[23] over its budget of {CUDA_TARGET_BUDGET_S:.0f} s")
+    out["seconds"] = secs
+    out["fused_head_launches"] = fh_launches
+    out["segment_sum_launches"] = seg_launches
     return out
 
 
@@ -3168,14 +3547,17 @@ def head_phases(dev, peaks, fh, th):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
-                                       "networks", "online"),
+                                       "networks", "online", "cuda_target"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
                          "part of phases 12 and 14; networks: phases 1 and "
                          "21 (the network-level evaluation); online: phases "
                          "1 and 22 (the online tuning arm and the "
-                         "measurement layer); each ends with "
+                         "measurement layer); cuda_target: phases 1 and 23 "
+                         "(the GA's GPU-target rules: the headline pool "
+                         "made, measured and searched, tune_vae --target "
+                         "cuda); each ends with "
                          "{\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3285,6 +3667,13 @@ def main():
         print(json.dumps({"kernels": [record]}, default=float), flush=True)
         print(json.dumps({"partial": "conv_f32"}), flush=True)
         return
+    if args.only == "cuda_target":
+        cuda = cuda_target_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"cuda_target": cuda}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "cuda_target"}), flush=True)
+        return
     if args.only == "online":
         online = online_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -3320,9 +3709,17 @@ def main():
     arms = arms_phases(dev, kernels)
     net = network_phases(dev, kernels, shared.get("resnet50_ds"))
     online = online_phases(dev, kernels)
-    # the segment sum's launches on phase 21's and 22's paths join its record
+    cuda = cuda_target_phases(dev, kernels)
+    # the fused head's launches on phase 23's path join its record (phase 6
+    # drove the main path first)
+    head_rec = records[0]
+    head_rec["launches_by_path"] = {"6": head_rec["launches"],
+                                    "23": cuda["fused_head_launches"]}
+    head_rec["launches"] += cuda["fused_head_launches"]
+    # the segment sum's launches on phase 21's, 22's and 23's paths join its
+    # record
     seg_rec = records[-1]
-    for tag, res in (("21", net), ("22", online)):
+    for tag, res in (("21", net), ("22", online), ("23", cuda)):
         seg_rec["launches_by_path"][tag] = res["segment_sum_launches"]
         for way in ("forward", "backward"):
             seg_rec[f"{way}_launches"] += res["segment_sum_launches"][way]
@@ -3332,6 +3729,7 @@ def main():
     print(json.dumps({"arms": arms}, default=float), flush=True)
     print(json.dumps({"networks": net}, default=float), flush=True)
     print(json.dumps({"online": online}, default=float), flush=True)
+    print(json.dumps({"cuda_target": cuda}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,11 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.dump_network_info", "cli.estimate_network_latency",
          "cli.search", "search.measure_service", "cli.dump_programs",
          "cli.measure_programs", "cli.remeasure", "cli.print_programs",
-         "cli.toy_timer", "cli.tune_vae"}}
+         "cli.toy_timer", "cli.tune_vae", "cli.print_all_tasks",
+         "cli.json_to_task_pkl", "cli.network2measure_records",
+         "cli.few_shot_eval", "cli.hyperparameter_opt"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 76, (missing, mods)
+assert not missing and len(mods) >= 81, (missing, mods)
 """
 
 
@@ -232,3 +234,44 @@ def test_tune_vae_needs_cuda_unless_told_cpu(tmp_path):
             "assert not bad, bad")
     proc = _run(["-c", code], cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_few_shot_and_hyperparameter_opt_need_cuda_unless_told_cpu(tmp_path):
+    """few_shot_eval and hyperparameter_opt train models: without CUDA
+    they refuse unless given --device cpu, and write nothing first."""
+    import json
+
+    root = _network_root(tmp_path)
+    # the first two resnet-50 tasks (~97 records each)
+    keys, lines = [], []
+    with open(os.path.join(ROOT, "result/corpus/resnet_50-B1-llvm.json")) \
+            as f:
+        for line in f:
+            key = json.loads(line)["i"][0][0]
+            keys += [key] if key not in keys else []
+            if keys.index(key) < 2:
+                lines.append(line)
+    (tmp_path / "two.json").write_text("".join(lines))
+    mk = ["-m", f"{PKG}.cli.make_dataset", str(tmp_path / "two.json"),
+          "--out-file", str(tmp_path / "ds.pkl")]
+    assert _run(mk, env_extra={"VES_DATASET_ROOT": str(root)},
+                cwd=tmp_path).returncode == 0
+    fs = ["-m", f"{PKG}.cli.few_shot_eval", "--base",
+          str(tmp_path / "mlp.pkl"), "--dataset", str(tmp_path / "ds.pkl"),
+          "--k", "8", "--modes", "zero", "local",
+          "--out-csv", str(tmp_path / "fs.csv")]
+    hp = ["-m", f"{PKG}.cli.hyperparameter_opt", "--dataset",
+          str(tmp_path / "ds.pkl"), "--n-random", "1", "--n-local", "0"]
+    if not torch.cuda.is_available():
+        for cmd in (fs, hp):
+            proc = _run(cmd, cwd=tmp_path)
+            assert proc.returncode != 0
+            assert "torch.cuda.is_available() is False" in proc.stderr
+        assert not (tmp_path / "fs.csv").exists()
+    proc = _run(fs + ["--device", "cpu"], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (tmp_path / "fs.csv").read_text().startswith(
+        "mode,k,pairwise,peak@1,peak@5,n_tasks,wall_s")
+    proc = _run(hp + ["--device", "cpu"], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BEST: " in proc.stdout

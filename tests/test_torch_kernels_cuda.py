@@ -791,13 +791,14 @@ def test_network_evaluation_through_the_kernel_equals_plain(dev, tmp_path,
         assert list(np.argsort(-pg)[:5]) == list(np.argsort(-pc)[:5])
 
 
-def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
-    """A small cli.tune_vae run on the card: every segment sum of the loop
-    launches the forward kernel (one per VAE and regression step and per
-    model selection) and every optimiser step the backward kernel, with no
-    plain version run; the last phase's regression, moved to the CPU with
-    the same parameters (plain versions), encodes the candidates within
-    1e-4 of max(1, max |mu|) and picks the same top 16 unmeasured ones."""
+def _tune_vae_on_card(tmp_path, target):
+    """A small cli.tune_vae run on the card on ``target``: every segment sum
+    of the loop launches the forward kernel (one per VAE and regression step
+    and per model selection) and every optimiser step the backward kernel,
+    with no plain version run; the last phase's regression, moved to the CPU
+    with the same parameters (plain versions), encodes the candidates within
+    1e-4 of max(1, max |mu|) and picks the same top 16 unmeasured ones.
+    Returns the run's details."""
     from torch.optim.optimizer import register_optimizer_step_post_hook
 
     from vae_extent_search_tpu_torch.cli import tune_vae
@@ -805,10 +806,10 @@ def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
     from vae_extent_search_tpu_torch.models import segment as ts
     from vae_extent_search_tpu_torch.records import make_workload_key
     from vae_extent_search_tpu_torch.records.task import SearchTask
+    from vae_extent_search_tpu_torch.search.measure import runner_from_spec
 
     task = SearchTask(make_workload_key(
-        "conv2d_layer", (1, 14, 14, 32, 32, 3, 3, [1, 1], [1, 1])),
-        "llvm -mcpu=skylake-avx512")
+        "conv2d_layer", (1, 14, 14, 32, 32, 3, 3, [1, 1], [1, 1])), target)
     calls = {"sums": 0, "plain": 0, "steps": 0}
 
     def counted(name, fn):
@@ -825,10 +826,12 @@ def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
         lambda *a: calls.__setitem__("steps", calls["steps"] + 1))
     f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
     details = {}
+    runner = (runner_from_spec("analytic_hf", noise=0.2, seed=2023)
+              if target.startswith("cuda") else None)
     try:
         best, _ = tune_vae.run_tuning(
             task, n_candidates=96, measure_size=16, n_phases=3,
-            vae_epochs=20, reg_epochs=30, select="model",
+            vae_epochs=20, reg_epochs=30, select="model", runner=runner,
             log_file=str(tmp_path / "tune.json"), verbose=False,
             device="cuda", details=details)
         torch.cuda.synchronize()
@@ -851,3 +854,121 @@ def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
     rest = np.flatnonzero(~details["measured"])
     assert list(rest[np.argsort(-s_g[rest])][:16]) == \
         list(rest[np.argsort(-s_c[rest])][:16])
+    return details
+
+
+def test_tune_vae_segment_sums_go_through_the_kernel(dev, tmp_path):
+    """_tune_vae_on_card on the CPU target of the JAX script's default."""
+    _tune_vae_on_card(tmp_path, "llvm -mcpu=skylake-avx512")
+
+
+def test_tune_vae_cuda_target_goes_through_the_kernel(dev, tmp_path):
+    """_tune_vae_on_card on a cuda task (--target cuda, --runner
+    analytic_hf): the GA's GPU-target states, each holding thread binds
+    and a shared-memory cache read."""
+    details = _tune_vae_on_card(tmp_path, "cuda")
+    for st in details["states"]:
+        annos = {it.annotation for stg in st.stages for it in stg.iters}
+        assert {5, 6} <= annos
+        assert any(stg.op.name.endswith(".shared") for stg in st.stages)
+
+
+def test_few_shot_eval_through_the_kernel_equals_plain(dev, tmp_path,
+                                                       monkeypatch):
+    """cli.few_shot_eval with an MLP base on two resnet-50 tasks, the four
+    modes at K 8: on the card every segment sum launches the forward kernel
+    and every optimiser step the backward kernel, with no plain version
+    run; on the CPU (the plain versions), from the same initial
+    parameters, zero's row within 0.01 and the trained modes' within 0.05
+    in each rank metric (float32 sums in another order move near-tied
+    predictions); the base keeps its parameters."""
+    import json
+    import os
+    import pickle
+
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from vae_extent_search_tpu_torch.cli import few_shot_eval
+    from vae_extent_search_tpu_torch.convert import tree_leaves
+    from vae_extent_search_tpu_torch.data.dataset import (
+        make_dataset_from_log_file,
+    )
+    from vae_extent_search_tpu_torch.models import segment as ts
+
+    corpus = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "result/corpus/resnet_50-B1-llvm.json")
+    monkeypatch.chdir(tmp_path)
+    keys, lines = [], []
+    with open(corpus) as f:
+        for line in f:
+            key = json.loads(line)["i"][0][0]
+            keys += [key] if key not in keys else []
+            if keys.index(key) < 2:
+                lines.append(line)
+    with open("two.json", "w") as f:
+        f.writelines(lines)
+    make_dataset_from_log_file(["two.json"], "ds.pkl", min_sample_size=30,
+                               verbose=0)
+    base = ts.MLPModelInternal(in_dim=174, hidden_dim=64, device="cpu")
+    base.params = ts.init_segment_mlp_params(np.random.default_rng(3), 174,
+                                             64)
+    base.fea_norm_vec = np.full(174, 2.0, np.float32)
+    base.use_workload_embedding, base.workload_embed_total_dim = True, 10
+    base.save("mlp.pkl")
+
+    init = ts.init_segment_mlp_params
+    counter = [0]
+
+    def same_init(gen, in_dim, hidden_dim=256, out_dim=1, device=None):
+        counter[0] += 1
+        return init(np.random.default_rng(100 + counter[0]), in_dim,
+                    hidden_dim, out_dim, device=device)
+
+    calls = {"sums": 0, "plain": 0, "steps": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(ts, "init_segment_mlp_params", same_init)
+    monkeypatch.setattr(ts, "segment_sum_rows",
+                        counted("sums", ts.segment_sum_rows))
+    for name in ("segment_sum_plain", "segment_sum_grad_plain"):
+        monkeypatch.setattr(tss, name, counted("plain", getattr(tss, name)))
+    argv = ["--base", "mlp.pkl", "--dataset", "ds.pkl", "--k", "8",
+            "--fine-tune-epochs", "6"]
+    hook = register_optimizer_step_post_hook(
+        lambda *a: calls.__setitem__("steps", calls["steps"] + 1))
+    f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
+    try:
+        on_card = few_shot_eval.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    fwd = tss.segment_sum.launches - f0
+    bwd = tss.segment_sum.backward_launches - b0
+    assert calls["plain"] == 0 and calls["steps"] > 0
+    assert fwd == calls["sums"] > 0 and bwd == calls["steps"]
+    counter[0] = 0
+    on_cpu = few_shot_eval.main(argv + ["--device", "cpu"])
+    assert [r["mode"] for r in on_card] == [r["mode"] for r in on_cpu] == \
+        ["zero", "local", "fine_tune", "plus"]
+    for a, b in zip(on_card, on_cpu):
+        for m in ("pairwise", "peak@1", "peak@5"):
+            tol = 0.01 if a["mode"] == "zero" else 0.05
+            assert abs(a[m] - b[m]) <= tol, (a, b)
+    # fine_tune trains a copy: the base keeps its parameters on the card
+    base = ts.MLPModelInternal.load("mlp.pkl", device="cuda")
+    before = [t.clone() for t in tree_leaves(base.params)]
+    with open("ds.pkl", "rb") as f:
+        ds = pickle.load(f)
+    task = ds.tasks()[0]
+    r = few_shot_eval.adapt_and_eval(
+        base, task, [np.asarray(x, np.float32) for x in ds.features[task]],
+        np.asarray(ds.throughputs[task]), 8, "fine_tune",
+        np.random.default_rng(0), 4)
+    assert 0 <= r["pairwise"] <= 1
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, tree_leaves(base.params)))

@@ -97,6 +97,28 @@ def test_random_selection_equals_jax(jtv, tmp_path, capsys, runner):
     assert details["measured"].sum() == 16 and details["n_seg"] == 48
 
 
+def test_random_selection_on_a_cuda_target_equals_jax(jtv, tmp_path):
+    """A cuda task: the GA's GPU-target rules give the candidates, the
+    per-store featuriser its GPU rows, analytic_hf their GPU roofline; the
+    same picks, log costs and best as the JAX run_tuning."""
+    logs = [str(tmp_path / f"{side}.json") for side in ("port", "jax")]
+    details = {}
+    best, _ = tune_vae.run_tuning(
+        TTask(WK, "cuda"), **SMALL, select="random", log_file=logs[0],
+        runner=tm.runner_from_spec("analytic_hf", noise=0.0, seed=2023),
+        device="cpu", details=details)
+    from vae_extent_search_tpu.search.measure import runner_from_spec
+
+    jbest, _ = jtv.run_tuning(
+        JTask(WK, "cuda"), **SMALL, select="random", log_file=logs[1],
+        runner=runner_from_spec("analytic_hf", noise=0.0, seed=2023))
+    got, want = _log(logs[0], tserde), _log(logs[1], jserde)
+    assert len(got) == 16 and got == want
+    assert best == jbest == min(c[0] for _, c, e in got if e == 0)
+    assert all(any(r[0] == "CHR" for r in recs) for recs, _, _ in got)
+    assert details["n_seg"] == 48
+
+
 def test_model_selection_through_the_command_runner(tmp_path, monkeypatch):
     """Model selection measuring through the external timer: a finite best,
     equal to the log's minimum over its successful records; every segment

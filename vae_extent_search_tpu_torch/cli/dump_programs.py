@@ -13,9 +13,13 @@ them to ``$VES_DATASET_ROOT/to_measure_programs/<task>.json``. Host work
 
 The JAX script first tries its native record-level GA and falls back to
 ``make_states``; the port has no native GA, so ``dump_task`` always takes
-the ``make_states`` path, which gives the JAX fallback's records. The GA's
-GPU-target rules are not ported: a ``cuda`` target raises, as the port's
-``SketchPolicy`` does.
+the ``make_states`` path, which gives the JAX fallback's records. Both
+rule sets of the GA are ported, so ``--target cuda`` regenerates a GPU
+pool such as ``result/conv2d_4k_chip/pool_conv2d_4k.json.gz``'s:
+
+    python -m vae_extent_search_tpu_torch.cli.dump_programs \
+        --workload-key '["conv2d_layer", 1, 56, 56, 64, 64, 3, 3, [1,1], [1,1]]' \
+        --target cuda --n-states 4000 --seed 2023
 """
 
 from __future__ import annotations

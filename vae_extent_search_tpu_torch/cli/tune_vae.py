@@ -12,7 +12,12 @@ retrain the segment regression on all measured (tune_vae.py:73-166).
     python -m vae_extent_search_tpu_torch.cli.tune_vae            # on CUDA
     python -m vae_extent_search_tpu_torch.cli.tune_vae --device cpu \\
         --n-candidates 200 --n-phases 2
+    python -m vae_extent_search_tpu_torch.cli.tune_vae --target cuda \
+        --runner analytic_hf --workload-key \
+        '["conv2d_layer", 1, 56, 56, 64, 64, 3, 3, [1,1], [1,1]]'
 
+A ``cuda`` target takes the GA's GPU-target rules (thread binding,
+shared-memory cache reads) and the per-store featuriser's GPU rows.
 The candidates' per-store rows, their segment ids and offsets live on the
 device; every segment sum of the SegmentVAE and the regression runs the
 ``segment_sum`` CUDA kernel there, forward and backward (the plain

@@ -51,12 +51,25 @@ class HardwareParams:
                        max_local_memory_per_block=2147483647,
                        max_threads_per_block=1024, max_vthread_extent=8,
                        warp_size=32)
-        # The JAX package shapes the CPU schedule space of its analytic
-        # platform profiles (search/platforms.py) here; the port has no
-        # platform registry, so every CPU target takes the default
-        # platform's parameters, which bare "llvm" gets in both packages.
-        # They depend on the host's core count (the reference's
-        # GetDefaultHardwareParams), so a pool depends on the host.
+        # non-default platform profiles (search/platforms.py) shape the
+        # CPU schedule space with the platform's core count and vector
+        # ISA (InitParallel fuses to num_cores*16; reference
+        # sketch_policy_rules.cc:580-643). The default platform — bare
+        # llvm and the historical skylake target — keeps the reference's
+        # host-cpu-count behavior (GetDefaultHardwareParams), so
+        # pre-registry pools regenerate identically.
+        from ..search.platforms import is_default_cpu_platform, \
+            platform_for_target
+
+        p = platform_for_target(target)
+        if not is_default_cpu_platform(p):
+            return cls(num_cores=p.num_cores,
+                       vector_unit_bytes=p.vector_unit_bytes,
+                       cache_line_bytes=64,
+                       max_shared_memory_per_block=2147483647,
+                       max_local_memory_per_block=2147483647,
+                       max_threads_per_block=2147483647,
+                       max_vthread_extent=1, warp_size=1)
         # llvm / cpu-style default (search_task.py GetDefaultHardwareParams)
         return cls(num_cores=os.cpu_count() or 1, vector_unit_bytes=64,
                    cache_line_bytes=64,

@@ -17,10 +17,14 @@ Python GA only (``SketchPolicy.sample_initial_population``,
 record-level GA and ``make_state_records`` which drives it have no
 counterpart here, so ``make_states`` always runs the Python loop; the
 measure-round methods (``continue_search_one_round`` and its eps-greedy
-pick) serve ``records/dispatcher.py``. Only the CPU-target rules are kept
-(the self-tuning path samples its schedule space from an ``llvm`` task);
-the GPU-target rules (thread binding, shared-memory cache reads,
-cross-thread reduction) are not ported, and a GPU task is refused.
+pick) serve ``records/dispatcher.py``. Both rule sets are kept: the
+CPU-target rules above, and for a GPU task (``cuda`` targets; GPU order
+AlwaysInline, MultiLevelTilingWithFusion with structure "SSSRRSRS",
+AddCacheRead("shared"), CrossThreadReduction — sketch_policy.cc:128-147)
+the thread binding of ``init_thread_bind``, the shared-memory cache reads
+with cooperative fetching, the cross-thread reduction, the GPU
+auto-unroll candidates {0,16,64,512,1024} and the GPU mutation weights
+(tile .90 / unroll .10).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..ir.tensor import ComputeOp, PlaceholderOp
 from ..records.task import SearchTask
 
 AUTO_UNROLL_CANDIDATES_CPU = [0, 16, 64, 512]
+AUTO_UNROLL_CANDIDATES_GPU = [0, 16, 64, 512, 1024]
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +358,7 @@ def do_multi_level_tiling(state: State, stage_id: int, structure: str = "SSRSRS"
 
 
 # ---------------------------------------------------------------------------
-# Sketch generation (CPU rule set v1)
+# Sketch generation (CPU and GPU rule sets)
 # ---------------------------------------------------------------------------
 
 
@@ -407,32 +412,115 @@ def _needs_rfactor(op: ComputeOp, analysis, hw) -> bool:
     return red > 1 and red > hw.num_cores
 
 
+def _single_consumer_id(st: State, cons) -> "int | None":
+    """Resolve multiple consumers to their common compute root
+    (reference GetSingleConsumerId, utils.h:193-230: consumers attached
+    under one root stage count as that single root)."""
+    if not cons:
+        return None
+    if len(cons) == 1:
+        return cons[0]
+    root = None
+    for c in cons:
+        stg = st.stages[c]
+        if stg.compute_at == AT_ROOT:
+            r = c
+        elif stg.compute_at == AT_ITER:
+            at = st.attach_map.stage_to_attach_iter.get(c)
+            if at is None:
+                return None
+            r = at[0]
+        else:
+            return None
+        if root is None:
+            root = r
+        elif root != r:
+            return None
+    return root
+
+
+def _needs_cross_thread(op: ComputeOp, analysis, hw) -> bool:
+    """Reference RuleCrossThreadReduction::MeetCondition
+    (sketch_policy_rules.cc:330-370): for multi-level-tiling stages,
+    cross-thread applies when the space domain fits one thread block
+    and the reduction dominates it; for plain reduction stages, when
+    the fused reduction exceeds a warp."""
+    if not op.reduce_axes:
+        return False
+    space, red = _cum_space_reduce_len(op)
+    if analysis.needs_multi_level_tiling.get(op.uid):
+        return space <= hw.max_threads_per_block and space < red
+    return red > 1 and red > hw.warp_size
+
+
 def _generate_main_sketch(task: SearchTask, use_rfactor: bool = False,
+                          cross_thread: bool = False,
                           fuse_level: int = None,
                           fuse_consumer: bool = True,
                           rfactor_inner: bool = True) -> State:
-    """One CPU sketch: AlwaysInline for strictly inlineable non-output
-    stages; for tilable stages MultiLevelTilingWithFusion (or AddCacheWrite
-    when no fusible consumer exists — the cache copy becomes the
-    consumer); optionally the AddRfactor alternative for reduction-heavy
-    small-spatial stages (sketch_policy.cc:96-104 rule order)."""
+    """One sketch: AlwaysInline for strictly inlineable non-output stages;
+    for tilable stages MultiLevelTilingWithFusion (or AddCacheWrite when
+    no fusible consumer exists — the cache copy becomes the consumer), GPU
+    AddCacheRead("shared"); optionally the AddRfactor / CrossThreadReduction
+    alternatives for reduction-heavy small-spatial stages
+    (sketch_policy.cc:96-147 rule order)."""
     dag = task.compute_dag
     analysis = AccessAnalysis(dag)
-    structure = "SSRSRS"
-    n_split = fuse_level if fuse_level is not None else 2
+    is_gpu = task.is_gpu
+    structure = "SSSRRSRS" if is_gpu else "SSRSRS"
+    n_split = fuse_level if fuse_level is not None else (3 if is_gpu else 2)
+    n_space_levels = structure.count("S")
 
     st = dag.init_state.copy()
     st.tiled_stage_split_ids = {}  # op name -> spatial split step ids
+    # stages added by cache_read are never re-visited by the reference's
+    # enumeration (GenerateSketches walks stage ids strictly downward
+    # and cache stages insert above the producer position,
+    # sketch_policy.cc:314-382) — without this the GPU greedy-inline
+    # rule would swallow the shared caches it just created
+    cache_stage_uids = set()
     stage_id = len(st.stages) - 1
     while stage_id >= 0:
         stage = st.stages[stage_id]
         op = stage.op
-        if isinstance(op, PlaceholderOp) or stage.compute_at == AT_INLINED:
+        if isinstance(op, PlaceholderOp) or stage.compute_at == AT_INLINED \
+                or op.uid in cache_stage_uids:
             stage_id -= 1
             continue
         uid = op.uid
-        if analysis.is_strictly_inlineable.get(uid) \
-                and not analysis.is_output.get(uid):
+        # GPU greedily inlines EVERY reduce-free non-output compute op
+        # — including padding and transposed-access ops that CPU leaves
+        # for ChangeComputeLocation to tune (reference
+        # ShouldAlwaysBeInlined, sketch_policy_rules.cc:57-76: the
+        # IsStrictlyInlineable check applies only to CPU tasks).
+        # Golden: conv2d.json cuda records CI pad_temp after
+        # cache-reading it (CI x2 per record).
+        inlinable = (
+            (isinstance(op, ComputeOp) and not op.reduce_axes)
+            if is_gpu else analysis.is_strictly_inlineable.get(uid)
+        )
+        if inlinable and not analysis.is_output.get(uid):
+            # RuleSpecialComputeLocationGPU (sketch_policy_rules.cc:425):
+            # a to-be-inlined producer of a const-simplified consumer is
+            # computed_at just before the consumer's unrolled region
+            has_producers = isinstance(op, ComputeOp) and bool(
+                E.collect_reads(op.body)
+            )
+            if is_gpu and has_producers:
+                cons = analysis.consumers(st, stage_id)
+                if len(cons) == 1 and analysis.const_tensor_indices.get(
+                    st.stages[cons[0]].op.uid
+                ):
+                    tgt = st.stages[cons[0]]
+                    placed = False
+                    for i, it in enumerate(tgt.iters):
+                        if it.annotation == 1 and i > 0:  # first unroll
+                            st.compute_at(stage_id, cons[0], i - 1)
+                            placed = True
+                            break
+                    if placed:
+                        stage_id -= 1
+                        continue
             st.compute_inline(stage_id)
             stage_id -= 1
             continue
@@ -463,40 +551,96 @@ def _generate_main_sketch(task: SearchTask, use_rfactor: bool = False,
             stage_id -= 1
             continue
         if not analysis.needs_multi_level_tiling.get(uid):
-            if op.reduce_axes and use_rfactor and _needs_rfactor(
-                    op, analysis, task.hardware_params):
-                # AddRfactor (sketch_policy_rules.cc:248-300): fuse
-                # all reduce iters, split by {1}, rfactor either the
-                # outer or the inner split part (rfactor_inner
-                # selects the reference's second variant, which
-                # also reorders the rf stage's space iter innermost
-                # for vectorization). The split factor is reset to
-                # undefined afterwards so init-population samples
-                # it (the reference's rfactor hack,
-                # sketch_policy.cc:355-378).
-                red_pos = [
-                    i for i, it in enumerate(stage.iters)
-                    if it.kind != KIND_SPATIAL
-                ]
-                if len(red_pos) >= 1:
-                    if len(red_pos) > 1:
-                        st.fuse(stage_id, red_pos)
-                    fused_pos = red_pos[0]
-                    n_space = fused_pos  # spatial iters precede
-                    st.split(stage_id, fused_pos, [1])
-                    rf_iter = fused_pos + (1 if rfactor_inner else 0)
-                    st.rfactor(stage_id, rf_iter, n_space)
-                    sp = st.transform_steps[-2]
-                    st.transform_steps[-2] = SplitStep(
-                        sp.stage_id, sp.iter_id, sp.extent, [None],
-                        sp.inner_to_outer,
-                    )
-                    if rfactor_inner:
-                        # move the space iter at n_space innermost
-                        rst = st.stages[stage_id]
-                        order = [i for i in range(len(rst.iters))
-                                 if i != n_space] + [n_space]
-                        st.reorder(stage_id, order)
+            if op.reduce_axes and (
+                _needs_cross_thread(op, analysis, task.hardware_params)
+                if is_gpu else
+                _needs_rfactor(op, analysis, task.hardware_params)
+            ):
+                if use_rfactor and not is_gpu:
+                    # AddRfactor (sketch_policy_rules.cc:248-300): fuse
+                    # all reduce iters, split by {1}, rfactor either the
+                    # outer or the inner split part (rfactor_inner
+                    # selects the reference's second variant, which
+                    # also reorders the rf stage's space iter innermost
+                    # for vectorization). The split factor is reset to
+                    # undefined afterwards so init-population samples
+                    # it (the reference's rfactor hack,
+                    # sketch_policy.cc:355-378).
+                    red_pos = [
+                        i for i, it in enumerate(stage.iters)
+                        if it.kind != KIND_SPATIAL
+                    ]
+                    if len(red_pos) >= 1:
+                        if len(red_pos) > 1:
+                            st.fuse(stage_id, red_pos)
+                        fused_pos = red_pos[0]
+                        n_space = fused_pos  # spatial iters precede
+                        st.split(stage_id, fused_pos, [1])
+                        rf_iter = fused_pos + (1 if rfactor_inner else 0)
+                        st.rfactor(stage_id, rf_iter, n_space)
+                        sp = st.transform_steps[-2]
+                        st.transform_steps[-2] = SplitStep(
+                            sp.stage_id, sp.iter_id, sp.extent, [None],
+                            sp.inner_to_outer,
+                        )
+                        if rfactor_inner:
+                            # move the space iter at n_space innermost
+                            rst = st.stages[stage_id]
+                            order = [i for i in range(len(rst.iters))
+                                     if i != n_space] + [n_space]
+                            st.reorder(stage_id, order)
+                elif cross_thread and is_gpu:
+                    # CrossThreadReduction (sketch_policy_rules.cc:372-420):
+                    # fuse the reduce iters; when the (single, possibly
+                    # inline-resolved) consumer shares outer iterators
+                    # and needs no multi-level tiling, FOLLOW the
+                    # consumer's thread split and compute_at the
+                    # reduction inside it (the softmax pattern of
+                    # resnet-18-cuda records: SP on norm, FSP+CA on
+                    # expsum/maxelem); otherwise bind a plain
+                    # warp-sized split
+                    red_pos = [
+                        i for i, it in enumerate(stage.iters)
+                        if it.kind != KIND_SPATIAL
+                    ]
+                    if red_pos:
+                        if len(red_pos) > 1:
+                            st.fuse(stage_id, red_pos)
+                        fused_pos = red_pos[0]
+                        stage = st.stages[stage_id]
+                        warp = task.hardware_params.warp_size
+                        cons = analysis.consumers(st, stage_id)
+                        fuse_target = None
+                        c = _single_consumer_id(st, cons)
+                        if c is not None:
+                            nco = analysis.num_common_outer(
+                                op, st.stages[c].op.uid)
+                            if nco > 0 and not \
+                                    analysis.needs_multi_level_tiling.get(
+                                        st.stages[c].op.uid):
+                                fuse_target = (c, nco)
+                        if fuse_target is not None:
+                            c, nco = fuse_target
+                            split_ids = [
+                                si for si, s in
+                                enumerate(st.transform_steps)
+                                if isinstance(s, SplitStep) and s.stage_id == c
+                            ]
+                            if not split_ids:
+                                # simple reduce-free consumer: give it
+                                # the thread split to follow
+                                last = len(st.stages[c].iters) - 1
+                                parts = st.split(c, last, [warp])
+                                st.bind(c, parts[1], "threadIdx.x")
+                                split_ids = [len(st.transform_steps) - 2]
+                            parts = st.follow_split(
+                                stage_id, fused_pos, split_ids[0], 1)
+                            st.bind(stage_id, parts[1], "threadIdx.x")
+                            st.compute_at(stage_id, c, nco - 1)
+                        else:
+                            parts = st.split(
+                                stage_id, fused_pos, [warp])
+                            st.bind(stage_id, parts[1], "threadIdx.x")
             stage_id -= 1
             continue
 
@@ -512,7 +656,8 @@ def _generate_main_sketch(task: SearchTask, use_rfactor: bool = False,
         if not fusible:
             # AddCacheWrite: [cache compute at stage_id, copy at
             # stage_id + 1]; the copy becomes the fusion consumer
-            st.cache_write(stage_id, "global")
+            scope = "local" if is_gpu else "global"
+            st.cache_write(stage_id, scope)
             fusible = [stage_id + 1]
 
         stage = st.stages[stage_id]
@@ -529,6 +674,36 @@ def _generate_main_sketch(task: SearchTask, use_rfactor: bool = False,
         # always fuse into their copy stage.
         if fusible and (fuse_consumer or not had_fusible_consumer):
             _fuse_into_consumer(st, stage_id, fusible[0], split_ids, n_split)
+        if is_gpu:
+            # AddCacheRead: shared caches for the tiled stage's inputs,
+            # attached at the LAST reduce iterator of the OUTERMOST
+            # reduce tile (reference GetLastReduceIteratorInOutermost-
+            # ReduceTile, utils.h:503: the first reduction iterator
+            # whose fused name covers every reduce axis — which sits
+            # after the LEADING space levels, not after all of them;
+            # golden: conv2d.json cuda records attach at iter 14 =
+            # 3*n_axes + n_reduce - 1 for structure "SSSRRSRS")
+            n_reduce_axes = len(op.reduce_axes)
+            leading_s = structure.index("R") if "R" in structure \
+                else n_space_levels
+            attach_pos = leading_s * n_axes + n_reduce_axes - 1
+            for tensor in op.input_tensors():
+                # find the producer stage id in the current state
+                src_sid = None
+                for sid2, s2 in enumerate(st.stages):
+                    if s2.op.uid == tensor.op.uid and \
+                            s2.compute_at != AT_INLINED:
+                        src_sid = sid2
+                        break
+                if src_sid is None:
+                    continue
+                added = st.cache_read(src_sid, "shared", [stage_id])
+                cache_stage_uids.add(st.stages[added].op.uid)
+                # ids after insertion: our stage shifted if behind
+                tgt = stage_id + 1 if stage_id >= added else stage_id
+                st.compute_at(added, tgt, attach_pos)
+                if stage_id >= added:
+                    stage_id += 1
         stage_id -= 1
     return st
 
@@ -536,10 +711,11 @@ def _generate_main_sketch(task: SearchTask, use_rfactor: bool = False,
 def generate_sketches(task: SearchTask, seed: int = 0) -> List[State]:
     """All sketch variants for the task (the reference's rule BFS yields
     multiple sketches; we enumerate the rule alternatives explicitly):
-    one per consumer-fusion level (CPU levels {1, 2} — the reference's
-    follow_tiling_levels), the plain multi-level tiling, and the rfactor
-    alternatives when a small-spatial reduction qualifies."""
-    levels = [2, 1]
+    one per consumer-fusion level (CPU levels {1, 2}, GPU {3} — the
+    reference's follow_tiling_levels) plus the rfactor /
+    cross-thread-reduction alternative when a small-spatial reduction
+    qualifies."""
+    levels = [3] if task.is_gpu else [2, 1]
     sketches = []
     seen = set()
     for lv in levels:
@@ -551,32 +727,43 @@ def generate_sketches(task: SearchTask, seed: int = 0) -> List[State]:
         if key not in seen:
             seen.add(key)
             sketches.append(sk)
-    # the plain (unfused) multi-level-tiling variant — CPU's
-    # RuleMultiLevelTilingWithFusion is kApply, so the reference's BFS also
-    # reaches plain RuleMultiLevelTiling
-    try:
-        sk = _generate_main_sketch(task, fuse_consumer=False)
-        if sk.to_str() not in seen:
-            seen.add(sk.to_str())
-            sketches.append(sk)
-    except Exception:
-        pass
+    if not task.is_gpu:
+        # the plain (unfused) multi-level-tiling variant — CPU's
+        # RuleMultiLevelTilingWithFusion is kApply, so the reference's
+        # BFS also reaches plain RuleMultiLevelTiling
+        try:
+            sk = _generate_main_sketch(task, fuse_consumer=False)
+            if sk.to_str() not in seen:
+                seen.add(sk.to_str())
+                sketches.append(sk)
+        except Exception:
+            pass
     if not sketches:
         sketches = [_generate_main_sketch(task)]
     dag = task.compute_dag
-    # the rfactor alternatives when some stage qualifies (the reference's
-    # AddRfactor condition); AddRfactor emits BOTH split-part variants
-    # (outer and inner-with-reorder, sketch_policy_rules.cc:248-300)
+    # rfactor / cross-thread-reduction alternatives when some stage
+    # qualifies (GPU gating is the reference CrossThreadReduction
+    # MeetCondition; CPU is the AddRfactor condition)
     _an = AccessAnalysis(dag)
-    has_small_reduce = any(
-        isinstance(op, ComputeOp)
-        and _needs_rfactor(op, _an, task.hardware_params)
-        for op in dag.ops
-    )
-    variants = [
-        dict(use_rfactor=True, rfactor_inner=False),
-        dict(use_rfactor=True, rfactor_inner=True),
-    ] if has_small_reduce else []
+    if task.is_gpu:
+        has_small_reduce = any(
+            isinstance(op, ComputeOp)
+            and _needs_cross_thread(op, _an, task.hardware_params)
+            for op in dag.ops
+        )
+        variants = [dict(cross_thread=True)] if has_small_reduce else []
+    else:
+        has_small_reduce = any(
+            isinstance(op, ComputeOp)
+            and _needs_rfactor(op, _an, task.hardware_params)
+            for op in dag.ops
+        )
+        # the reference's AddRfactor emits BOTH split-part variants
+        # (outer and inner-with-reorder, sketch_policy_rules.cc:248-300)
+        variants = [
+            dict(use_rfactor=True, rfactor_inner=False),
+            dict(use_rfactor=True, rfactor_inner=True),
+        ] if has_small_reduce else []
     for kw in variants:
         try:
             alt = _generate_main_sketch(task, **kw)
@@ -585,6 +772,122 @@ def generate_sketches(task: SearchTask, seed: int = 0) -> List[State]:
         except Exception:
             pass
     return sketches
+
+
+def init_thread_bind(state: State, task: SearchTask,
+                     rng: random.Random) -> State:
+    """GPU thread binding (InitThreadBind, sketch_policy_rules.cc:780-910):
+
+    - root multi-level-tiled stages: fuse space level 0 -> blockIdx.x,
+      level 1 -> vthread, level 2 -> threadIdx.x
+    - trivial root stages: fuse all space iters -> blockIdx.x (+ threadIdx
+      split by warp size)
+    - ".shared" cache stages: cooperative fetching — fuse all iters, split
+      {1} + vectorize, follow_fused_split over the attach target's spatial
+      split steps at level 1 -> threadIdx.x
+    """
+    split_ids_of = getattr(state, "tiled_stage_split_ids", {})
+    warp = task.hardware_params.warp_size
+
+    def _has_cross_thread(sid):
+        """threadIdx-bound reduce iter in the stage or a stage attached
+        to it (reference HasCrossThreadReduction, utils.h:445-470)."""
+        def chk(stg):
+            return any(it.annotation == 6 and it.kind == KIND_REDUCTION
+                       for it in stg.iters)
+
+        if chk(state.stages[sid]):
+            return True
+        for iid in range(len(state.stages[sid].iters)):
+            for att in state.attach_map.iter_to_attached_stages.get(
+                    (sid, iid), ()):
+                if chk(state.stages[att]):
+                    return True
+        return False
+
+    for sid in range(len(state.stages)):
+        stage = state.stages[sid]
+        if stage.op_type == "placeholder" or stage.compute_at == AT_INLINED:
+            continue
+        name = stage.op.name
+        if _has_cross_thread(sid):
+            # cross-thread-reduction stages: the reduction is already
+            # threadIdx-bound; a root stage just gets its outer space
+            # prefix (stopping at reduce/annotated/attach-carrying
+            # iters) bound to blockIdx (reference InitThreadBind
+            # cross-thread branch + FuseAllOuterSpaceIterators,
+            # utils.h:597-619). Attached stages are left alone.
+            if stage.compute_at != AT_ROOT:
+                continue
+            space = []
+            for i, it in enumerate(stage.iters):
+                if it.kind == KIND_REDUCTION or it.annotation != 0:
+                    break
+                if i > 0 and (sid, i - 1) in \
+                        state.attach_map.iter_to_attached_stages:
+                    break
+                space.append(i)
+            if not space:
+                continue
+            fused = state.fuse(sid, space) if len(space) > 1 else \
+                stage.iters[space[0]]
+            state.bind(sid, fused, "blockIdx.x")
+            continue
+        if any(it.annotation == 6 for it in stage.iters):
+            continue  # already threadIdx-annotated
+        if stage.compute_at == AT_ROOT:
+            # multi-level-tiled roots carry >= 3 space levels; two-level
+            # stages (e.g. const-simplified winograd data_pack) take the
+            # FuseAllOuterSpaceIterators path instead
+            is_mlt_root = any(it.name.endswith(".2") for it in stage.iters)
+            if is_mlt_root:
+                n_axes = sum(
+                    1 for it in stage.iters if it.name.endswith(".0")
+                )
+                # level-major layout: [lv0 x n_axes][lv1 x n_axes]...
+                lv0 = state.fuse(sid, list(range(0, n_axes)))
+                state.bind(sid, lv0, "blockIdx.x")
+                lv1 = state.fuse(sid, list(range(1, 1 + n_axes)))
+                state.bind(sid, lv1, "vthread")
+                lv2 = state.fuse(sid, list(range(2, 2 + n_axes)))
+                state.bind(sid, lv2, "threadIdx.x")
+            else:
+                # FuseAllOuterSpaceIterators: the leading unannotated
+                # space prefix -> blockIdx (+ threadIdx by warp size)
+                space = []
+                for i, it in enumerate(stage.iters):
+                    if it.kind != KIND_SPATIAL or it.annotation != 0:
+                        break
+                    space.append(i)
+                if not space:
+                    continue
+                fused = state.fuse(sid, space)
+                ext = fused.range[1] if fused.range else warp * 2
+                if ext <= warp:
+                    state.bind(sid, fused, "threadIdx.x")
+                else:
+                    parts = state.split(sid, fused, [warp])
+                    state.bind(sid, parts[0], "blockIdx.x")
+                    state.bind(sid, parts[1], "threadIdx.x")
+        elif stage.compute_at == AT_ITER and name.endswith(".shared"):
+            # cooperative fetching
+            attach = state.attach_map.stage_to_attach_iter.get(sid)
+            if attach is None:
+                continue
+            target_sid = attach[0]
+            spatial_split_ids = split_ids_of.get(
+                state.stages[target_sid].op.name
+            )
+            if not spatial_split_ids:
+                continue
+            fused = state.fuse(sid, list(range(len(stage.iters))))
+            iters0 = state.split(sid, fused, [1])
+            state.vectorize(sid, iters0[1])
+            iters1 = state.follow_fused_split(
+                sid, iters0[0], spatial_split_ids, 1, True
+            )
+            state.bind(sid, iters1[1], "threadIdx.x")
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -689,11 +992,14 @@ def init_parallel(state: State, task: SearchTask, rng: random.Random) -> State:
 
 def init_unroll(state: State, task: SearchTask, rng: random.Random) -> State:
     """Random auto_unroll pragma on stages with reductions (InitUnroll)."""
+    cands = (
+        AUTO_UNROLL_CANDIDATES_GPU if task.is_gpu else AUTO_UNROLL_CANDIDATES_CPU
+    )
     for sid, stage in enumerate(state.stages):
         if stage.op_type == "placeholder" or stage.compute_at == AT_INLINED:
             continue
         if isinstance(stage.op, ComputeOp) and stage.op.reduce_axes:
-            v = rng.choice(AUTO_UNROLL_CANDIDATES_CPU)
+            v = rng.choice(cands)
             if v:
                 state.pragma(sid, 0, f"auto_unroll_max_step${v}")
     return state
@@ -994,10 +1300,12 @@ def mutate_auto_unroll(state: State, task: SearchTask,
     ]
     if not pragma_ids:
         return None
+    cands = (
+        AUTO_UNROLL_CANDIDATES_GPU if task.is_gpu else AUTO_UNROLL_CANDIDATES_CPU
+    )
     step_id = rng.choice(pragma_ids)
     recs[step_id] = ["PR", recs[step_id][1], recs[step_id][2],
-                     "auto_unroll_max_step$"
-                     f"{rng.choice(AUTO_UNROLL_CANDIDATES_CPU)}"]
+                     f"auto_unroll_max_step${rng.choice(cands)}"]
     return _apply(state, recs)
 
 
@@ -1045,7 +1353,7 @@ class RandomCostModel(PythonCostModel):
 
 
 class SketchPolicy:
-    """CPU sketch policy over our schedule IR.
+    """CPU/GPU sketch policy over our schedule IR.
 
     Parameters follow SketchPolicy.DEFAULT_PARAMS
     (python search_policy.py:179-210)."""
@@ -1053,9 +1361,6 @@ class SketchPolicy:
     def __init__(self, task: SearchTask, cost_model: PythonCostModel = None,
                  params: Optional[Dict] = None, seed: int = 2023,
                  verbose: int = 0):
-        if task.is_gpu:
-            raise ValueError(f"target {task.target!r}: only CPU-target "
-                             "sketch rules are ported")
         self.task = task
         self.cost_model = cost_model or RandomCostModel(seed)
         self.params = {
@@ -1082,11 +1387,19 @@ class SketchPolicy:
             sketch = self.rng.choice(self.sketches)
             try:
                 st = init_fill_tile_size(sketch, self.rng, max_inner)
-                st = init_change_compute_location(st, self.task, self.rng)
-                st = init_parallel(st, self.task, self.rng)
-                st = init_unroll(st, self.task, self.rng)
-                st = self.task.compute_dag.infer_bound(st)
-                st = init_vectorization(st, self.task, self.rng)
+                if self.task.is_gpu:
+                    # GPU init rules: FillTileSize -> ThreadBind -> Unroll
+                    # (sketch_policy.cc:128-147)
+                    st = init_thread_bind(st, self.task, self.rng)
+                    st = init_unroll(st, self.task, self.rng)
+                    st = self.task.compute_dag.infer_bound(st)
+                else:
+                    st = init_change_compute_location(st, self.task,
+                                                      self.rng)
+                    st = init_parallel(st, self.task, self.rng)
+                    st = init_unroll(st, self.task, self.rng)
+                    st = self.task.compute_dag.infer_bound(st)
+                    st = init_vectorization(st, self.task, self.rng)
                 key = st.to_str()
             except Exception:
                 continue
@@ -1139,11 +1452,20 @@ class SketchPolicy:
                         len(cur) - 1)
                 ]
                 if self.rng.random() < mut_prob:
-                    # mutation weights mirror sketch_policy.cc:113-126
-                    # (tile .90 / unroll .04 / compute-location .05 /
-                    # parallel .01)
+                    # mutation weights mirror sketch_policy.cc:113-152
+                    # (CPU: tile .90 / unroll .04 / compute-location .05 /
+                    # parallel .01; GPU: tile .90 / unroll .10)
                     r = self.rng.random()
-                    if r < 0.90:
+                    if self.task.is_gpu:
+                        if r < 0.90:
+                            child = mutate_tile_size(
+                                parent, self.rng,
+                                self.params["max_innermost_split_factor"],
+                            )
+                        else:
+                            child = mutate_auto_unroll(parent, self.task,
+                                                       self.rng)
+                    elif r < 0.90:
                         child = mutate_tile_size(
                             parent, self.rng,
                             self.params["max_innermost_split_factor"],
