@@ -19,6 +19,9 @@
     python3 chip_smoke.py --only cuda_target  # phases 1 and 23 alone, for
                                        # work on the GA's GPU-target rules;
                                        # ends {"partial": "cuda_target"}
+    python3 chip_smoke.py --only tune_network  # phases 1 and 24 alone,
+                                       # for work on the tuning loop; ends
+                                       # {"partial": "tune_network"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -276,7 +279,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
      --n-candidates cut to CUDA_TARGET["tune_candidates"], its other
      options at their defaults, held as in phase 22. The phase's seconds
      are printed against its budget (CUDA_TARGET_BUDGET_S)
-The last lines are JSON objects with phase 20's, 21's, 22's and 23's
+ 24. the tuning loop, in a temporary directory, target "llvm
+     -mcpu=skylake-avx512" (TUNE_NET_TARGET), the analytic runner with
+     noise 0.2: (a) cli.tune_network --network dcgan at its defaults (the
+     random model) for 96 trials, again with --continue-tuning for 32, then
+     --eval-only: every record of the log replays, the estimate equals the
+     sum of weight x best recorded cost, results.tsv gains its rows, and no
+     kernel launches; cli.ansor --network dcgan --num-measure-trials 96 (cut
+     from 256) twice in one work dir, the second taking its tasks from the
+     pickle cache; (b) resnet_18's 14 tasks under
+     TaskScheduler(strategy="gradient") with sketch.mlp from phase 17's
+     mlp.pkl (hidden 256, lambdaRank; warm-up gate 14 x 16 = 224), 320
+     trials, 16 per round, through make_search_policies and tune(policies=,
+     cost_model=) with the GA population cut from 2,048 to 128 (4
+     iterations kept): the rounds, the refits (the first at 224 samples),
+     every segment sum through the forward kernel and every optimiser step
+     through the backward kernel with no plain call, the host seconds of
+     the GA, the featurising, the predicts and the refits, the best costs
+     and the estimated latency; the refit model's scores of 64 states on
+     the card within 1e-4 of max(1, max |score|) of the CPU's, with the
+     same top 16; (c) transfer_tune(search_policy="sketch.mlp") on
+     matmul_auto_scheduler_test 32^3 and 48^3 (JAX tests/test_pipeline.py's
+     setting with an MLP base pretrained on 32 measured states of the
+     first), 32 trials, 16 per round, at the default population: the
+     PlusMix delta fits through both kernels; its scores on the card are
+     within 1e-4 of its largest score of the same weights on the CPU
+     (small: the reference's rmse delta has a sigmoid head, which cannot
+     fit the residuals below 0), its weights moved from their seeded
+     start, its rmse on the residuals of its last fit is below that at
+     the start, and it moves the combined score; the kept base scores
+     exactly as a pristine reload. The phase's seconds are printed
+     against its budget (TUNE_NET_BUDGET_S)
+In the whole run, phases 22, 23 and 24 run side by side, a process each
+(phase_job), while phase 21 runs in the main process: all four are bound by
+host Python (the GA, the featuriser, eager launches), and each process sets
+its own launch counts to 0 before its paths and reads them after. Their
+seconds are then printed beside the others' and not against their budgets,
+which hold for a phase run alone (--only).
+The last lines are JSON objects with phase 20's, 21's, 22's, 23's and 24's
 results, the card's name and power limit, a JSON object with each kernel's
 check and times, then {"ok": true, "device": {...}}.
 """
@@ -1798,6 +1838,10 @@ def segment_phases(dev, peaks, kernels, shared=None):
                 ["--model", "mlp.pkl", "--datasets", "ds.pkl"])["ds.pkl"]
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t
+        if shared is not None:
+            # phase 24's pretrained model
+            with open("mlp.pkl", "rb") as f:
+                shared["mlp_pkl"] = f.read()
         for line in buf.getvalue().strip().splitlines():
             log(f"[17] {line}")
         path_counts("17", counts, counts.steps)
@@ -2030,6 +2074,23 @@ def segment_phases(dev, peaks, kernels, shared=None):
 NET_TARGET = "llvm -mcpu=skylake-avx512"
 NET_MODELS = ("mlp", "lstm", "mha", "tabnet", "random")
 NET_BUDGET_S = 150.0
+# True while phases 21-24 run side by side and share the host: a phase's
+# host seconds then hold nothing against its budget, which is for the
+# phase run alone (--only)
+SIDE_BY_SIDE = False
+
+
+def budget_line(phase, secs, budget, parts=""):
+    """Logs the phase's seconds, against its budget only when it ran
+    alone."""
+    if SIDE_BY_SIDE:
+        log(f"[{phase}] phase {phase}: {secs:.1f} s{parts}, beside the "
+            f"other phases (its budget of {budget:.0f} s holds alone)")
+        return
+    log(f"[{phase}] phase {phase}: {secs:.1f} s (budget {budget:.0f} s)"
+        f"{parts}")
+    if secs > budget:
+        log(f"[{phase}] over its budget of {budget:.0f} s")
 # phase 21's runs of the network scripts, cut for the time limit: K 8 on 8
 # tasks, and three random trials of the MLP's hyperparameters
 NET_SCRIPTS = {"few_shot": ["--k", "8", "--max-tasks", "8"],
@@ -2437,17 +2498,7 @@ def network_phases(dev, kernels, dataset=None):
             reset()
             (total, missing), text = quiet(estimate_network_latency.main, [
                 RESNET50_LOG, "--target", NET_TARGET])
-            best = {}
-            for rec in iter_records(RESNET50_LOG):
-                if rec.res.error_no == 0:
-                    k = rec.inp.task.workload_key
-                    best[k] = min(best.get(k, float("inf")),
-                                  rec.res.mean_cost)
-            tasks_, weights = get_network_tasks("resnet_50", 1, 224,
-                                                NET_TARGET)
-            own = 0.0
-            for task, w in zip(tasks_, weights):
-                own += best[task.workload_key] * w
+            own = weighted_best(RESNET50_LOG, "resnet_50", NET_TARGET)
             (d_ms, r_ms), text2 = quiet(search.main, [RESNET50_LOG,
                                                       "--target", NET_TARGET])
             log(f"[21] {text.strip()}; the sum of weight x best cost "
@@ -2470,9 +2521,7 @@ def network_phases(dev, kernels, dataset=None):
                 os.environ["VES_DATASET_ROOT"] = env_before
             common.set_dataset_root()
     secs = time.perf_counter() - t_phase
-    log(f"[21] phase 21: {secs:.1f} s (budget {NET_BUDGET_S:.0f} s)")
-    if secs > NET_BUDGET_S:
-        log(f"[21] over its budget of {NET_BUDGET_S:.0f} s")
+    budget_line("21", secs, NET_BUDGET_S)
     launches = {"forward": train["mlp"]["forward_launches"] + eval_launches
                 + launches_scripts["forward"],
                 "backward": train["mlp"]["backward_launches"]
@@ -2801,9 +2850,7 @@ def online_phases(dev, kernels):
                 os.environ["VES_DATASET_ROOT"] = env_before
             common.set_dataset_root()
     secs = time.perf_counter() - t_phase
-    log(f"[22] phase 22: {secs:.1f} s (budget {ONLINE_BUDGET_S:.0f} s)")
-    if secs > ONLINE_BUDGET_S:
-        log(f"[22] over its budget of {ONLINE_BUDGET_S:.0f} s")
+    budget_line("22", secs, ONLINE_BUDGET_S)
     out["seconds"] = secs
     out["segment_sum_launches"] = launches
     return out
@@ -2997,13 +3044,558 @@ def cuda_target_phases(dev, kernels):
                 os.environ["VES_DATASET_ROOT"] = env_before
             common.set_dataset_root()
     secs = time.perf_counter() - t_phase
-    log(f"[23] phase 23: {secs:.1f} s (budget {CUDA_TARGET_BUDGET_S:.0f} s)")
-    if secs > CUDA_TARGET_BUDGET_S:
-        log(f"[23] over its budget of {CUDA_TARGET_BUDGET_S:.0f} s")
+    budget_line("23", secs, CUDA_TARGET_BUDGET_S)
     out["seconds"] = secs
     out["fused_head_launches"] = fh_launches
     out["segment_sum_launches"] = seg_launches
     return out
+
+
+# phase 24: the tuning loop. (a) cli.tune_network and cli.ansor at their
+# defaults (the random model), (b) resnet_18's 14 tasks under the gradient
+# strategy with phase 17's pretrained MLP, (c) transfer_tune with an MLP
+# base. Cut for the time limit: (b)'s GA population, 2,048 -> 128 (its 4
+# iterations kept: at 2,048 each learned round would featurise 16 times
+# the states on the host, the loop's largest part, PERF.md section 5), and
+# cli.ansor's trials, 256 -> 96
+TUNE_NET = dict(network="dcgan", trials=96, more_trials=32, ansor_trials=96,
+                loop_network="resnet_18", loop_trials=320, per_round=16,
+                population=128, transfer_sizes=(32, 48), transfer_states=32,
+                transfer_trials=32, probe_states=64, pick=16, tol=1e-4)
+TUNE_NET_TARGET = "llvm -mcpu=skylake-avx512"
+TUNE_NET_BUDGET_S = 240.0
+
+
+class LoopClock:
+    """Host seconds, while active, of the tuning loop's parts: the
+    policies' rounds (GA, featurising and scoring), the featurising of the
+    states the learned model scores, its predict calls, its updates and
+    the refits inside them, and the measuring. Also the number of samples
+    at each update and at each refit."""
+
+    def __init__(self, model):
+        from vae_extent_search_tpu_torch.search import cost_model, measure
+        from vae_extent_search_tpu_torch.search import sketch
+
+        self.model = model
+        self.targets = [
+            (sketch.SketchPolicy, "continue_search_one_round", "round"),
+            (cost_model, "get_per_store_features_from_states", "featurise"),
+            (measure.ProgramMeasurer, "measure", "measure"),
+            (model.internal, "predict_on_features", "predict"),
+            (model.internal, "fit_base", "refit"),
+            (model, "update", "update")]
+        self.s = {key: 0.0 for _, _, key in self.targets}
+        self.n = {key: 0 for key in self.s}
+        self.update_sizes, self.refit_sizes = [], []
+
+    def _timed(self, key, fn):
+        def wrapper(*a, **kw):
+            if key == "refit":
+                self.refit_sizes.append(len(self.model._inputs))
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[key] += time.perf_counter() - t
+                self.n[key] += 1
+                if key == "update":
+                    self.update_sizes.append(len(self.model._inputs))
+        return wrapper
+
+    def __enter__(self):
+        self._saved = [(obj, name, obj.__dict__.get(name))
+                       for obj, name, _ in self.targets]
+        for obj, name, key in self.targets:
+            setattr(obj, name, self._timed(key, getattr(obj, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+
+    def split(self):
+        """GA (the rounds less their featurising and scoring), featurise,
+        predict, refit, the updates' own featurising, measure (seconds)."""
+        s = self.s
+        return {"ga": s["round"] - s["featurise"] - s["predict"],
+                "featurise": s["featurise"], "predict": s["predict"],
+                "refit": s["refit"],
+                "update_featurise": s["update"] - s["refit"],
+                "measure": s["measure"]}
+
+
+def pretrained_mlp(dev):
+    """Phase 17's model, made here when phase 24 runs alone:
+    cli.make_dataset on the resnet-50 corpus and cli.train_model --models
+    mlp (hidden 256, lambdaRank, workload embedding, seed 0). Returns the
+    pickle's bytes."""
+    from vae_extent_search_tpu_torch.cli import make_dataset, train_model
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d), \
+            contextlib.redirect_stdout(io.StringIO()):
+        make_dataset.main([RESNET50_LOG, "--out-file", "ds.pkl"])
+        train_model.main(["--dataset", "ds.pkl", "--models", "mlp",
+                          "--seed", "0", "--device", dev.type])
+        with open("mlp.pkl", "rb") as f:
+            return f.read()
+
+
+def log_replays(path):
+    """(records, records that replay): each record's steps recover a
+    state, and the replay runner over the log gives that state the costs
+    of the log's last record that prints as it does."""
+    from vae_extent_search_tpu_torch.records import load_records
+    from vae_extent_search_tpu_torch.search.measure import RecordReplayRunner
+
+    recs = load_records(path)
+    by_task = {}
+    for r in recs:
+        by_task.setdefault(r.inp.task.workload_key, []).append(r)
+    ok = 0
+    for group in by_task.values():
+        states = [r.inp.recover_state(infer_bound=True) for r in group]
+        last = {st.to_str(): r for st, r in zip(states, group)}
+        res = RecordReplayRunner(group).run(group[0].inp.task, states)
+        ok += sum(x.error_no == 0 and x.costs == last[st.to_str()].res.costs
+                  for st, x in zip(states, res))
+    return len(recs), ok
+
+
+def weighted_best(path, network, target):
+    """The sum over the network's tasks of weight x best recorded cost."""
+    from vae_extent_search_tpu_torch.records import iter_records
+    from vae_extent_search_tpu_torch.records.networks import (
+        get_network_tasks,
+    )
+
+    best = {}
+    for rec in iter_records(path):
+        if rec.res.error_no == 0:
+            k = rec.inp.task.workload_key
+            best[k] = min(best.get(k, float("inf")), rec.res.mean_cost)
+    tasks, weights = get_network_tasks(network, 1, 224, target)
+    total = 0.0
+    for task, w in zip(tasks, weights):
+        total += best[task.workload_key] * w
+    return total
+
+
+def plus_mix_delta_checks(delta, x, fit_on, tol):
+    """The PlusMix delta's fit (an MLPModelInternal), held three ways.
+    Its scores of the embedded features ``x`` against the same weights
+    on the CPU, within ``tol`` of its largest score (not of 1: the delta
+    is small). Its weights against the seeded ones its first fit started
+    from: they must have moved. Its rmse on ``fit_on`` (the features and
+    residuals its last fit was given) against that of the same network at
+    those starting weights: it must be lower. Returns the numbers and
+    ``ok``. These launches are checks and are not counted."""
+    from vae_extent_search_tpu_torch.convert import tree_leaves
+    from vae_extent_search_tpu_torch.device import make_generator
+    from vae_extent_search_tpu_torch.models import segment as sm
+
+    got = delta.predict_on_features(x)
+    delta.save("delta_mlp.pkl")
+    want = sm.MLPModelInternal.load("delta_mlp.pkl",
+                                    device="cpu").predict_on_features(x)
+    cpu_err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    dev = torch.device(delta.device)
+    start = sm.init_segment_mlp_params(
+        make_generator(delta.seed, sm._INIT_STREAM, dev), delta.in_dim,
+        delta.hidden_dim, device=dev)
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(delta.params), tree_leaves(start)))
+    fitted, delta.params = delta.params, start
+    try:
+        at_start = delta.predict_on_features(fit_on["x"])
+    finally:
+        delta.params = fitted
+    now = delta.predict_on_features(fit_on["x"])
+
+    def rmse(p):
+        return float(np.sqrt(np.mean((p - fit_on["y"]) ** 2)))
+
+    res = {"scores": [float(got.min()), float(got.max())],
+           "cpu_err": cpu_err, "weights_moved": moved,
+           "rows": len(fit_on["y"]), "rmse": rmse(now),
+           "rmse_at_start": rmse(at_start)}
+    res["ok"] = bool(np.isfinite(got).all() and scale > 0
+                     and cpu_err <= tol * scale and moved > 0
+                     and res["rmse"] < res["rmse_at_start"])
+    return res
+
+
+def tune_network_phases(dev, kernels, mlp_pkl=None, cfg=TUNE_NET):
+    """Phase 24: the tuning loop. ``mlp_pkl``: phase 17's pretrained MLP
+    (its bytes; made here when None). Returns its results and the
+    segment-sum launches of its learned paths. On a CPU device (a dry run
+    of the phase) no kernel may launch."""
+    from vae_extent_search_tpu_torch.cli import ansor, tune_network
+    from vae_extent_search_tpu_torch.cli.estimate_network_latency import (
+        estimate_network_latency,
+    )
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import (
+        SearchTask,
+        TuningOptions,
+        load_records,
+        make_workload_key,
+    )
+    from vae_extent_search_tpu_torch.records.networks import (
+        get_network_tasks,
+    )
+    from vae_extent_search_tpu_torch.search import cost_model as tcm
+    from vae_extent_search_tpu_torch.search import measure as tm
+    from vae_extent_search_tpu_torch.search import task_scheduler as tts
+    from vae_extent_search_tpu_torch.search.sketch import (
+        SketchPolicy,
+        make_states,
+    )
+
+    on_card = dev.type == "cuda"
+    seg = tss.segment_sum
+    t_phase = time.perf_counter()
+    out = {}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+        seg.backward_launches = 0
+
+    def others():
+        return {n: k.launches for n, k in kernels.items()
+                if n != "segment_sum" and k.launches}
+
+    def quiet(fn, *a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        return res, buf.getvalue()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def through_kernels(tag, counts):
+        """Every model sum through the forward kernel, every optimiser step
+        through the backward kernel, no plain version (on the CPU: no
+        launch at all)."""
+        fwd, bwd = seg.launches, seg.backward_launches
+        log(f"[24] {tag}: segment sums called {counts.sums}, forward "
+            f"launches {fwd}; optimiser steps {counts.steps}, backward "
+            f"launches {bwd}; plain versions run {counts.plain}; other "
+            f"kernels {others()}")
+        ok = (fwd == counts.sums > 0 and bwd == counts.steps > 0
+              and counts.plain == 0) if on_card else (fwd == bwd == 0)
+        if not ok or others():
+            raise RuntimeError(f"[24] {tag}: {fwd} forward launches for "
+                               f"{counts.sums} sums, {bwd} backward for "
+                               f"{counts.steps} steps, {counts.plain} plain "
+                               f"calls, others {others()}")
+        return {"forward": fwd, "backward": bwd}
+
+    if mlp_pkl is None:
+        t = time.perf_counter()
+        mlp_pkl = pretrained_mlp(dev)
+        log(f"[24] phase 17's mlp.pkl made here (make_dataset + "
+            f"train_model --models mlp): {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d):
+        with open("mlp.pkl", "wb") as f:
+            f.write(mlp_pkl)
+
+        # (a) the command lines at their defaults, random model
+        t = time.perf_counter()
+        reset()
+        net, runs = cfg["network"], []
+        for extra in (["--num-measure-trials", str(cfg["trials"])],
+                      ["--num-measure-trials", str(cfg["more_trials"]),
+                       "--continue-tuning"],
+                      ["--eval-only"]):
+            t1 = time.perf_counter()
+            (lat, _), text = quiet(tune_network.main, [
+                "--network", net, "--log-file", "net.json", "--device",
+                dev.type, *extra])
+            n_recs, n_replay = log_replays("net.json")
+            runs.append({"args": " ".join(extra), "latency_ms": lat * 1e3,
+                         "records": n_recs, "replayed": n_replay,
+                         "seconds": time.perf_counter() - t1})
+            log(f"[24] cli.tune_network --network {net} {' '.join(extra)}: "
+                f"{text.strip().splitlines()[-1]}; {n_recs} records in the "
+                f"log, {n_replay} replay, in {runs[-1]['seconds']:.1f} s")
+        own = weighted_best("net.json", net, TUNE_NET_TARGET)
+        with open("results.tsv") as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        est, missing = estimate_network_latency(["net.json"], net, 1, 224,
+                                                TUNE_NET_TARGET)
+        log(f"[24] the sum of weight x best recorded cost {own * 1e3:.6f} "
+            f"ms; estimate_network_latency {est * 1e3:.6f} ms ({missing} "
+            f"missing); results.tsv {len(rows)} rows: {rows[-1][:6]}")
+        if not (runs[0]["records"] >= cfg["trials"]
+                and runs[1]["records"] >= runs[0]["records"]
+                + cfg["more_trials"]
+                and runs[2]["records"] == runs[1]["records"]
+                and all(r["replayed"] == r["records"] for r in runs)
+                and runs[2]["latency_ms"] == own * 1e3 == est * 1e3
+                and missing == 0 and len(rows) == 3
+                and rows[-1][:6] == ["llvm", "simulated", "network",
+                                     f"{net}.B1", "ours",
+                                     "vae-extent-search"]):
+            raise RuntimeError(f"[24] tune_network: {runs}, own {own}, "
+                               f"estimate {est}, rows {rows}")
+        ans = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            lat, text = quiet(ansor.main, [
+                "--network", net, "--num-measure-trials",
+                str(cfg["ansor_trials"]), "--work-dir", "ansor",
+                "--device", dev.type])
+            ans.append({"latency_ms": lat * 1e3,
+                        "extracted": "Extract tasks..." in text,
+                        "seconds": time.perf_counter() - t1})
+        log(f"[24] cli.ansor --network {net} --num-measure-trials "
+            f"{cfg['ansor_trials']} (cut from 256), twice in one work dir: "
+            f"{[round(a['latency_ms'], 6) for a in ans]} ms, tasks "
+            f"extracted {[a['extracted'] for a in ans]} (the second from "
+            f"the pickle cache), {[round(a['seconds'], 1) for a in ans]} s")
+        if not (ans[0]["extracted"] and not ans[1]["extracted"]
+                and all(np.isfinite(a["latency_ms"]) for a in ans)):
+            raise RuntimeError(f"[24] ansor: {ans}")
+        if seg.launches or seg.backward_launches or others():
+            raise RuntimeError(f"[24] (a) the random model launched "
+                               f"{seg.launches}, {others()}")
+        out["cli"] = {"tune_network": runs, "ansor": ans,
+                      "weighted_best_ms": own * 1e3,
+                      "seconds": time.perf_counter() - t}
+
+        # (b) the learned loop at full width
+        t = time.perf_counter()
+        tasks, weights = get_network_tasks(cfg["loop_network"], 1, 224,
+                                           TUNE_NET_TARGET)
+        policies, model = tcm.make_search_policies(
+            "sketch.mlp", tasks, load_model_file="mlp.pkl",
+            num_measures_per_round=cfg["per_round"], device=dev.type)
+        for p in policies:
+            p.params["evolutionary_search_population"] = cfg["population"]
+        gate = len(tasks) * cfg["per_round"]
+        sched = tts.TaskScheduler(tasks, weights, strategy="gradient",
+                                  callbacks=[], device=dev.type)
+        opts = TuningOptions(
+            num_measure_trials=cfg["loop_trials"],
+            num_measures_per_round=cfg["per_round"],
+            builder=tm.EmptyBuilder(), runner=tm.AnalyticRunner(noise=0.2),
+            measure_callbacks=[tm.RecordToFile("loop.json")])
+        reset()
+        sync()
+        with CallCounts(sm, tss) as counts, LoopClock(model) as clock:
+            sched.tune(opts, policies=policies, cost_model=model)
+        sync()
+        loop_s = time.perf_counter() - t
+        launches_b = through_kernels("(b) the learned loop", counts)
+        split = clock.split()
+        rounds, refits = clock.n["round"], clock.n["refit"]
+        want_refits = sum(n >= gate for n in clock.update_sizes)
+        score, miss = tts._measured_score(sched)
+        own = weighted_best("loop.json", cfg["loop_network"],
+                            TUNE_NET_TARGET)
+        log(f"[24] (b) {cfg['loop_network']}, {len(tasks)} tasks, gradient "
+            f"strategy, sketch.mlp from phase 17's mlp.pkl (warm-up gate "
+            f"{model.num_warmup_sample}), GA population "
+            f"{cfg['population']} (cut from 2,048), "
+            f"{cfg['loop_trials']} trials, {cfg['per_round']} per round: "
+            f"{rounds} rounds, {sched.ct} trials, {refits} refits at "
+            f"{clock.refit_sizes} samples; {clock.n['predict']} predict "
+            f"calls; {loop_s:.1f} s wall")
+        log(f"[24] (b) host seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+        log(f"[24] (b) best costs (ms): "
+            + ", ".join(f"{c * 1e3:.4f}" for c in sched.best_costs)
+            + f"; estimated total latency {score * 1e3:.6f} ms ({miss} "
+            f"unmeasured), the log's weight x best {own * 1e3:.6f} ms")
+        if not (model.num_warmup_sample == gate
+                and sched.ct >= cfg["loop_trials"]
+                and refits == want_refits > 0
+                and clock.refit_sizes[0] == gate and miss == 0
+                and abs(score - own) <= 1e-12 * own):
+            raise RuntimeError(f"[24] (b): gate {model.num_warmup_sample}, "
+                               f"ct {sched.ct}, refits {refits} of "
+                               f"{want_refits} at {clock.refit_sizes}, "
+                               f"score {score}, own {own}")
+        # the card's scores against the same weights on the CPU (these
+        # launches are comparisons and are not counted)
+        probe_task = tasks[0]
+        probe = SketchPolicy(probe_task, seed=11).sample_initial_population(
+            cfg["probe_states"])
+        model.save("loop_mlp.pkl")
+        on_cpu = tcm.LearnedCostModel.load("loop_mlp.pkl", "mlp",
+                                           device="cpu")
+        got, want = (model.predict(probe_task, probe),
+                     on_cpu.predict(probe_task, probe))
+        err = float(np.abs(got - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        top = [list(np.argsort(-x, kind="stable")[:cfg["pick"]])
+               for x in (got, want)]
+        log(f"[24] (b) the refit model on {len(probe)} states of task 0: "
+            f"the card within {err:.2e} of the CPU (max |score| "
+            f"{scale:.3g}); top {cfg['pick']} "
+            f"{'equal' if top[0] == top[1] else 'differ'}")
+        if len(probe) != cfg["probe_states"] or err > cfg["tol"] * scale \
+                or top[0] != top[1]:
+            raise RuntimeError(f"[24] (b) card and CPU scores differ: {err}")
+        out["loop"] = {"tasks": len(tasks), "rounds": rounds,
+                       "trials": sched.ct, "refits": refits,
+                       "refit_samples": clock.refit_sizes,
+                       "predict_calls": clock.n["predict"],
+                       "host_seconds": split, "wall_s": loop_s,
+                       "best_costs_ms": [c * 1e3 for c in sched.best_costs],
+                       "estimated_latency_ms": score * 1e3,
+                       "segment_sum_launches": launches_b,
+                       "card_vs_cpu": {"max_abs_err": err, "scale": scale,
+                                       "same_top": True}}
+
+        # (c) transfer_tune on the card (JAX tests/test_pipeline.py's
+        # setting, an MLP base, the default population)
+        t = time.perf_counter()
+        ctasks = [SearchTask(make_workload_key(
+            "matmul_auto_scheduler_test", (n, n, n)), "llvm")
+            for n in cfg["transfer_sizes"]]
+        tm.ProgramMeasurer(tm.EmptyBuilder(), tm.AnalyticRunner(noise=0.1),
+                           callbacks=[tm.RecordToFile("pretrain.json")]
+                           ).measure(ctasks[0], make_states(
+                               ctasks[0], cfg["transfer_states"],
+                               evo_population=64, min_population=20, seed=3))
+        base = tcm.LearnedCostModel(kind="mlp", device=dev.type)
+        base.update_from_file("pretrain.json")
+        base.save("base_mlp.pkl")
+        opts = TuningOptions(
+            num_measure_trials=cfg["transfer_trials"],
+            num_measures_per_round=cfg["per_round"],
+            builder=tm.EmptyBuilder(), runner=tm.AnalyticRunner(noise=0.1),
+            measure_callbacks=[tm.RecordToFile("transfer.json")])
+        sched = tts.TaskScheduler(ctasks, strategy="round-robin",
+                                  callbacks=[], device=dev.type)
+        delta = {"forward": 0, "backward": 0, "updates": 0}
+        fit_on = {}
+        mix_update = tcm.PlusMixCostModel.update
+
+        def counted_update(self, *a, **kw):
+            """Counts each update's launches and keeps what the delta's
+            last fit was given: the features and the residuals."""
+            f0, b0 = seg.launches, seg.backward_launches
+            fit = self.internal.fit_base
+
+            def kept_fit(x, y, *fa, **fkw):
+                fit_on.update(x=x, y=np.asarray(y, np.float64))
+                return fit(x, y, *fa, **fkw)
+
+            self.internal.fit_base = kept_fit
+            try:
+                return mix_update(self, *a, **kw)
+            finally:
+                del self.internal.fit_base
+                delta["forward"] += seg.launches - f0
+                delta["backward"] += seg.backward_launches - b0
+                delta["updates"] += 1
+
+        reset()
+        sync()
+        tcm.PlusMixCostModel.update = counted_update
+        try:
+            with CallCounts(sm, tss) as counts:
+                quiet(tts.transfer_tune, sched, opts,
+                      search_policy="sketch.mlp",
+                      load_model_file="base_mlp.pkl")
+        finally:
+            tcm.PlusMixCostModel.update = mix_update
+        sync()
+        transfer_s = time.perf_counter() - t
+        launches_c = through_kernels("(c) transfer_tune", counts)
+        mixed = sched.transfer_model
+        feats = tcm.get_per_store_features_from_states(make_states(
+            ctasks[1], cfg["probe_states"], evo_population=64,
+            min_population=20, seed=5), ctasks[1])
+        keys = [ctasks[1].workload_key] * len(feats)
+        fresh = tcm.LearnedCostModel.load("base_mlp.pkl", "mlp",
+                                          device=dev.type)
+        kept = mixed.base.internal.predict_on_features(
+            mixed.base._embed(feats, keys))
+        pristine = fresh.internal.predict_on_features(
+            fresh._embed(feats, keys))
+        combined = mixed.predict_on_feature_list(ctasks[1], feats)
+        moved = float(np.abs(combined - mixed._base_predict(feats, keys))
+                      .max())
+        # the reference's delta is an rmse MLP with a sigmoid head, so it
+        # cannot fit the residuals below 0: beside an MLP base it stays
+        # small and moves the combined score little. So its fit is held
+        # by what a wrong fit would fail (plus_mix_delta_checks)
+        fit = plus_mix_delta_checks(mixed.internal, mixed._embed(feats, keys),
+                                    fit_on, cfg["tol"])
+        n_recs = len(load_records("transfer.json"))
+        log(f"[24] (c) transfer_tune(sketch.mlp) on matmul "
+            f"{cfg['transfer_sizes']}, {cfg['transfer_trials']} trials: "
+            f"{n_recs} records, best costs (ms) "
+            f"{[round(c * 1e3, 6) for c in sched.best_costs]}; the PlusMix "
+            f"delta fit {mixed._is_fit()}, {delta['updates']} updates "
+            f"launching {delta['forward']} forward and {delta['backward']} "
+            f"backward segment sums; the kept base equals a pristine reload "
+            f"{np.array_equal(kept, pristine)}; the delta scores "
+            f"[{fit['scores'][0]:.3g}, {fit['scores'][1]:.3g}], the same "
+            f"weights on the CPU within {fit['cpu_err']:.3g} of them; its "
+            f"weights moved up to {fit['weights_moved']:.3g} from their "
+            f"seeded start; rmse on the {fit['rows']} residuals it was fit "
+            f"to {fit['rmse']:.4g}, at the start {fit['rmse_at_start']:.4g}; "
+            f"it moves the combined score by up to {moved:.3g}; "
+            f"{transfer_s:.1f} s wall")
+        if not (isinstance(mixed, tcm.PlusMixCostModel) and mixed._is_fit()
+                and np.array_equal(kept, pristine) and fit["ok"]
+                and moved > 0 and n_recs >= cfg["transfer_trials"]
+                and (delta["forward"] > 0 and delta["backward"] > 0
+                     if on_card else True)):
+            raise RuntimeError(f"[24] (c): {mixed}, {delta}, moved {moved}, "
+                               f"the delta's fit {fit}")
+        out["transfer"] = {"records": n_recs, "delta": delta,
+                           "moved": moved, "wall_s": transfer_s,
+                           "delta_fit": fit,
+                           "segment_sum_launches": launches_c}
+    secs = time.perf_counter() - t_phase
+    budget_line("24", secs, TUNE_NET_BUDGET_S,
+                f": (a) {out['cli']['seconds']:.1f} s, (b) {loop_s:.1f} s, "
+                f"(c) {transfer_s:.1f} s")
+    out["seconds"] = secs
+    out["segment_sum_launches"] = {
+        way: launches_b[way] + launches_c[way]
+        for way in ("forward", "backward")}
+    return out
+
+
+def phase_job(phase, device, arg=None):
+    """Phase 22, 23 or 24 in a process of its own (``arg``: phase 24's
+    pretrained MLP). Returns (results, its log lines, None) or (None, the
+    lines so far, the traceback)."""
+    import traceback
+
+    from vae_extent_search_tpu_torch.device import resolve_device
+
+    global SIDE_BY_SIDE
+    SIDE_BY_SIDE = True
+    torch.set_num_threads(2)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            dev = resolve_device(device)
+            kernels = kernel_wrappers()
+            if phase == "24":
+                res = tune_network_phases(dev, kernels, arg)
+            else:
+                res = {"22": online_phases,
+                       "23": cuda_target_phases}[phase](dev, kernels)
+            return res, buf.getvalue(), None
+        except Exception:
+            return None, buf.getvalue(), traceback.format_exc()
 
 
 def kernel_wrappers():
@@ -3547,7 +4139,8 @@ def head_phases(dev, peaks, fh, th):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
-                                       "networks", "online", "cuda_target"),
+                                       "networks", "online", "cuda_target",
+                                       "tune_network"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
@@ -3557,7 +4150,9 @@ def main():
                          "measurement layer); cuda_target: phases 1 and 23 "
                          "(the GA's GPU-target rules: the headline pool "
                          "made, measured and searched, tune_vae --target "
-                         "cuda); each ends with "
+                         "cuda); tune_network: phases 1 and 24 (the tuning "
+                         "loop: tune_network and ansor, the learned "
+                         "in-search model, transfer_tune); each ends with "
                          "{\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3667,6 +4262,13 @@ def main():
         print(json.dumps({"kernels": [record]}, default=float), flush=True)
         print(json.dumps({"partial": "conv_f32"}), flush=True)
         return
+    if args.only == "tune_network":
+        tune = tune_network_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"tune_network": tune}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "tune_network"}), flush=True)
+        return
     if args.only == "cuda_target":
         cuda = cuda_target_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -3707,19 +4309,42 @@ def main():
                 *tuner_phases(dev, peaks, kernels),
                 segment_phases(dev, peaks, kernels, shared)]
     arms = arms_phases(dev, kernels)
-    net = network_phases(dev, kernels, shared.get("resnet50_ds"))
-    online = online_phases(dev, kernels)
-    cuda = cuda_target_phases(dev, kernels)
+    # phases 22-24 side by side, a process each, while phase 21 runs here
+    global SIDE_BY_SIDE
+    jobs = (("22", None), ("23", None), ("24", shared.get("mlp_pkl")))
+    t = time.perf_counter()
+    with ProcessPoolExecutor(len(jobs), mp_context=get_context(
+            "spawn")) as pool:
+        futures = [pool.submit(phase_job, ph, dev.type, arg)
+                   for ph, arg in jobs]
+        SIDE_BY_SIDE = True
+        try:
+            net = network_phases(dev, kernels, shared.get("resnet50_ds"))
+        finally:
+            SIDE_BY_SIDE = False
+        done = [f.result() for f in futures]
+    side_s = time.perf_counter() - t
+    res = {}
+    for (ph, _), (r, text, err) in zip(jobs, done):
+        for line in text.splitlines():
+            log(line)
+        if err is not None:
+            raise RuntimeError(f"[{ph}] phase {ph} failed:\n{err}")
+        res[ph] = r
+    online, cuda, tune = res["22"], res["23"], res["24"]
+    log(f"[21-24] phases 22, 23 and 24 side by side beside phase 21: "
+        f"{side_s:.1f} s wall")
     # the fused head's launches on phase 23's path join its record (phase 6
     # drove the main path first)
     head_rec = records[0]
     head_rec["launches_by_path"] = {"6": head_rec["launches"],
                                     "23": cuda["fused_head_launches"]}
     head_rec["launches"] += cuda["fused_head_launches"]
-    # the segment sum's launches on phase 21's, 22's and 23's paths join its
-    # record
+    # the segment sum's launches on phase 21's, 22's, 23's and 24's paths
+    # join its record
     seg_rec = records[-1]
-    for tag, res in (("21", net), ("22", online), ("23", cuda)):
+    for tag, res in (("21", net), ("22", online), ("23", cuda),
+                     ("24", tune)):
         seg_rec["launches_by_path"][tag] = res["segment_sum_launches"]
         for way in ("forward", "backward"):
             seg_rec[f"{way}_launches"] += res["segment_sum_launches"][way]
@@ -3730,6 +4355,7 @@ def main():
     print(json.dumps({"networks": net}, default=float), flush=True)
     print(json.dumps({"online": online}, default=float), flush=True)
     print(json.dumps({"cuda_target": cuda}, default=float), flush=True)
+    print(json.dumps({"tune_network": tune}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

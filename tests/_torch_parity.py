@@ -109,3 +109,41 @@ def tree_rel_err(got, ref):
     r = jax.tree_util.tree_leaves(tree_map(np.asarray, ref))
     assert len(g) == len(r)
     return max(rel_err(a, b) for a, b in zip(g, r))
+
+
+def pin_jax_python_paths(mp):
+    """Send the JAX package down its Python paths, the ones the port has:
+    its GA without the native record-level engine, its per-store
+    featuriser without the native batch (``mp``: a pytest MonkeyPatch)."""
+    import functools
+
+    from vae_extent_search_tpu.features import per_store as jps
+    from vae_extent_search_tpu.search import cost_model as jcm
+    from vae_extent_search_tpu.search import sketch as jsketch
+
+    mp.setattr(jsketch.SketchPolicy, "_evolutionary_search_native_recs",
+               lambda *a, **k: None)
+    mp.setattr(jsketch.SketchPolicy, "_evolutionary_search_native",
+               lambda *a, **k: None)
+    states = functools.partial(jps.get_per_store_features_from_states,
+                               use_native=False)
+    for m in (jps, jcm):
+        mp.setattr(m, "get_per_store_features_from_states", states)
+    mp.setattr(jps, "get_per_store_features_from_measure_pairs",
+               functools.partial(
+                   jps.get_per_store_features_from_measure_pairs,
+                   use_native=False))
+
+
+def small_ga_population(mp, population):
+    """Every SketchPolicy of both packages evolves ``population`` states
+    per generation instead of the default 2,048 (the tuning loop's
+    policies take no such option from their callers)."""
+    from vae_extent_search_tpu.search import sketch as jsketch
+    from vae_extent_search_tpu_torch.search import sketch as tsketch
+
+    for cls in (jsketch.SketchPolicy, tsketch.SketchPolicy):
+        def init(self, *a, _orig=cls.__init__, **kw):
+            _orig(self, *a, **kw)
+            self.params["evolutionary_search_population"] = population
+        mp.setattr(cls, "__init__", init)

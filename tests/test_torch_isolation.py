@@ -47,9 +47,11 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.measure_programs", "cli.remeasure", "cli.print_programs",
          "cli.toy_timer", "cli.tune_vae", "cli.print_all_tasks",
          "cli.json_to_task_pkl", "cli.network2measure_records",
-         "cli.few_shot_eval", "cli.hyperparameter_opt"}}
+         "cli.few_shot_eval", "cli.hyperparameter_opt", "search.cost_model",
+         "search.task_scheduler", "search.auto_schedule",
+         "cli.tune_network", "cli.ansor"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 81, (missing, mods)
+assert not missing and len(mods) >= 86, (missing, mods)
 """
 
 
@@ -275,3 +277,28 @@ def test_few_shot_and_hyperparameter_opt_need_cuda_unless_told_cpu(tmp_path):
     proc = _run(hp + ["--device", "cpu"], cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BEST: " in proc.stdout
+
+
+def test_tuning_loop_clis_need_cuda_unless_told_cpu(tmp_path):
+    """tune_network and ansor run on CUDA by default, whatever the policy:
+    without a card they refuse before they extract a task or write a log,
+    a latency trace, results.tsv or a work directory. Their CPU runs
+    (--device cpu) are held against the JAX scripts in
+    tests/test_torch_tuning_loop.py."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal cannot show")
+    for cli in (["-m", f"{PKG}.cli.tune_network", "--network", "dcgan",
+                 "--num-measure-trials", "16", "--log-file", "tn.json"],
+                ["-m", f"{PKG}.cli.tune_network", "--network", "dcgan",
+                 "--search-policy", "sketch.mlp", "--log-file", "tn.json"],
+                ["-m", f"{PKG}.cli.ansor", "--network", "dcgan",
+                 "--num-measure-trials", "16", "--work-dir", "w"]):
+        proc = _run(cli, cwd=tmp_path)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+        assert "extracted" not in proc.stdout
+        assert "Extract tasks" not in proc.stdout
+        assert os.listdir(tmp_path) == [], os.listdir(tmp_path)
+    for mod in ("tune_network", "ansor"):
+        proc = _run(["-m", f"{PKG}.cli.{mod}", "--help"])
+        assert proc.returncode == 0 and "--device" in proc.stdout, mod

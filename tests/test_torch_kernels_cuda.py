@@ -972,3 +972,84 @@ def test_few_shot_eval_through_the_kernel_equals_plain(dev, tmp_path,
     assert 0 <= r["pairwise"] <= 1
     assert all(torch.equal(a, b)
                for a, b in zip(before, tree_leaves(base.params)))
+
+
+def test_in_search_cost_models_on_the_card_equal_the_cpu(dev, tmp_path):
+    """search/cost_model.py on the card: a LearnedCostModel("mlp") refit on
+    128 measured states of four matmuls, and a PlusMixCostModel over it
+    whose delta fits on the same records, score 64 states within 1e-4 of
+    max(1, max |score|) of the same models on the CPU (the plain versions),
+    with the same top 16; every segment sum of the fits and the scoring
+    launches the forward kernel and every optimiser step the backward
+    kernel, with no plain version run."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from vae_extent_search_tpu_torch.models import segment as ts
+    from vae_extent_search_tpu_torch.records import (
+        SearchTask,
+        load_records,
+        make_workload_key,
+    )
+    from vae_extent_search_tpu_torch.search import cost_model as tcm
+    from vae_extent_search_tpu_torch.search import measure as tm
+    from vae_extent_search_tpu_torch.search.sketch import make_states
+
+    tasks = [SearchTask(make_workload_key("matmul_auto_scheduler_test",
+                                          (n, n, n)), "llvm")
+             for n in (32, 48, 64, 96)]
+    log = str(tmp_path / "measured.json")
+    measurer = tm.ProgramMeasurer(tm.EmptyBuilder(),
+                                  tm.AnalyticRunner(noise=0.1),
+                                  callbacks=[tm.RecordToFile(log)])
+    for i, task in enumerate(tasks):
+        measurer.measure(task, make_states(task, 32, evo_population=64,
+                                           min_population=20, seed=3 + i))
+    recs = load_records(log)
+    probe = make_states(tasks[2], 64, evo_population=64, min_population=20,
+                        seed=5)
+    calls = {"sums": 0, "plain": 0, "steps": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ts, "segment_sum_rows", counted("sums", ts.segment_sum_rows))
+    for name in ("segment_sum_plain", "segment_sum_grad_plain"):
+        mp.setattr(tss, name, counted("plain", getattr(tss, name)))
+    hook = register_optimizer_step_post_hook(
+        lambda *a: calls.__setitem__("steps", calls["steps"] + 1))
+    f0, b0 = tss.segment_sum.launches, tss.segment_sum.backward_launches
+    try:
+        model = tcm.LearnedCostModel(kind="mlp", device="cuda")
+        model.update([r.inp for r in recs], [r.res for r in recs])
+        mixed = tcm.PlusMixCostModel(model)
+        mixed.update([r.inp for r in recs], [r.res for r in recs])
+        scores = {"mlp": model.predict(tasks[2], probe),
+                  "plus_mix": mixed.predict(tasks[2], probe)}
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        mp.undo()
+    fwd = tss.segment_sum.launches - f0
+    bwd = tss.segment_sum.backward_launches - b0
+    assert model._is_fit() and mixed._is_fit() and mixed.device == "cuda"
+    assert calls["plain"] == 0 and calls["steps"] == bwd > 0
+    assert calls["sums"] == fwd > 0
+    model.save(str(tmp_path / "base.pkl"))
+    mixed.save(str(tmp_path / "delta.pkl"))
+    base_cpu = tcm.LearnedCostModel.load(str(tmp_path / "base.pkl"), "mlp",
+                                         device="cpu")
+    mixed_cpu = tcm.PlusMixCostModel(base_cpu)
+    mixed_cpu.internal = ts.MLPModelInternal.load(str(tmp_path / "delta.pkl"),
+                                                  device="cpu")
+    want = {"mlp": base_cpu.predict(tasks[2], probe),
+            "plus_mix": mixed_cpu.predict(tasks[2], probe)}
+    for name, got in scores.items():
+        ref = want[name]
+        assert np.isfinite(got).all() and got.std() > 0, name
+        assert np.abs(got - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+        assert list(np.argsort(-got, kind="stable")[:16]) == \
+            list(np.argsort(-ref, kind="stable")[:16]), name

@@ -2,7 +2,8 @@
 (counterpart of ``scripts/common.py``).
 
 Parity: reference scripts/common.py (dataset folder constants :41-43,
-clean_name file scheme :45-66, load_and_register_tasks :68-75). The root
+clean_name file scheme :45-66, load_and_register_tasks :68-75,
+BenchmarkRecord TSV logger :28-34). The root
 is ``$VES_DATASET_ROOT`` (default ``dataset``, under the working
 directory), read at import; ``set_dataset_root`` reads it again, or sets
 another root, for a caller that changes it later in the same process.
@@ -50,3 +51,16 @@ def load_and_register_tasks(path=None):
     with open(path, "rb") as f:
         task_records = pickle.load(f)
     return [SearchTask.from_record(r) for r in task_records]
+
+
+class BenchmarkRecord:
+    """TSV benchmark line writer (reference common.py:28-34)."""
+
+    def __init__(self, device, backend, workload_type, workload_name,
+                 library, algorithm, value, time_stamp):
+        self.row = [device, backend, workload_type, workload_name, library,
+                    algorithm, value, time_stamp]
+
+    def write(self, path):
+        with open(path, "a") as f:
+            f.write("\t".join(str(x) for x in self.row) + "\n")

@@ -173,9 +173,38 @@ class GBDTModelInternal:
             pickle.dump(self, f)
 
     @classmethod
-    def load(cls, path: str):
+    def load(cls, path: str, device=None):
+        """A pickled tree internal, of this package or of the JAX package
+        (its classes map onto this package's by module name). A JAX pickle
+        must hold the in-repo booster (backend "native"), the only one the
+        port runs. ``device`` (CUDA or the CPU) sets where later fits may
+        grow on the device engine; None keeps the pickled device, CUDA
+        for a JAX pickle."""
         with open(path, "rb") as f:
-            return pickle.load(f)
+            model = _PackageUnpickler(f).load()
+        if isinstance(model, GBDTModelInternal):
+            if getattr(model, "backend", "native") != "native":
+                raise ValueError(
+                    f"{path}: a {model.backend!r}-backend tree model; the "
+                    "port runs the in-repo booster only (backend 'native')")
+            model.__dict__.setdefault("engine", "auto")
+            model.__dict__.setdefault("device", "cuda")
+            if device is not None:
+                model.device = str(resolve_device(device))
+        return model
+
+
+class _PackageUnpickler(pickle.Unpickler):
+    """Reads a pickle of the JAX package's tree models as this package's:
+    ``vae_extent_search_tpu.<m>`` classes resolve to
+    ``vae_extent_search_tpu_torch.<m>``, which keep the same names and
+    attributes (the boosters' trees and the internals' settings)."""
+
+    def find_class(self, module, name):
+        jax_pkg = "vae_extent_search_tpu"
+        if module == jax_pkg or module.startswith(jax_pkg + "."):
+            module = __package__.split(".")[0] + module[len(jax_pkg):]
+        return super().find_class(module, name)
 
 
 class LGBModelInternal(GBDTModelInternal):

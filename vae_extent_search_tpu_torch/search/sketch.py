@@ -1505,6 +1505,31 @@ class SketchPolicy:
         except Exception:
             return st.to_str()
 
+    def preload_measured_states(self, log_path: str) -> int:
+        """Mark states recorded for this task as already measured so
+        pick_states_eps_greedy never re-measures them (reference
+        PreloadMeasuredStates init callback + TaskScheduler restore).
+        Returns how many of the log's records belong to this task."""
+        import os
+
+        from ..records import iter_records
+
+        if not os.path.exists(log_path):
+            return 0
+        n = 0
+        for rec in iter_records(log_path):
+            if rec.inp.task.workload_key != self.task.workload_key:
+                continue
+            try:
+                st = self.task.compute_dag.apply_steps(
+                    rec.inp.step_records
+                )
+                self.measured_state_keys.add(self._measured_key(st))
+                n += 1
+            except Exception:
+                continue
+        return n
+
     def continue_search_one_round(self, num_measure: int) -> List[State]:
         """One search round: sample init population -> evolutionary search
         -> eps-greedy pick (SketchPolicyNode::ContinueSearchOneRound,
