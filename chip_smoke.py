@@ -22,6 +22,10 @@
     python3 chip_smoke.py --only tune_network  # phases 1 and 24 alone,
                                        # for work on the tuning loop; ends
                                        # {"partial": "tune_network"}
+    python3 chip_smoke.py --only selftune  # phases 1 and 25 alone, for
+                                       # work on the kernel suite and the
+                                       # kernel library; ends
+                                       # {"partial": "selftune"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -310,14 +314,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the start, and it moves the combined score; the kept base scores
      exactly as a pristine reload. The phase's seconds are printed
      against its budget (TUNE_NET_BUDGET_S)
+ 25. the rest of self-tuning, in a temporary directory: cli.tune_kernel_suite
+     twice at full width, each with every launch count at 0 and read just
+     after: (i) --dtype float32 at the default policy sketch.vae on
+     fusedhead:773x17x256x64x10:4 (the main path's shape and dtype),
+     matmul:1536x1536x1536:1 and conv2d:1x56x56x128x128x3x3:2; (ii)
+     --dtype bfloat16 --policy sketch on fusedhead:262144x24x256x64x10:1
+     (the bench shape) and gbdthist:120000x164x98x6x8x12:1 (the census of
+     the JAX package's committed histogram log); trials and GA population
+     cut as SELFTUNE says. Each family's hand default is measured into the
+     log first; each family's tuned time is printed beside its hand
+     default (the fused head, the histogram) or cuBLAS / cuDNN (matmul,
+     conv2d). Checks: every record of both logs replays; the library of
+     each log gives a config for every entry, the JAX package's
+     result/selftune/ logs none; the four kernels launched once per call
+     of their wrappers (no plain path); select_programs at the main shape
+     under (i)'s library passes the library's G to the kernel (seen by its
+     tap), its picks printed beside the default's, and the four statistics
+     at that G within TOL of launch_plan's G on the same dropout words;
+     boost_device.train on (ii)'s corpus grows the same trees, and every
+     level's histograms bit for bit, under the library's plan and
+     launch_plan's, whose (F, rows) per level and device ms per level (the
+     first tree's inputs, CUDA events) are printed. The phase's seconds
+     are printed against its budget (SELFTUNE_BUDGET_S)
 In the whole run, phases 22, 23 and 24 run side by side, a process each
 (phase_job), while phase 21 runs in the main process: all four are bound by
 host Python (the GA, the featuriser, eager launches), and each process sets
 its own launch counts to 0 before its paths and reads them after. Their
 seconds are then printed beside the others' and not against their budgets,
-which hold for a phase run alone (--only).
-The last lines are JSON objects with phase 20's, 21's, 22's, 23's and 24's
-results, the card's name and power limit, a JSON object with each kernel's
+which hold for a phase run alone (--only). Phase 25 runs after them, alone:
+its runners time the card with CUDA events, inside whose windows the
+kernels of other processes would land.
+The last lines are JSON objects with phase 20's, 21's, 22's, 23's, 24's and
+25's results, the card's name and power limit, a JSON object with each kernel's
 check and times, then {"ok": true, "device": {...}}.
 """
 
@@ -327,6 +356,7 @@ import csv
 import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -3572,6 +3602,367 @@ def tune_network_phases(dev, kernels, mlp_pkl=None, cfg=TUNE_NET):
     return out
 
 
+# phase 25's two suites (cli.tune_kernel_suite), cut for the time limit
+# (the script's default is 96 trials): 64 trials for (i)'s three tasks
+# (its warm-up round of 24 and five rounds of the gradient strategy) and
+# 40 for (ii)'s two, 8 per round, and every policy's GA population 2,048
+# -> 64 (a learned round featurises ~5 populations; PERF.md §5, phase
+# 24); the histogram runner keeps its 10 rounds at depth 6 and its two
+# timed runs after the warm-up. Alone, at 40 and 24 trials, the phase
+# took 39.7 s on an H100 80GB HBM3 at 700 W (PERF.md §6)
+SELFTUNE = dict(
+    main=dict(dtype="float32", policy="sketch.vae", trials=64,
+              suite=["fusedhead:773x17x256x64x10:4",
+                     "matmul:1536x1536x1536:1",
+                     "conv2d:1x56x56x128x128x3x3:2"]),
+    bench=dict(dtype="bfloat16", policy="sketch", trials=40,
+               suite=["fusedhead:262144x24x256x64x10:1",
+                      "gbdthist:120000x164x98x6x8x12:1"]),
+    per_round=8, population=64, select=32, level_iters=20)
+SELFTUNE_BUDGET_S = 150.0
+SELFTUNE_KERNELS = ("fused_head_stats", "hist", "matmul", "conv2d")
+
+
+class Counted:
+    """A wrapper in place of a kernel's wrapper that counts its calls and
+    passes every attribute (its ``launches`` count) through to it."""
+
+    def __init__(self, fn, on_call):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_on_call", on_call)
+
+    def __call__(self, *a, **kw):
+        self._on_call()
+        return self._fn(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+class WrapperCalls:
+    """Counts, while active, the calls of the matmul's, the conv2d's and
+    the histogram's wrappers where the tuning paths reach them (the module
+    attributes the runners and the device GBDT call through) and, by its
+    tap, of the fused head's; each call on a CUDA tensor launches, so calls
+    equal launches when none took a plain path."""
+
+    def __init__(self):
+        from vae_extent_search_tpu_torch.models import boost_device
+        from vae_extent_search_tpu_torch.ops import conv2d as oc
+        from vae_extent_search_tpu_torch.ops import fused_head as fh
+        from vae_extent_search_tpu_torch.ops import matmul as om
+
+        self.fh = fh.fused_head_stats
+        self.targets = [(om, "matmul", "matmul"), (oc, "conv2d", "conv2d"),
+                        (boost_device, "hist", "hist")]
+        self.calls = dict.fromkeys(SELFTUNE_KERNELS, 0)
+        self.groups = []
+
+    def __enter__(self):
+        self._saved = [getattr(m, n) for m, n, _ in self.targets]
+
+        def counter(key):
+            def add():
+                self.calls[key] += 1
+            return add
+
+        for (m, n, key), fn in zip(self.targets, self._saved):
+            setattr(m, n, Counted(fn, counter(key)))
+
+        def tap(x, T, groups):
+            self.calls["fused_head_stats"] += 1
+            self.groups.append(groups)
+
+        self._tap, self.fh.tap = self.fh.tap, tap
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.targets, self._saved):
+            setattr(m, n, fn)
+        self.fh.tap = self._tap
+
+
+def run_suite(tag, spec, dev, log_file, kernels, cfg=SELFTUNE):
+    """cli.tune_kernel_suite on ``spec`` with every launch count at 0,
+    read just after; its stdout to OUT_DIR/selftune_<tag>.log. Returns
+    (summary, runner, launches by kernel, calls by wrapper, wall s)."""
+    from vae_extent_search_tpu_torch.cli import tune_kernel_suite as tks
+
+    def cut(policies):
+        for p in policies:
+            p.params["evolutionary_search_population"] = cfg["population"]
+
+    argv = ["--suite", *spec["suite"], "--dtype", spec["dtype"],
+            "--policy", spec["policy"], "--n-trials", str(spec["trials"]),
+            "--measures-per-round", str(cfg["per_round"]),
+            "--log-file", log_file, "--device", dev.type]
+    if dev.type == "cpu":
+        argv.append("--fake-timer")
+    for k in kernels.values():
+        k.launches = 0
+    kernels["segment_sum"].backward_launches = 0
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with WrapperCalls() as calls, contextlib.redirect_stdout(buf):
+        summary, runner = tks.main(argv, policies_hook=cut)
+    wall = time.perf_counter() - t
+    launches = {n: k.launches for n, k in kernels.items()}
+    launches["segment_sum_backward"] = kernels["segment_sum"].backward_launches
+    text = buf.getvalue()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"selftune_{tag}.log"), "w") as f:
+        f.write(text)
+    for line in text.splitlines():
+        if line.startswith(("  seeded", "suite tuned", "  matmul",
+                            "  conv2d", "  fusedhead", "  gbdthist",
+                            "weighted")):
+            log(f"[25] {tag}: {line.strip()}")
+    return summary, runner, launches, dict(calls.calls), wall
+
+
+def selftune_phases(dev, kernels, cfg=SELFTUNE):
+    """Phase 25: the rest of self-tuning. Runs the suite twice through
+    cli.tune_kernel_suite (on the CPU, a dry run with the stand-in
+    timer), then holds the tuned configs on the main paths: the fused head
+    in select_programs under (i)'s library, the histogram plan in
+    boost_device.train on (ii)'s corpus. Returns its results."""
+    from vae_extent_search_tpu_torch.models import boost_device
+    from vae_extent_search_tpu_torch.models.predictor import (
+        init_predictor_params,
+    )
+    from vae_extent_search_tpu_torch.ops import fused_head as fh
+    from vae_extent_search_tpu_torch.ops import hist as th
+    from vae_extent_search_tpu_torch.ops import kernel_library as kl
+    from vae_extent_search_tpu_torch.search import select as sel
+    from vae_extent_search_tpu_torch.cli.tune_kernel_suite import (
+        parse_suite_entry,
+    )
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"suites": {}}
+    env_before = os.environ.get(kl.LIBRARY_ENV)
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        logs, libs, runners, suite_launches = {}, {}, {}, {}
+        for tag in ("main", "bench"):
+            spec = cfg[tag]
+            logs[tag] = os.path.join(d, f"{tag}.json")
+            summary, runner, launches, calls, wall = run_suite(
+                tag, spec, dev, logs[tag], kernels, cfg)
+            runners[tag] = runner
+            n, ok = log_replays(logs[tag])
+            lib = libs[tag] = kl.KernelLibrary.from_file(logs[tag])
+            configs = {}
+            for family, dims, _ in map(parse_suite_entry, spec["suite"]):
+                dt = spec["dtype"]
+                configs[f"{family}:{'x'.join(map(str, dims))}"] = {
+                    "fusedhead": lambda: lib.fused_head_config(*dims, dt),
+                    "gbdthist": lambda: lib.hist_plan(*dims),
+                    "matmul": lambda: lib.matmul_config(*dims, dt),
+                    "conv2d": lambda: lib.conv2d_config(
+                        *dims, 1, (dims[5] - 1) // 2, dt)}[family]()
+            per_family = {}
+            for row in summary["entries"]:
+                key = f"{row['family']}:{'x'.join(map(str, row['dims']))}"
+                per_family[key] = {k: row.get(k) for k in (
+                    "tuned_s", "default_s", "default_config", "library_s")}
+                per_family[key]["tuned_config"] = configs[key]
+            fams = {parse_suite_entry(s)[0] for s in spec["suite"]}
+            want = {"fused_head_stats": "fusedhead" in fams,
+                    "hist": "gbdthist" in fams, "matmul": "matmul" in fams,
+                    "conv2d": "conv2d" in fams}
+            timing = {fam: {"configs": r.n_timed, "timing_s": r.timing_seconds}
+                      for fam, r in (("fusedhead", runner.fusedhead),
+                                     ("gbdthist", runner.hist),
+                                     ("matmul", runner.matmul),
+                                     ("conv2d", runner.conv))
+                      if fam in fams}
+            out["suites"][tag] = {
+                "argv_suite": spec["suite"], "dtype": spec["dtype"],
+                "policy": spec["policy"], "trials": spec["trials"],
+                "wall_s": wall, "records": n, "replayed": ok,
+                "configs_timed": summary["n_timed"],
+                "timing_by_family": timing,
+                "library_workloads": summary["library"],
+                "families": per_family, "launches": launches,
+                "wrapper_calls": calls}
+            log(f"[25] {tag}: {wall:.1f} s, {n} records ({ok} replay), "
+                f"{summary['n_timed']} configs timed (per family: configs, "
+                f"seconds timing them: {timing}); tuned configs "
+                f"{configs}; launches {launches}; wrapper calls {calls}")
+            if ok != n or n < spec["trials"]:
+                raise RuntimeError(f"[25] {tag}: {ok} of {n} records replay")
+            if any(v is None for v in configs.values()):
+                raise RuntimeError(f"[25] {tag}: no config from the library "
+                                   f"for {configs}")
+            for k in SELFTUNE_KERNELS:
+                if on_card and want[k] and not (
+                        launches[k] > 0 and calls[k] == launches[k]):
+                    raise RuntimeError(
+                        f"[25] {tag}: {k} launched {launches[k]} times for "
+                        f"{calls[k]} calls (a call took a plain path, or "
+                        "the path never reached the kernel)")
+                if on_card and not want[k] and launches[k]:
+                    raise RuntimeError(f"[25] {tag}: {k} launched "
+                                       f"{launches[k]} times")
+            if not on_card and any(launches[k] for k in SELFTUNE_KERNELS):
+                raise RuntimeError(f"[25] {tag}: launches on the CPU: "
+                                   f"{launches}")
+            suite_launches[tag] = launches
+        tpu = kl.KernelLibrary.from_files(sorted(
+            os.path.join(ROOT, "result", "selftune", f) for f in os.listdir(
+                os.path.join(ROOT, "result", "selftune"))))
+        out["result_selftune"] = {"records_skipped": tpu.n_skipped,
+                                  "workloads": len(tpu)}
+        if len(tpu) or not tpu.n_skipped:
+            raise RuntimeError(f"[25] the TPU logs of result/selftune/ gave "
+                               f"{len(tpu)} workloads")
+
+        # (i)'s library on the main path: select_programs at the main
+        # shape takes the tuned G (seen through the kernel's tap)
+        N, D, H, L, T = parse_suite_entry(cfg["main"]["suite"][0])[1]
+        G_tuned = libs["main"].fused_head_config(N, D, H, L, T, "float32")
+        G_plan = fh.launch_plan(N, T, fh.sm_count(dev) if on_card else
+                                132)[0]
+        gen = torch.Generator(device=dev).manual_seed(25)
+        params = init_predictor_params(gen, D, hidden_dim=H, latent_dim=L,
+                                       predictor_hidden=H, device=dev)
+        X = torch.randn(N, D, generator=gen, device=dev)
+        bits = torch.randint(-2 ** 31, 2 ** 31, (T, N, H), generator=gen,
+                             device=dev, dtype=torch.int32).view(
+                                 torch.uint32)
+        scfg = sel.SelectionConfig(num_select=cfg["select"], T_mc=T)
+        picks = {}
+        fh_before = fh.fused_head_stats.launches
+        for name, env in (("tuned", logs["main"]), ("default", "off")):
+            os.environ[kl.LIBRARY_ENV] = env
+            used_mask = torch.zeros(N, dtype=torch.bool, device=dev)
+            with WrapperCalls() as calls:
+                idx, valid, _, _ = sel.select_programs(
+                    params, X, used_mask, ~used_mask,
+                    torch.Generator(device=dev).manual_seed(7), scfg,
+                    mask_bits=None if on_card else bits)
+            picks[name] = (sorted(idx[valid].tolist()), calls.groups)
+        select_launches = fh.fused_head_stats.launches - fh_before
+        if env_before is None:
+            os.environ.pop(kl.LIBRARY_ENV, None)
+        else:
+            os.environ[kl.LIBRARY_ENV] = env_before
+        same = len(set(picks["tuned"][0]) & set(picks["default"][0]))
+        log(f"[25] select_programs at N={N}, D={D}, H={H}, L={L}, T={T} "
+            f"(float32): the library's G {G_tuned}, launch_plan's {G_plan}; "
+            f"the kernel took groups {picks['tuned'][1]} (tuned) and "
+            f"{picks['default'][1]} (library off); {select_launches} "
+            f"launches; picks {picks['tuned'][0]} (tuned) against "
+            f"{picks['default'][0]} (default): {same} of "
+            f"{len(picks['tuned'][0])} shared")
+        if (picks["tuned"][1] != [G_tuned] or picks["default"][1] != [None]
+                or (on_card and select_launches != 2)):
+            raise RuntimeError(f"[25] select_programs passed groups "
+                               f"{picks} for the library's G {G_tuned}")
+        # the statistics at the tuned G against launch_plan's, on the same
+        # dropout words (check launches, not counted)
+        head, enc = params["cost_predictor"], (params["encoder"],
+                                               params["fc_mu"])
+        outs = {g: fh.fused_head_stats(head, X, 7, T=T, mask_bits=bits,
+                                       encoder=enc, groups=g)
+                for g in (G_tuned, None)}
+        rel = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                  for a, b in zip(outs[G_tuned], outs[None]))
+        log(f"[25] the fused head's four statistics at G {G_tuned} against "
+            f"launch_plan's G {G_plan}: max rel err {rel:.3g} (tol "
+            f"{TOL[torch.float32]:g})")
+        if not rel <= TOL[torch.float32]:
+            raise RuntimeError(f"[25] tuned G off by {rel:g}")
+        out["select"] = {"G_tuned": G_tuned, "G_plan": G_plan,
+                         "groups_passed": picks["tuned"][1],
+                         "launches": select_launches, "stats_rel_err": rel,
+                         "picks_tuned": picks["tuned"][0],
+                         "picks_default": picks["default"][0],
+                         "picks_shared": same}
+
+        # (ii)'s plan on the device GBDT: the same trees and per-level
+        # histograms bit for bit under the tuned plan and launch_plan's
+        census = parse_suite_entry(cfg["bench"]["suite"][1])[1]
+        plan = libs["bench"].hist_plan(*census)
+        hr = runners["bench"].hist
+        dm = hr.dmatrix(*census)
+        runs = {}
+        real = boost_device.hist
+        for name, p in (("tuned", plan), ("default", (0, 0))):
+            levels = []
+
+            def rec(bins, node, grad, hess, m, nb, plan=None):
+                got = real(bins, node, grad, hess, m, nb, plan=plan)
+                levels.append((got, (bins, node.clone(), grad.clone(),
+                                     hess.clone(), m, nb)))
+                return got
+
+            boost_device.hist = rec
+            try:
+                t = time.perf_counter()
+                bst = hr.train(census, p)
+                secs = time.perf_counter() - t
+            finally:
+                boost_device.hist = real
+            runs[name] = (pickle.dumps(bst.trees), levels, secs)
+        trees_equal = runs["tuned"][0] == runs["default"][0]
+        hist_equal = len(runs["tuned"][1]) == len(runs["default"][1]) and all(
+            torch.equal(a[0][0], b[0][0]) and torch.equal(a[0][1], b[0][1])
+            for a, b in zip(runs["tuned"][1], runs["default"][1]))
+        n_levels = len(runs["tuned"][1])
+        level_ms = {}
+        if on_card:
+            first = [args for _, args in runs["tuned"][1][:hr.depth]]
+            for name, p in (("tuned", plan), ("default", None)):
+                level_ms[name] = [cuda_ms(
+                    lambda a=a: th.hist(*a, plan=p), cfg["level_iters"])
+                    for a in first]
+        plans = {name: [th.launch_plan(census[1], census[0], 1 << lv,
+                                       runs["tuned"][1][lv][1][5],
+                                       fh.sm_count(dev) if on_card else 132,
+                                       *(p or (None, None)))
+                        for lv in range(hr.depth)]
+                 for name, p in (("tuned", plan), ("default", None))}
+        log(f"[25] boost_device.train on the gbdthist corpus "
+            f"{'x'.join(map(str, census))}: the library's plan {plan} "
+            f"(features, chunks) gives (F, rows) per level {plans['tuned']}, "
+            f"launch_plan's {plans['default']}; {hr.rounds} rounds, "
+            f"{n_levels} histograms each way: trees equal {trees_equal}, "
+            f"histograms bit-equal {hist_equal}; wall {runs['tuned'][2]:.3f} "
+            f"/ {runs['default'][2]:.3f} s; device ms per level (the first "
+            f"tree's inputs) tuned {level_ms.get('tuned')} default "
+            f"{level_ms.get('default')}")
+        if not (trees_equal and hist_equal
+                and n_levels == hr.rounds * hr.depth):
+            raise RuntimeError("[25] the tuned plan changed the trees or the "
+                               "histograms")
+        out["hist_plan"] = {"plan": plan, "plans_by_level": plans,
+                            "trees_bit_equal": trees_equal,
+                            "histograms_bit_equal": hist_equal,
+                            "histograms": n_levels,
+                            "train_s": {k: v[2] for k, v in runs.items()},
+                            "level_ms": level_ms}
+        del runs
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    launches = {k: sum(suite_launches[t][k] for t in suite_launches)
+                for k in SELFTUNE_KERNELS}
+    launches["fused_head_stats"] += out["select"]["launches"]
+    out["launches"] = launches
+    out["segment_sum_launches"] = {
+        "forward": sum(v["segment_sum"] for v in suite_launches.values()),
+        "backward": sum(v["segment_sum_backward"]
+                        for v in suite_launches.values())}
+    budget_line(25, secs, SELFTUNE_BUDGET_S,
+                f" (suites {out['suites']['main']['wall_s']:.1f} + "
+                f"{out['suites']['bench']['wall_s']:.1f} s)")
+    return out
+
+
 def phase_job(phase, device, arg=None):
     """Phase 22, 23 or 24 in a process of its own (``arg``: phase 24's
     pretrained MLP). Returns (results, its log lines, None) or (None, the
@@ -4140,7 +4531,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
                                        "networks", "online", "cuda_target",
-                                       "tune_network"),
+                                       "tune_network", "selftune"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
@@ -4152,8 +4543,11 @@ def main():
                          "made, measured and searched, tune_vae --target "
                          "cuda); tune_network: phases 1 and 24 (the tuning "
                          "loop: tune_network and ansor, the learned "
-                         "in-search model, transfer_tune); each ends with "
-                         "{\"partial\": ...} instead of the result line")
+                         "in-search model, transfer_tune); selftune: phases "
+                         "1 and 25 (the rest of self-tuning: the kernel "
+                         "suite, the library, tuned configs on the main "
+                         "paths); each ends with {\"partial\": ...} instead "
+                         "of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4255,6 +4649,13 @@ def main():
         raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
     kernels = kernel_wrappers()
+    if args.only == "selftune":
+        tune = selftune_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"selftune": tune}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "selftune"}), flush=True)
+        return
     if args.only == "conv_f32":
         record = conv_f32_phases(dev, peaks, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -4334,6 +4735,9 @@ def main():
     online, cuda, tune = res["22"], res["23"], res["24"]
     log(f"[21-24] phases 22, 23 and 24 side by side beside phase 21: "
         f"{side_s:.1f} s wall")
+    # phase 25 alone: its runners time the card with CUDA events, which
+    # kernels of other processes on the card would fall inside
+    selftune = selftune_phases(dev, kernels)
     # the fused head's launches on phase 23's path join its record (phase 6
     # drove the main path first)
     head_rec = records[0]
@@ -4350,12 +4754,27 @@ def main():
             seg_rec[f"{way}_launches"] += res["segment_sum_launches"][way]
             seg_rec["launches"] += res["segment_sum_launches"][way]
 
+    # phase 25's launches join the four kernels' records
+    by_name = {r["name"]: r for r in records}
+    for name, key in (("fused_head_stats", "fused_head_stats"),
+                      ("hist", "hist"), ("matmul_f32", "matmul"),
+                      ("conv2d_f32", "conv2d")):
+        rec = by_name[name]
+        rec.setdefault("launches_by_path", {})["25"] = \
+            selftune["launches"][key]
+        rec["launches"] += selftune["launches"][key]
+    seg_rec["launches_by_path"]["25"] = selftune["segment_sum_launches"]
+    for way in ("forward", "backward"):
+        seg_rec[f"{way}_launches"] += selftune["segment_sum_launches"][way]
+        seg_rec["launches"] += selftune["segment_sum_launches"][way]
+
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"arms": arms}, default=float), flush=True)
     print(json.dumps({"networks": net}, default=float), flush=True)
     print(json.dumps({"online": online}, default=float), flush=True)
     print(json.dumps({"cuda_target": cuda}, default=float), flush=True)
     print(json.dumps({"tune_network": tune}, default=float), flush=True)
+    print(json.dumps({"selftune": selftune}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,6 @@ from _torch_parity import ragged_programs
 from vae_extent_search_tpu.data import dataset as jd
 from vae_extent_search_tpu.models import gbdt as jg
 from vae_extent_search_tpu_torch.cli import (
-    dump_network_info,
     eval_model_on_dataset,
     make_dataset,
     train_model,
@@ -210,14 +209,12 @@ def test_command_lines_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
 
 def test_command_lines_refuse_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    # the native featuriser's threads and the graph front end's tracing
-    # are not ported; the hold-out sets, the preset, the sequence models
-    # and --networks are (tests/test_torch_networks.py,
+    # the native featuriser's threads are not ported; the hold-out sets,
+    # the preset, the sequence models, --networks and the graph front
+    # end's --from-model are (tests/test_torch_networks.py,
     # tests/test_torch_variants.py)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_dataset.main(["x.json", "--n-threads", "4"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dump_network_info.main(["--from-model", "resnet_18"])
     for kind in ("lstm", "mha", "tabnet"):
         model = train_model.make_model(kind, 164, "cpu")
         assert isinstance(model, SequenceModelInternal) and \

@@ -49,9 +49,11 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.json_to_task_pkl", "cli.network2measure_records",
          "cli.few_shot_eval", "cli.hyperparameter_opt", "search.cost_model",
          "search.task_scheduler", "search.auto_schedule",
-         "cli.tune_network", "cli.ansor"}}
+         "cli.tune_network", "cli.ansor", "ops.kernel_library",
+         "cli.tune_kernel_suite", "frontend", "frontend.torch_fx",
+         "frontend.zoo", "ir.layout"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 86, (missing, mods)
+assert not missing and len(mods) >= 92, (missing, mods)
 """
 
 
@@ -302,3 +304,43 @@ def test_tuning_loop_clis_need_cuda_unless_told_cpu(tmp_path):
     for mod in ("tune_network", "ansor"):
         proc = _run(["-m", f"{PKG}.cli.{mod}", "--help"])
         assert proc.returncode == 0 and "--device" in proc.stdout, mod
+
+
+def test_kernel_suite_and_runner_need_cuda_unless_told_cpu(tmp_path):
+    """cli.tune_kernel_suite times the card by default: without one it
+    refuses before it measures or writes a log; --device cpu runs only with
+    the stand-in timer (--fake-timer). --runner cuda_kernels, the composite
+    card runner, refuses on a host without a card before it writes a
+    record; its CPU mode is a runner told cpu with a stand-in timer
+    (tests/test_torch_selftune.py)."""
+    suite = ["-m", f"{PKG}.cli.tune_kernel_suite", "--policy", "sketch",
+             "--suite", "matmul:64x64x64", "fusedhead:256x12x32x8x4",
+             "--n-trials", "8", "--log-file", "suite.json"]
+    if not torch.cuda.is_available():
+        for extra in ([], ["--fake-timer"]):
+            proc = _run(suite + extra, cwd=tmp_path)
+            assert proc.returncode != 0
+            assert "torch.cuda.is_available() is False" in proc.stderr
+            assert "seeded hand-default" not in proc.stdout
+            assert os.listdir(tmp_path) == [], os.listdir(tmp_path)
+    proc = _run(suite + ["--device", "cpu"], cwd=tmp_path)
+    assert proc.returncode != 0 and "--fake-timer" in proc.stderr
+    assert os.listdir(tmp_path) == []
+    proc = _run(suite + ["--device", "cpu", "--fake-timer"], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "default[G=" in proc.stdout and (tmp_path / "suite.json").exists()
+    if torch.cuda.is_available():
+        return
+    from vae_extent_search_tpu_torch.records import serde
+
+    recs = serde.load_records(str(tmp_path / "suite.json"))
+    (tmp_path / "in.json").write_text("".join(
+        serde.record_to_json(r) + "\n" for r in recs[:4]))
+    for spec in ("cuda_kernels", "cuda_kernels:float32"):
+        out = tmp_path / f"out_{spec.replace(':', '_')}.json"
+        proc = _run(["-m", f"{PKG}.cli.measure_programs", "--in-file",
+                     str(tmp_path / "in.json"), "--out-file", str(out),
+                     "--runner", spec], cwd=tmp_path)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+        assert not out.exists() or out.read_text() == ""

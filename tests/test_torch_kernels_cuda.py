@@ -1053,3 +1053,106 @@ def test_in_search_cost_models_on_the_card_equal_the_cpu(dev, tmp_path):
         assert np.abs(got - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
         assert list(np.argsort(-got, kind="stable")[:16]) == \
             list(np.argsort(-ref, kind="stable")[:16]), name
+
+
+# ---------------------------------------------------------------------------
+# the rest of self-tuning: tuned plans and group counts on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,d,nb,plans", [
+    (120_000, 164, 256, [(1, 1), (2, 3), (8, 29), (40, 2), (0, 7), (82, 0)]),
+    (1_000_000, 164, 256, [(4, 2), (16, 0), (0, 3)]),
+    (20_000, 9, 40, [(1, 1), (3, 5), (9, 100)])])
+def test_hist_is_bit_equal_under_every_plan(dev, n, d, nb, plans):
+    """The sums are exact, so every (features, chunks) plan gives the
+    launch_plan's histograms bit for bit at every level of a depth-6 tree
+    (each plan clamped to be legal there), and each is a launch."""
+    for m in (1, 2, 4, 8, 16, 32):
+        bins, node, g, h = _hist_inputs(dev, n, d, m, nb)
+        want = th.hist(bins, node, g, h, m, nb)
+        before = th.hist.launches
+        for plan in plans:
+            got = th.hist(bins, node, g, h, m, nb, plan=plan)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (m, plan)
+        assert th.hist.launches == before + len(plans)
+
+
+def test_boost_device_trees_equal_under_a_tuned_plan(dev):
+    """boost_device.train grows the same trees under any hist plan."""
+    rng = np.random.default_rng(6)
+    n, d = 60_000, 24
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[:, :4] = rng.integers(0, 3, (n, 4))
+    y = (x[:, 0] + 0.5 * x[:, 5] + 0.1 * rng.standard_normal(n)).astype(
+        np.float32)
+    dm = boost.DMatrix(x, label=y)
+    preds = []
+    for plan in ((0, 0), (2, 3), (7, 1)):
+        bst = boost_device.train({"max_depth": 6, "eta": 0.3}, dm,
+                                 num_boost_round=5, verbose_eval=0,
+                                 device=dev, hist_plan=plan)
+        preds.append(bst.predict(dm))
+    assert all(np.array_equal(preds[0], p) for p in preds[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,T", [(773, 10), (65_536, 10), (300, 7)])
+def test_fused_head_within_tol_at_every_legal_G(dev, dtype, n, T):
+    """Every G the kernel takes (1 .. min(T + 1, MAX_GROUPS)) gives the
+    plain version's statistics within the dtype's tolerance, on the same
+    dropout words, and one launch each; snap_fused_groups lands in that
+    range for every MC chunk."""
+    p, x, bits = _setup(dev, n, dtype, T=T)
+    enc = (p["encoder"], p["fc_mu"])
+    ref = fh.fused_head_stats_plain(p["cost_predictor"], x, T, 0.1,
+                                    mask_bits=bits, encoder=enc)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    Gs = range(1, min(T + 1, fh.MAX_GROUPS) + 1) if n < 10_000 else (
+        1, 2, 6, 11)
+    for G in Gs:
+        before = fh.fused_head_stats.launches
+        got = fh.fused_head_stats(p["cost_predictor"], x, 3, T=T,
+                                  mask_bits=bits, encoder=enc, groups=G)
+        assert fh.fused_head_stats.launches == before + 1
+        for a, r in zip(got, ref):
+            assert _rel(a, r) <= tol, (G, _rel(a, r))
+    assert {fh.snap_fused_groups(n, T, 32, tc) for tc in range(1, T + 1)} \
+        <= set(range(1, min(T + 1, fh.MAX_GROUPS) + 1))
+
+
+def test_kernel_runner_times_one_config_per_family(dev):
+    """The composite runner on the card: one schedule per family, each
+    timed through its kernel (its launch count grows) with no failure; the
+    fused head's and the matmul's held against their plain versions."""
+    from vae_extent_search_tpu_torch.records import (
+        SearchTask,
+        make_workload_key,
+    )
+    from vae_extent_search_tpu_torch.records.serde import ERROR_NO_ERROR
+    from vae_extent_search_tpu_torch.search import kernel_tuner as kt
+
+    r = kt.KernelRunner(dtype="float32", device=dev, repeats=1)
+    r.hist.rounds = 2
+    cases = [
+        ("matmul_auto_scheduler_test", (256, 256, 256), om.matmul),
+        ("conv2d_layer", (1, 14, 14, 32, 32, 3, 3, [1, 1], [1, 1]),
+         oc.conv2d),
+        ("fused_head_layer", (773, 17, 256, 64, 10), fh.fused_head_stats),
+        ("gbdt_hist_layer", (20_000, 12, 4, 2, 2, 2), th.hist)]
+    for name, args, kernel in cases:
+        task = SearchTask(make_workload_key(name, args), "llvm")
+        st = kt.default_config_state(task) or task.compute_dag.init_state
+        st = task.compute_dag.infer_bound(st)
+        before = kernel.launches
+        res = r.run(task, [st])
+        assert res[0].error_no == ERROR_NO_ERROR, name
+        assert 0 < res[0].costs[0] < 1.0 and kernel.launches > before, name
+    assert r.n_timed == 4
+    assert r.fusedhead.n_verified == 1 and r.matmul.n_verified == 1
+    assert r.fusedhead.verify_rel_err <= 1e-4
+    (cfg, launches), = r.fusedhead.launches_per_config.items()
+    assert cfg == (5,) and launches >= 3
+    (plan, launches), = r.hist.launches_per_config.items()
+    assert plan == (0, 0) and launches == 2 * 2 * 6

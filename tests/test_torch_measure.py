@@ -414,7 +414,9 @@ def test_runner_from_spec_shared_specs(spec, pools, tmp_path):
     ("cuda_matmul", "MatmulRunner", "bfloat16"),
     ("cuda_matmul:float32", "MatmulRunner", "float32"),
     ("cuda_conv2d", "Conv2dRunner", "bfloat16"),
-    ("cuda_conv2d:float32", "Conv2dRunner", "float32")])
+    ("cuda_conv2d:float32", "Conv2dRunner", "float32"),
+    ("cuda_kernels", "KernelRunner", "bfloat16"),
+    ("cuda_kernels:float32", "KernelRunner", "float32")])
 def test_runner_from_spec_cuda_kernels(spec, cls, dtype):
     r = tm.runner_from_spec(spec)
     assert type(r).__name__ == cls and r.dtype == dtype and r.verbose
@@ -427,8 +429,8 @@ def test_runner_from_spec_cuda_kernels(spec, cls, dtype):
     ("pallas_matmul:float32", "cuda_matmul"),
     ("pallas_conv2d", "cuda_conv2d"),
     ("pallas_conv2d:bfloat16", "cuda_conv2d"),
-    ("pallas", "not ported"),
-    ("pallas:float32", "not ported"),
+    ("pallas", "cuda_kernels"),
+    ("pallas:float32", "cuda_kernels"),
     ("bogus", "unknown --runner")])
 def test_runner_from_spec_exits(spec, match):
     with pytest.raises(SystemExit, match=match):

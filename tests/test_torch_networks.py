@@ -388,8 +388,20 @@ def test_dump_network_info_equal_pickles(roots, monkeypatch, capsys):
     tasks = common.load_and_register_tasks()
     assert len(tasks) == len(ref["all_tasks.pkl"]) and \
         isinstance(tasks[0], TTask)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        dump_network_info.main(["--from-model", "resnet_18"])
+    # --from-model traces the model through the front end: the same
+    # traced pickle as the JAX script's
+    for d in (common.NETWORK_INFO_FOLDER, roots.NETWORK_INFO_FOLDER):
+        for f in os.listdir(d):
+            os.remove(os.path.join(d, f))
+    dump_network_info.main(["--from-model", "resnet_18", "--target",
+                            TARGET])
+    monkeypatch.setattr(sys, "argv", ["x", "--from-model", "resnet_18",
+                                      "--target", TARGET])
+    jdump.main()
+    got = _load_dir(common.NETWORK_INFO_FOLDER)
+    assert got == _load_dir(roots.NETWORK_INFO_FOLDER) and len(got) == 1
+    (recs, weights), = got.values()
+    assert len(recs) == len(weights) == 14
 
 
 def _tasks_of(ds):

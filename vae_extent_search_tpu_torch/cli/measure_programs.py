@@ -92,7 +92,7 @@ def main(argv=None):
                         "service:<key>@<host>:<port> (the tracker/server "
                         "service, reference RPCRunner topology, "
                         "measure.py:434-611) | cuda_matmul[:<dtype>] | "
-                        "cuda_conv2d[:<dtype>]")
+                        "cuda_conv2d[:<dtype>] | cuda_kernels[:<dtype>]")
     p.add_argument("--replay-log", type=str, default=None)
     p.add_argument("--noise", type=float, default=0.3)
     p.add_argument("--seed", type=int, default=0)

@@ -57,6 +57,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.hist import hist
+from ..ops.kernel_library import tuned_hist_plan
 from . import boost
 from .boost import Booster, DMatrix, _Tree
 
@@ -110,9 +111,22 @@ def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def hist_census(thresholds) -> Tuple[int, int, int, int, int]:
+    """(F, c2, c16, c64, c128) of a binned matrix: the features whose bin
+    count (edges + 1) is at most 2, in (2, 16], (16, 64] and (64, 128],
+    as the JAX engine counts them for its tuned tier ladder
+    (``models/boost_tpu.py:115-121``); the gbdt_hist_layer workload's
+    census."""
+    nbins = np.asarray([len(e) for e in thresholds]) + 1
+    return (len(nbins), int((nbins <= 2).sum()),
+            int(((nbins > 2) & (nbins <= 16)).sum()),
+            int(((nbins > 16) & (nbins <= 64)).sum()),
+            int(((nbins > 64) & (nbins <= 128)).sum()))
+
+
 def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
                       eta: float, reg_lambda: float, gamma: float,
-                      min_child_weight: float):
+                      min_child_weight: float, hist_plan=None):
     """One tree as a complete binary heap of static depth.
 
     ``bins`` [d, n] uint8 on the device, ``n_edges`` [d] int64, ``grad``
@@ -122,7 +136,8 @@ def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
 
     Per-node grad/hess totals are the last prefix sum of feature 0's
     histogram (every row lands in exactly one bin). Row routing gathers
-    each row's bin of its node's split feature."""
+    each row's bin of its node's split feature. ``hist_plan`` goes to
+    every level's histogram launch (``ops/hist.py::hist(plan=)``)."""
     d, n = bins.shape
     dev = bins.device
     node = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -132,7 +147,8 @@ def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
     feat_lv, bin_lv, split_lv = [], [], []
     for level in range(max_depth):
         m = 1 << level
-        ghist, hhist = hist(bins, node, grad, hess, m, nb)   # [d, m, nb]
+        ghist, hhist = hist(bins, node, grad, hess, m, nb,
+                            plan=hist_plan)                  # [d, m, nb]
         gc = _prefix_sum(ghist, 2)
         hc = _prefix_sum(hhist, 2)
         Gn, Hn = gc[0, :, -1], hc[0, :, -1]                  # [m]
@@ -325,7 +341,8 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
           metric: Optional[str] = None, maximize: bool = False,
           stopping_rounds: Optional[int] = None,
           verbose_eval: int = 25, skip_every: int = 5,
-          log_file: Optional[str] = None, device="cuda") -> Booster:
+          log_file: Optional[str] = None, device="cuda",
+          hist_plan: Optional[Tuple[int, int]] = None) -> Booster:
     """Drop-in for boost.train with device-resident rounds on ``device``.
 
     ``obj is boost.pack_sum_square_error`` (or the string "pack_sum")
@@ -334,7 +351,14 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
     host, the objective runs in numpy, and (grad, hess) are pushed back
     (one round-trip per round). Eval callbacks, early stopping and
     printing reproduce boost.train / reference xgb_model.py
-    custom_callback:629-745 semantics."""
+    custom_callback:629-745 semantics.
+
+    ``hist_plan`` = (features, chunks) is the histogram kernel's launch
+    plan at every level (``ops/hist.py::hist(plan=)``). Without one, the
+    process kernel library is asked for a plan tuned at this (rows,
+    feature census) shape (``cli/tune_kernel_suite.py``'s gbdthist
+    family), and where it has none ``launch_plan`` chooses. Every plan
+    grows the same trees: the histograms are exact."""
     if params.get("grow_policy") == "lossguide":
         # leaf-wise growth keeps a dynamic splittable-leaf pool, a
         # data-dependent control structure the static-heap device tree
@@ -358,6 +382,9 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
     thresholds = dtrain._thresholds
     nb = max(2, max(len(e) for e in thresholds) + 1)
     grow_kw["nb"] = nb
+    if hist_plan is None:
+        hist_plan = tuned_hist_plan(len(dtrain), *hist_census(thresholds))
+    grow_kw["hist_plan"] = hist_plan
     n = len(dtrain)
     bins = torch.from_numpy(dtrain._binned).to(dev)          # [d, n] uint8
     n_edges = torch.as_tensor([len(e) for e in thresholds],

@@ -215,6 +215,21 @@ def launch_plan(n: int, T: int, sms: int) -> Tuple[int, Tuple[int, ...]]:
     return groups, pass_bounds(T, groups)
 
 
+def snap_fused_groups(N: int, T: int, block: int, tc: int) -> int:
+    """The group count G that :func:`fused_head_stats` takes (``groups=``)
+    for a raw tuner config ``(block, tc)`` (counterpart of the JAX
+    package's ``snap_fused_config``): one group for the T passes where the
+    MC chunk ``tc`` covers them all, else one group for the backward and
+    ceil(T / tc) groups of at most ``tc`` passes each, clamped to [1,
+    min(T + 1, MAX_GROUPS)]. Raw configs that run the same kernel map onto
+    one G, so they share one measurement. ``block`` maps onto nothing: the
+    kernel's candidate tile is fixed at ``BM``; ``N`` is taken for the
+    JAX signature's sake and does not change G."""
+    tc = max(1, int(tc))
+    groups = 1 if tc >= T else 1 + -(-T // tc)
+    return max(1, min(groups, T + 1, MAX_GROUPS))
+
+
 # the groups' sums [2, G, N] per (device, stream, G, N)
 _SCRATCH = OrderedDict()
 _SCRATCH_MAX = 16
@@ -245,7 +260,9 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
     On a CUDA tensor this launches the CUDA kernel on the current stream,
     and where the plan has G > 1 groups the kernel that adds their sums
     (``fused_head_stats.launches`` counts one per call); ``groups``
-    replaces :func:`launch_plan`'s G, for timing and tests. The dropout
+    replaces :func:`launch_plan`'s G (a tuned G, or timing and tests).
+    ``fused_head_stats.tap``, where set, is called with ``(x, T, groups)``
+    first, on either device. The dropout
     words are ``mask_bits`` [T, N, H] uint32 when given, else Philox bits
     from ``seed``. On a CPU tensor it runs :func:`fused_head_stats_plain`,
     with ``mask_bits`` or a CPU generator seeded by ``seed``."""
@@ -253,6 +270,8 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
         raise ValueError("the kernel is specialized to 2 hidden layers")
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
+    if fused_head_stats.tap is not None:
+        fused_head_stats.tap(x, T, groups)
     if x.device.type == "cpu":
         gen = None
         if mask_bits is None:
@@ -266,6 +285,7 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
 
 
 fused_head_stats.launches = 0
+fused_head_stats.tap = None
 
 
 def _launch(head_layers, x, seed, T, rate, mask_bits, encoder, groups):

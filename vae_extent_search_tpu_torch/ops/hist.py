@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 from collections import OrderedDict
 from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 
@@ -147,7 +148,9 @@ def feature_smem_bytes(m: int, nb: int) -> int:
 
 
 @lru_cache(maxsize=4096)
-def launch_plan(d: int, n: int, m: int, nb: int, sms: int = NUM_SMS):
+def launch_plan(d: int, n: int, m: int, nb: int, sms: int = NUM_SMS,
+                features: Optional[int] = None,
+                chunks: Optional[int] = None):
     """(features per block F, rows per block). F: as many features as fit
     in shared memory (:func:`feature_smem_bytes`), then evened out
     over the ceil(d / F) feature groups, so that a block reads node, grad
@@ -160,12 +163,21 @@ def launch_plan(d: int, n: int, m: int, nb: int, sms: int = NUM_SMS):
     depth, where one feature fills a block, a block covers a third of the
     rows or more. ``sms`` is the card's SM count (the wrapper reads it
     from the device it launches on). Raises when one feature's histogram does not fit in
-    shared memory."""
+    shared memory.
+
+    ``features`` and ``chunks`` (a tuned plan, :func:`hist`'s ``plan``;
+    None or 0 = this function's own choice) cap the features per block and
+    set the number of row ranges. Both are clamped at every level as the
+    own choice is, the features by shared memory and the row ranges to
+    [1, the most the rows allow], so that a plan tuned once stays legal at
+    every depth."""
     per_feature = feature_smem_bytes(m, nb)
     if per_feature > HIST_SMEM_BYTES:
         raise ValueError(f"m={m} x nb={nb} needs {per_feature} bytes of "
                          f"shared memory per feature (> {HIST_SMEM_BYTES})")
     F = max(1, min(d, HIST_SMEM_BYTES // per_feature))
+    if features:
+        F = max(1, min(F, int(features)))
     groups = -(-d // F)
     F = -(-d // groups)
     slots = sms * min(2, SM_SMEM_BYTES // (F * per_feature + 1024))
@@ -177,15 +189,19 @@ def launch_plan(d: int, n: int, m: int, nb: int, sms: int = NUM_SMS):
     def fill(c):
         return groups * c / (waves(c) * slots)
 
-    full = [c for c in range(1, most + 1) if fill(c) >= FILL]
-    chunks = (min(full, key=lambda c: (waves(c), -fill(c))) if full
-              else max(range(1, most + 1), key=fill))
+    if chunks:
+        chunks = max(1, min(int(chunks), most))
+    else:
+        full = [c for c in range(1, most + 1) if fill(c) >= FILL]
+        chunks = (min(full, key=lambda c: (waves(c), -fill(c))) if full
+                  else max(range(1, most + 1), key=fill))
     rows = -(-(-(-n // chunks)) // 4) * 4
     return F, min(rows, max(n, 1))
 
 
 def hist(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
-         hess: torch.Tensor, m: int, nb: int):
+         hess: torch.Tensor, m: int, nb: int,
+         plan: Optional[Tuple[int, int]] = None):
     """(ghist, hhist), each [d, m, nb] float32.
 
     ``bins`` [d, n] uint8 with values < nb <= 256; ``node`` [n] int32 in
@@ -194,12 +210,19 @@ def hist(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
     row, or (feature, row), adds nothing, on either path. On CUDA tensors this
     launches the kernel on the current stream (``hist.launches`` counts
     those launches, and ``hist.tap``, where set, is called with each
-    launch's arguments first); on CPU tensors it runs :func:`hist_plain`."""
+    launch's arguments first); on CPU tensors it runs :func:`hist_plain`.
+    ``plan`` = (features, chunks), a tuned plan
+    (``search/kernel_tuner.py::state_to_hist_plan``), goes to
+    :func:`launch_plan`; None, or 0 in either place, leaves that knob to
+    it. The sums are exact, so every plan gives the same histograms bit
+    for bit; the plain path takes no plan."""
     if bins.device.type == "cpu":
         return hist_plain(bins, node, grad, hess, m, nb)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
-    return _launch(bins, node, grad, hess, int(m), int(nb))
+    features, chunks = plan if plan is not None else (None, None)
+    return _launch(bins, node, grad, hess, int(m), int(nb), features,
+                   chunks)
 
 
 hist.launches = 0
@@ -230,7 +253,7 @@ def _scratch(lib, dev, stream, d, m, nb, chunks):
     return hit
 
 
-def _launch(bins, node, grad, hess, m, nb):
+def _launch(bins, node, grad, hess, m, nb, features=None, chunks=None):
     dev = bins.device
     if bins.dim() != 2 or bins.dtype != torch.uint8:
         raise ValueError("bins must be a [d, n] uint8 tensor")
@@ -248,7 +271,8 @@ def _launch(bins, node, grad, hess, m, nb):
     hhist = torch.empty_like(ghist)
     if n == 0 or d == 0:
         return ghist.zero_(), hhist.zero_()
-    F, rows = launch_plan(d, n, m, nb, sm_count(dev))
+    F, rows = launch_plan(d, n, m, nb, sm_count(dev), features or None,
+                          chunks or None)
     if hist.tap is not None:
         hist.tap(bins, node, grad, hess, m, nb)
     lib = LIB.load()

@@ -41,8 +41,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ir.state import AT_ROOT, State
 from ..ops import conv2d as oc
+from ..ops import fused_head as fh
+from ..ops import hist as th
 from ..ops import matmul as om
 from ..records.serde import (
     ERROR_BUILD_TIMEOUT,
@@ -57,6 +60,11 @@ from ..records.workload import decode_workload_key
 from .measure import Runner
 
 VERIFY_REL_TOL = 2e-2
+
+
+class NoCardError(RuntimeError):
+    """A runner told to time on CUDA found no card: the measurement stops
+    here rather than charging every config a failure."""
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +357,8 @@ def _run_cached(runner, states: Sequence[State], *, to_raw, snap, valid,
             except TimeoutError:
                 res = MeasureResult([MAX_FLOAT], ERROR_BUILD_TIMEOUT,
                                     time.time() - t0, now)
+            except NoCardError:
+                raise
             except Exception as exc:
                 # a launch the kernel refused, a wrong result at the
                 # verification, or a device fault: the config is charged
@@ -408,17 +418,20 @@ class _KernelRunner(Runner):
 
     def _time_launches(self, shape: tuple, cfg,
                        call: Callable[[], torch.Tensor],
-                       plain: Callable[[], torch.Tensor]) -> float:
+                       plain: Callable[[], torch.Tensor],
+                       tol: float = VERIFY_REL_TOL,
+                       checked: Callable = lambda out: out) -> float:
         """Hold ``call`` (the kernel at ``cfg``) against the plain version
-        on the operands of ``shape``, then time it on the card: device
-        seconds per call (the host's go to ``host_seconds``)."""
-        got = call()
+        on the operands of ``shape`` (``checked`` picks the output held,
+        within ``tol``), then time it on the card: device seconds per call
+        (the host's go to ``host_seconds``)."""
+        got = checked(call())
         torch.cuda.synchronize(self.device)
         want = self._plain_out.get(shape)
         if want is None:
             want = self._plain_out[shape] = plain()
         err = _rel_err(got, want)
-        if not err <= VERIFY_REL_TOL:
+        if not err <= tol:
             raise RuntimeError(f"kernel numerics off: rel err {err:g}")
         self.n_verified += 1
         self.verify_rel_err = max(err, self.verify_rel_err or 0.0)
@@ -427,6 +440,14 @@ class _KernelRunner(Runner):
         self.launches_per_config[cfg] = type(self).kernel.launches - before
         self.host_seconds[cfg] = timing.host_seconds
         return timing.seconds
+
+    def _require_card(self):
+        """Raise :class:`NoCardError` where the runner's CUDA device is
+        absent (called before a config first touches the card)."""
+        try:
+            resolve_device(self.device)
+        except RuntimeError as exc:
+            raise NoCardError(str(exc)) from None
 
     def _check_device(self):
         if self.time_fn is None and self.device.type != "cuda":
@@ -483,6 +504,7 @@ class MatmulRunner(_KernelRunner):
             raise TimeoutError(
                 f"predicted {est:.2f}s/call exceeds --max-seconds "
                 f"{self.max_seconds:g}")
+        self._require_card()
         a, b = self.operands(M, N, K)
         return self._time_launches(
             (M, N, K), (bm, bn, bk), lambda: om.matmul(a, b, bm, bn, bk),
@@ -557,6 +579,7 @@ class Conv2dRunner(_KernelRunner):
             raise TimeoutError(
                 f"predicted {est:.2f}s/call exceeds --max-seconds "
                 f"{self.max_seconds:g}")
+        self._require_card()
         x, w, bias = self.operands(N, H, W, CO, CI, KH, KW)
         return self._time_launches(
             params, (boh, bco, bci),
@@ -623,3 +646,512 @@ def time_library_conv2d(N: int, H: int, W: int, CO: int, CI: int,
                                        padding=pad))
 
     return cuda_seconds(call, target_ms, repeats)
+
+
+# ---------------------------------------------------------------------------
+# the fused cost head and the GBDT histogram: the port's own kernels
+# ---------------------------------------------------------------------------
+
+# the fused head's cost against its plain version, relative to max |cost|
+FUSED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _subtree_loops(state: State, root_name: str):
+    """state_loops restricted to one root stage's subtree (the stage and
+    everything compute_at-attached under it), for carrier DAGs whose
+    stages reuse axis names so the flattened walk would mix nests."""
+    loops: List[Tuple[str, int, int]] = []
+
+    def visit(sid: int, base: int):
+        stage = state.stages[sid]
+        depth = base
+        for i, it in enumerate(stage.iters):
+            if it.range is not None and isinstance(it.range[1], int):
+                loops.append((it.name, it.range[1], depth))
+            depth += 1
+            attached = state.attach_map.iter_to_attached_stages.get((sid, i))
+            if attached:
+                for a_sid in attached:
+                    visit(a_sid, depth)
+
+    for sid, stage in enumerate(state.stages):
+        if (stage.op.name == root_name and stage.op_type != "placeholder"
+                and stage.compute_at == AT_ROOT):
+            visit(sid, 0)
+            break
+    return loops
+
+
+def state_to_fusedhead_config(
+    state: State,
+) -> Tuple[Optional[Tuple[int, int]], Optional[str]]:
+    """Quotient a fused_head_layer schedule onto ``(block, mc_chunk)``.
+
+    Same cut as the matmul quotient, applied to the MC subtree only
+    (the carrier DAG reuses axis names across its three stages, so the
+    flattened state_loops walk would find A1's reduction first):
+    candidate tiles (root ``i``) inside the outermost reduction loop
+    multiply into the kernel's candidate block, MC-pass tiles (root
+    ``t``) into its MC chunk.
+    """
+    loops = _subtree_loops(state, "MC")
+    if not loops:
+        return None, "no MC stage in the state"
+    kpos = None
+    for idx, (name, _, _) in enumerate(loops):
+        if "k" in _roots(name):
+            kpos = idx
+            break
+    if kpos is None:
+        return None, "no reduction loop in the MC nest"
+    k_depth = loops[kpos][2]
+    block = tc = 1
+    for name, ext, depth in loops[kpos + 1:]:
+        if depth <= k_depth:
+            break
+        roots = _roots(name)
+        if "i" in roots:
+            block *= ext
+        if "t" in roots:
+            tc *= ext
+    return (block, tc), None
+
+
+def state_to_hist_plan(
+    state: State,
+) -> Tuple[Optional[Tuple[int, int]], Optional[str]]:
+    """Quotient a gbdt_hist_layer schedule onto the CUDA ``hist`` kernel's
+    own knobs, ``(features, chunks)`` for ``ops/hist.py::hist(plan=)``.
+
+    The JAX package reads this state as a TPU tier ladder (windows over
+    the bin axis ``b``, ``state_to_hist_ladder``). The CUDA kernel has no
+    tiers: it takes every bin count up to 256 in one launch. Its knobs are
+    the features a block holds and the row ranges the rows are cut into
+    (``ops/hist.py::launch_plan``), so the state is read onto those, in
+    the stage that carries the row reduction ``r`` (the cache-write stage
+    where there is one):
+
+    - ``features``: the product of the feature axis ``f``'s inner tiles,
+      from the innermost outward up to the first one fused with another
+      axis (its own extent is lost there) or to the outermost, which is
+      left out (it counts the blocks): a cap on features per block;
+    - ``chunks``: the extent of the outermost tile of ``r``: the number of
+      row ranges;
+    - 0 where the axis is not split: ``launch_plan``'s own choice for that
+      knob. An unsplit state is ``(0, 0)``, the hand default.
+    """
+    loops = None
+    for stage in state.stages:
+        if stage.op_type == "placeholder" or not stage.op.name.startswith(
+                "hist"):
+            continue
+        if any("r" in _roots(it.name) for it in stage.iters):
+            loops = [(it.name, it.range[1]) for it in stage.iters
+                     if it.range is not None and isinstance(it.range[1], int)]
+            break
+    if loops is None:
+        return None, "no hist stage with the row reduction in the state"
+    features = 0
+    f_loops = [(n, e) for n, e in loops if "f" in _roots(n)]
+    if any("." in n for n, _ in f_loops):
+        features = 1
+        for pos in range(len(f_loops) - 1, 0, -1):
+            name, ext = f_loops[pos]
+            if len(_roots(name)) > 1:
+                break  # fused with other axes: its own extent is lost
+            features *= ext
+    r_loops = [(n, e) for n, e in loops if _roots(n) == {"r"}]
+    chunks = 0
+    if any("." in n for n, _ in r_loops):
+        chunks = r_loops[0][1]
+    return (features, chunks), None
+
+
+def census_bins(F: int, c2: int, c16: int, c64: int, c128: int) -> int:
+    """The most bins a feature of a gbdt_hist_layer census takes (the
+    histogram's nb): 256 where some of the F features are continuous,
+    else the widest class's bound."""
+    if F > c2 + c16 + c64 + c128:
+        return 256
+    for bins, count in ((128, c128), (64, c64), (16, c16), (2, c2)):
+        if count:
+            return bins
+    return 2
+
+
+def snap_hist_plan(R: int, F: int, nb: int, features: int, chunks: int,
+                   depth: int = 6) -> Tuple[int, int]:
+    """A raw ``(features, chunks)`` clamped as ``launch_plan`` clamps it at
+    the root level (a cap of F features or more is no cap; row ranges at
+    most R // max(MIN_ROWS, 4 nb)), and ``(0, 0)`` where the plan launches
+    as the hand default at every level of a depth-``depth`` tree, so that
+    raw plans that run the same kernels share one measurement. Snapped on
+    an H100's 132 SMs."""
+    features = max(0, int(features))
+    chunks = max(0, int(chunks))
+    if features >= F:
+        features = 0
+    if chunks:
+        chunks = max(1, min(chunks, R // max(th.MIN_ROWS, 4 * nb)))
+
+    def plans(f, c):
+        return [th.launch_plan(F, R, 1 << lv, nb, th.NUM_SMS, f or None,
+                               c or None) for lv in range(depth)]
+
+    if (features, chunks) != (0, 0) and plans(features, chunks) == plans(
+            0, 0):
+        return 0, 0
+    return features, chunks
+
+
+def fusedhead_block_flops(D: int, H: int, L: int, T: int,
+                          groups: int) -> float:
+    """Operations of the fused head's longest block per candidate: the
+    encoder (D -> H -> H -> H -> L) and the head's forward, which every
+    group runs, then the backward alone (group 0, where G > 1) or the
+    longest group's share of the T MC passes (H -> H -> 1 each); with one
+    group, all of them."""
+    enc = D * H + 2 * H * H + H * L
+    fwd = L * H + H * H + H
+    bwd = H * H + H * L
+    mc = H * H + H
+    if groups == 1:
+        return 2.0 * (enc + fwd + bwd + T * mc)
+    return 2.0 * (enc + fwd + max(bwd, -(-T // (groups - 1)) * mc))
+
+
+def predicted_fusedhead_seconds(N: int, D: int, H: int, L: int, T: int,
+                                groups: int,
+                                dtype: str = "float32") -> float:
+    """A stand-in for the fused head's time on an H100 at G = ``groups``:
+    the longest block's operations (:func:`fusedhead_block_flops` for
+    ``BM`` candidates) at one SM's share of the dtype's peak (f32 CUDA
+    cores 67 TFLOP/s, bf16 tensor cores 989), times the waves of tiles x G
+    blocks over 132 SMs, plus a launch (two where G > 1). Used to refuse
+    configs that would run for seconds and as the ``--fake-timer`` timer.
+    Not a claim about the kernel's speed: the point is to measure."""
+    blocks = -(-N // fh.BM) * groups
+    block_s = fh.BM * fusedhead_block_flops(D, H, L, T, groups) / (
+        om.PEAK_FLOPS[dtype] / om.NUM_SMS)
+    return (math.ceil(blocks / om.NUM_SMS) * block_s
+            + om.LAUNCH_S * (1 + (groups > 1)))
+
+
+def predicted_hist_seconds(R: int, F: int, c2: int, c16: int, c64: int,
+                           c128: int, features: int, chunks: int,
+                           depth: int = 6) -> float:
+    """A stand-in for ``hist``'s time per tree of depth ``depth`` on an
+    H100 under the plan ``(features, chunks)``: per level, the bytes the
+    launch moves (the bins once, node, grad and hess once per feature
+    group, the two histograms out, and with more than one row range the
+    partial sums written and read) over 3.35 TB/s, plus a launch per level
+    and one per row range. Not a claim about the kernel's speed (which is
+    bound by its shared atomics, not bytes): the ``--fake-timer`` timer."""
+    nb = census_bins(F, c2, c16, c64, c128)
+    s = 0.0
+    for lv in range(depth):
+        m = 1 << lv
+        Fb, rows = th.launch_plan(F, R, m, nb, th.NUM_SMS, features or None,
+                                  chunks or None)
+        nch = -(-R // rows)
+        nbytes = (F * R + -(-F // Fb) * 12 * R + 2 * F * m * nb * 4
+                  + (nch > 1) * 2 * nch * F * 2 * m * nb * 8)
+        s += nbytes / om.HBM_BYTES_S + om.LAUNCH_S * (1 + nch)
+    return s
+
+
+class FusedHeadRunner(_KernelRunner):
+    """Times the port's fused cost head (``ops/fused_head.py``) on the card
+    at the group count G each fused_head_layer schedule maps onto
+    (``state_to_fusedhead_config``, then ``snap_fused_groups``). Costs are
+    seconds per ``fused_head_stats`` call (the kernel and, at G > 1, its
+    finishing kernel), with the predictor's encoder run first, at the
+    workload's (N, D, H, L, T) and dropout rate 0.1."""
+
+    kernel = fh.fused_head_stats
+    n_shape = 5
+
+    @staticmethod
+    def task_dims(task: SearchTask) -> Tuple[int, int, int, int, int]:
+        name, args = decode_workload_key(task.workload_key)
+        if name != "fused_head_layer":
+            raise ValueError(
+                f"FusedHeadRunner needs fused_head_layer, got {name!r}")
+        return tuple(int(a) for a in args[:5])
+
+    def operands(self, N: int, D: int, H: int, L: int):
+        """X [N, D] in the runner's dtype and the predictor's parameters
+        (encoder D -> H -> H -> H, fc_mu H -> L, head L -> H -> H -> 1),
+        drawn from a torch generator seeded 0 on the runner's device (made
+        once per shape; timing only)."""
+        from ..models.predictor import init_predictor_params
+
+        key = (N, D, H, L)
+        ops = self._operands.get(key)
+        if ops is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            x = torch.randn(N, D, generator=gen, device=self.device)
+            params = init_predictor_params(
+                gen, D, hidden_dim=H, latent_dim=L, predictor_hidden=H,
+                device=self.device)
+            ops = self._operands[key] = (
+                x.to(om.DTYPES[self.dtype][0]).contiguous(), params)
+        return ops
+
+    def _time_config(self, N: int, D: int, H: int, L: int, T: int,
+                     groups: int) -> float:
+        if self.time_fn is not None:
+            return float(self.time_fn(N, D, H, L, T, groups))
+        est = predicted_fusedhead_seconds(N, D, H, L, T, groups, self.dtype)
+        if est > self.max_seconds:
+            raise TimeoutError(
+                f"predicted {est:.2f}s/call exceeds --max-seconds "
+                f"{self.max_seconds:g}")
+        self._require_card()
+        x, params = self.operands(N, D, H, L)
+        head = params["cost_predictor"]
+        enc = (params["encoder"], params["fc_mu"])
+
+        # the deterministic output (cost) is held against the plain
+        # version; the MC statistics depend on the dropout bits
+        return self._time_launches(
+            (N, D, H, L), (groups,),
+            lambda: fh.fused_head_stats(head, x, 7, T=T, rate=0.1,
+                                        encoder=enc, groups=groups),
+            lambda: fh.fused_head_passes_plain(head, x, 0, 0.1,
+                                               encoder=enc)[0],
+            tol=FUSED_TOL[self.dtype], checked=lambda out: out[0])
+
+    def run(self, task: SearchTask, states: Sequence[State]
+            ) -> List[MeasureResult]:
+        N, D, H, L, T = self.task_dims(task)
+        self._check_device()
+        return _run_cached(
+            self, states,
+            to_raw=state_to_fusedhead_config,
+            snap=lambda raw: (fh.snap_fused_groups(N, T, *raw),),
+            valid=lambda cfg: (True, None),
+            time_cfg=lambda cfg: self._time_config(N, D, H, L, T, *cfg),
+            shape_key=(N, D, H, L, T),
+            flops=N * fusedhead_block_flops(D, H, L, T, 1),
+            names=("G",),
+        )
+
+
+class HistRunner(_KernelRunner):
+    """Times the device GBDT (``models/boost_device.py``) under a ``hist``
+    launch plan on the card: the cost recorded is seconds per boosting
+    round of ``boost_device.train`` (depth 6, eta 0.03, 10 rounds, the
+    pack-sum objective; the best of ``repeats`` runs after a warm-up run
+    that is discarded) on the JAX runner's synthetic census corpus of the
+    workload's (R, F, c2, c16, c64, c128), made with numpy from seed 0.
+    A config is a plan ``(features, chunks)`` (``state_to_hist_plan``;
+    ``(0, 0)`` = ``launch_plan``'s own, the hand default). Each round
+    launches the kernel once per level; the grower's other per-level ops
+    run in every round too."""
+
+    kernel = th.hist
+    n_shape = 6
+
+    def __init__(self, dtype: str = "bfloat16", repeats: int = 2,
+                 rounds: int = 10, depth: int = 6,
+                 time_fn: Optional[Callable] = None, verbose: bool = False,
+                 device="cuda", **_ignored):
+        super().__init__(dtype=dtype, repeats=repeats, time_fn=time_fn,
+                         verbose=verbose, device=device)
+        self.rounds = rounds
+        self.depth = depth
+        self._dmats = {}
+
+    @staticmethod
+    def task_dims(task: SearchTask) -> Tuple[int, ...]:
+        name, args = decode_workload_key(task.workload_key)
+        if name != "gbdt_hist_layer":
+            raise ValueError(
+                f"HistRunner needs gbdt_hist_layer, got {name!r}")
+        return tuple(int(a) for a in args[:6])
+
+    def dmatrix(self, R: int, F: int, c2: int, c16: int, c64: int,
+                c128: int):
+        """The JAX runner's synthetic census corpus (its
+        ``_get_dmatrix``, the same numpy draws): c2 binary columns, c16
+        with 12 levels, c64 with 50, c128 with 100, the rest continuous;
+        ~20 rows per pack, labels from the first column's pack sums."""
+        from ..models import boost
+
+        key = (R, F, c2, c16, c64, c128)
+        dm = self._dmats.get(key)
+        if dm is None:
+            rng = np.random.default_rng(0)
+            cols = []
+            for _ in range(c2):
+                cols.append((rng.random(R) < rng.uniform(0.05, 0.95))
+                            .astype(np.float32))
+            for _ in range(c16):
+                cols.append(rng.integers(0, 12, R).astype(np.float32))
+            for _ in range(c64):
+                cols.append(rng.integers(0, 50, R).astype(np.float32))
+            for _ in range(c128):
+                cols.append(rng.integers(0, 100, R).astype(np.float32))
+            for _ in range(max(0, F - c2 - c16 - c64 - c128)):
+                cols.append(rng.random(R, dtype=np.float32))
+            rows = np.stack(cols[:F], axis=1)
+            n_packs = max(1, R // 20)
+            pack_ids = np.sort(rng.integers(0, n_packs, R))
+            _, pack_ids = np.unique(pack_ids, return_inverse=True)
+            n_packs = int(pack_ids.max()) + 1
+            w = 0.01 * rng.standard_normal(n_packs).astype(np.float32)
+            np.add.at(w, pack_ids, rows[:, 0])
+            labels = ((w - w.min()) / (w.max() - w.min() + 1e-9)
+                      ).astype(np.float32)
+            dm = boost.DMatrix(rows, label=labels[pack_ids],
+                               pack_ids=pack_ids.astype(np.int64),
+                               group_sizes=[len(labels)])
+            dm._ensure_binned()
+            self._dmats[key] = dm
+        return dm
+
+    def train(self, shape: Tuple[int, ...], plan: Tuple[int, int]):
+        """One ``boost_device.train`` of ``rounds`` rounds under ``plan``
+        on the workload's corpus (the booster)."""
+        from ..models import boost, boost_device
+
+        # eta low enough not to diverge on the synthetic corpus
+        params = {"max_depth": self.depth, "eta": 0.03, "gamma": 0.003,
+                  "min_child_weight": 2}
+        return boost_device.train(
+            params, self.dmatrix(*shape), num_boost_round=self.rounds,
+            obj=boost.pack_sum_square_error, verbose_eval=0,
+            hist_plan=plan, device=self.device)
+
+    def _time_config(self, shape: Tuple[int, ...],
+                     features: int, chunks: int) -> float:
+        if self.time_fn is not None:
+            return float(self.time_fn(*shape, features, chunks))
+        self._require_card()
+        plan = (features, chunks)
+        before = th.hist.launches
+        times = []
+        for _ in range(self.repeats + 1):   # the first run warms up
+            t0 = time.perf_counter()
+            self.train(shape, plan)         # ends reading its trees back
+            times.append(time.perf_counter() - t0)
+        self.launches_per_config[plan] = th.hist.launches - before
+        return min(times[1:]) / self.rounds
+
+    def run(self, task: SearchTask, states: Sequence[State]
+            ) -> List[MeasureResult]:
+        shape = self.task_dims(task)
+        self._check_device()
+        R, F = shape[0], shape[1]
+        nb = census_bins(*shape[1:])
+        return _run_cached(
+            self, states,
+            to_raw=state_to_hist_plan,
+            snap=lambda raw: snap_hist_plan(R, F, nb, *raw,
+                                            depth=self.depth),
+            valid=lambda cfg: (True, None),
+            time_cfg=lambda cfg: self._time_config(shape, *cfg),
+            shape_key=shape,
+            flops=2.0 * R * F * 256 * 16,
+            names=("features", "chunks"),
+        )
+
+
+def default_config_state(task: SearchTask) -> Optional[State]:
+    """The hand default of a kernel family as an explicit State (the
+    reference's PreloadMeasuredStates role): the suite measures it through
+    the same runner into the same log, so that the library's min-cost
+    query never falls below the hand default even where the GA misses it.
+
+    - fused_head_layer: the MC chunk whose ``snap_fused_groups`` is
+      ``launch_plan``'s G on an H100's 132 SMs (t split by it; i by ``BM``
+      where it divides N, else N; k by L);
+    - gbdt_hist_layer: the unsplit state, read as ``(0, 0)``:
+      ``launch_plan``'s own choice at every level.
+    None for the other families, whose hand default is no schedule."""
+    from ..ir.schedule_api import state_reorder, state_split
+
+    name, args = decode_workload_key(task.workload_key)
+    st = task.compute_dag.init_state.copy()
+    if name == "fused_head_layer":
+        N, D, H, L, T = (int(a) for a in args[:5])
+        G = fh.launch_plan(N, T, om.NUM_SMS)[0]
+        tc = max((c for c in range(1, T + 1)
+                  if fh.snap_fused_groups(N, T, 0, c) == G), default=T)
+        sid = next(i for i, s in enumerate(st.stages) if s.op.name == "MC")
+        t_it, i_it, k_it = st.stages[sid].iters
+        block = fh.BM if N % fh.BM == 0 else N
+        t0, t1 = state_split(st, sid, t_it, [tc])
+        i0, i1 = state_split(st, sid, i_it, [block])
+        k0, k1 = state_split(st, sid, k_it, [L])
+        state_reorder(st, sid, [t0, i0, k0, t1, i1, k1])
+        return st
+    if name == "gbdt_hist_layer":
+        return st
+    return None
+
+
+def default_config(task: SearchTask) -> Optional[Tuple[int, ...]]:
+    """The hand default's config as its runner keys it: ``(G,)`` for the
+    fused head, ``(0, 0)`` for ``hist``; None for the other families."""
+    name, args = decode_workload_key(task.workload_key)
+    if name == "fused_head_layer":
+        return (fh.launch_plan(int(args[0]), int(args[4]), om.NUM_SMS)[0],)
+    if name == "gbdt_hist_layer":
+        return (0, 0)
+    return None
+
+
+class KernelRunner(Runner):
+    """The composite runner over every kernel family the port tunes
+    (counterpart of the JAX ``PallasKernelRunner``). The task scheduler
+    tunes many tasks through one runner (the reference allocates one
+    measurer across all tasks); this dispatches each task to its family's
+    runner by workload name, so a mixed suite (``cli/tune_kernel_suite``)
+    tunes through the gradient strategy like a network's task set."""
+
+    def __init__(self, dtype: str = "bfloat16",
+                 matmul_time_fn: Optional[Callable] = None,
+                 conv_time_fn: Optional[Callable] = None,
+                 fusedhead_time_fn: Optional[Callable] = None,
+                 hist_time_fn: Optional[Callable] = None, device="cuda",
+                 **kw):
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.verbose = kw.get("verbose", False)
+        self.matmul = MatmulRunner(dtype=dtype, time_fn=matmul_time_fn,
+                                   device=device, **kw)
+        self.conv = Conv2dRunner(dtype=dtype, time_fn=conv_time_fn,
+                                 device=device, **kw)
+        self.fusedhead = FusedHeadRunner(dtype=dtype,
+                                         time_fn=fusedhead_time_fn,
+                                         device=device, **kw)
+        self.hist = HistRunner(
+            dtype=dtype, time_fn=hist_time_fn, device=device,
+            **{k: v for k, v in kw.items() if k in ("repeats", "verbose")})
+
+    def family(self, task: SearchTask) -> Runner:
+        """The family runner of ``task`` (the JAX ``_dispatch``)."""
+        name, _ = decode_workload_key(task.workload_key)
+        if "conv2d_layer" in name:
+            return self.conv
+        if name == "fused_head_layer":
+            return self.fusedhead
+        if name == "gbdt_hist_layer":
+            return self.hist
+        if "matmul" in name:
+            return self.matmul
+        raise ValueError(
+            f"no kernel family for workload {name!r} (tunable: "
+            "matmul_auto_scheduler_test, conv2d_layer, fused_head_layer, "
+            "gbdt_hist_layer)")
+
+    def run(self, task: SearchTask, states: Sequence[State]
+            ) -> List[MeasureResult]:
+        return self.family(task).run(task, states)
+
+    @property
+    def n_timed(self) -> int:
+        return (self.matmul.n_timed + self.conv.n_timed
+                + self.fusedhead.n_timed + self.hist.n_timed)

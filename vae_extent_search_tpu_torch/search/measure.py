@@ -449,6 +449,10 @@ def runner_from_spec(spec: str, noise: float = 0.0, seed: int = 0,
     - ``cuda_matmul[:<dtype>]``         time the port's CUDA matmul kernel
                                         on the card (search/kernel_tuner.py)
     - ``cuda_conv2d[:<dtype>]``         the same for its conv2d kernel
+    - ``cuda_kernels[:<dtype>]``        the composite runner: each task
+                                        to its family's runner (matmul,
+                                        conv2d, the fused head, the GBDT
+                                        histogram)
 
     The JAX package's TPU specs (``pallas_matmul``, ``pallas_conv2d``,
     ``pallas``) exit with the name of their counterpart here.
@@ -468,7 +472,8 @@ def runner_from_spec(spec: str, noise: float = 0.0, seed: int = 0,
     if spec.startswith("command:"):
         return CommandRunner(spec.split(":", 1)[1])
     for name, cls in (("cuda_matmul", "MatmulRunner"),
-                      ("cuda_conv2d", "Conv2dRunner")):
+                      ("cuda_conv2d", "Conv2dRunner"),
+                      ("cuda_kernels", "KernelRunner")):
         dtype = _spec_arg(spec, name, "bfloat16")
         if dtype is not None:
             from . import kernel_tuner
@@ -479,14 +484,10 @@ def runner_from_spec(spec: str, noise: float = 0.0, seed: int = 0,
         host, port = addr.rsplit(":", 1)
         return ServiceRunner(key, host, int(port))
     for name, ported in (("pallas_matmul", "cuda_matmul"),
-                         ("pallas_conv2d", "cuda_conv2d")):
+                         ("pallas_conv2d", "cuda_conv2d"),
+                         ("pallas", "cuda_kernels")):
         if _spec_arg(spec, name, "") is not None:
             raise SystemExit(
                 f"--runner {spec!r} times a TPU kernel; its counterpart on "
                 f"the card is --runner {ported}[:<dtype>]")
-    if _spec_arg(spec, "pallas", "") is not None:
-        raise SystemExit(
-            f"--runner {spec!r}: the composite kernel runner (dispatch per "
-            "task to the matmul or conv2d kernel) is not ported yet; use "
-            "cuda_matmul[:<dtype>] or cuda_conv2d[:<dtype>]")
     raise SystemExit(f"unknown --runner {spec!r}")

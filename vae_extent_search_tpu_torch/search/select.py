@@ -27,6 +27,7 @@ from ..convert import tree_map
 from ..models.predictor import mc_predict, pred_encode, predict_cost
 from ..ops.fused_head import fused_head_stats
 from ..ops.kcenter import k_center_greedy_pool_core
+from ..ops.kernel_library import tuned_fused_head_config
 
 NEG_INF = -1e30
 
@@ -277,12 +278,19 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
         X = X.to(ct).contiguous()
     mu = None
     if _use_fused_head(params, X, cfg, mask_bits):
+        # the kernel's group count tuned for this shape on the card
+        # (cli/tune_kernel_suite.py's fusedhead family), where the process
+        # kernel library holds a record; launch_plan's G otherwise
+        h_dim, l_dim = params["fc_mu"]["w"].shape
+        groups = tuned_fused_head_config(
+            X.shape[0], X.shape[1], h_dim, l_dim, cfg.T_mc,
+            dtype=cfg.compute_dtype)
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
                                  device=gen.device))
         cost_pred, gnorm, _, mc_var = fused_head_stats(
             params["cost_predictor"], X, seed, T=cfg.T_mc,
             rate=cfg.dropout_rate, mask_bits=mask_bits,
-            encoder=(params["encoder"], params["fc_mu"]))
+            encoder=(params["encoder"], params["fc_mu"]), groups=groups)
     else:
         mu, _ = pred_encode(params, X)
         cost_pred = predict_cost(params, mu).float()
