@@ -26,10 +26,14 @@
                                        # work on the kernel suite and the
                                        # kernel library; ends
                                        # {"partial": "selftune"}
+    python3 chip_smoke.py --only native  # phases 1 and 26 alone, for
+                                       # work on the host library; ends
+                                       # {"partial": "native"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
-     five kernels from csrc/ for sm_90a, one nvcc per source, started
+     five kernels from csrc/ for sm_90a, one nvcc per source, and g++ the
+     host library from csrc/host/ (its seconds printed), all started
      together; no fused_head_kernel instance and no f32 matmul or conv2d
      instance may spill registers (ptxas; each f32 instance's registers
      printed); cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
@@ -267,9 +271,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      VES_DATASET_ROOT (CUDA_TARGET): cli.dump_programs with the committed
      headline pool's own command (conv2d_layer 1 x 56 x 56 x 64 -> 64, 3 x
      3, --target cuda --n-states 4000 --seed 2023), then
-     cli.measure_programs --runner analytic_hf --noise 0: 4,000 states
-     distinct as the GA keys them (its printed form, bound or not; their
-     step lists distinct to 99.9%), each with blockIdx and threadIdx binds
+     cli.measure_programs --runner analytic_hf --noise 0 (both through the
+     native host library): 4,000 states distinct as the native
+     GA keys them (their step lists distinct to 99.9%), each with blockIdx
+     and threadIdx binds
      and a .shared cache stage, every record recovering to its GA state's
      printed bound form,
      every cost finite and at least 90% distinct; the GA's and the
@@ -295,8 +300,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      TaskScheduler(strategy="gradient") with sketch.mlp from phase 17's
      mlp.pkl (hidden 256, lambdaRank; warm-up gate 14 x 16 = 224), 320
      trials, 16 per round, through make_search_policies and tune(policies=,
-     cost_model=) with the GA population cut from 2,048 to 128 (4
-     iterations kept): the rounds, the refits (the first at 224 samples),
+     cost_model=) at the GA's default population of 2,048 (4 iterations;
+     the native GA and featuriser): the rounds, the refits (the first at 224 samples),
      every segment sum through the forward kernel and every optimiser step
      through the backward kernel with no plain call, the host seconds of
      the GA, the featurising, the predicts and the refits, the best costs
@@ -337,16 +342,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
      launch_plan's, whose (F, rows) per level and device ms per level (the
      first tree's inputs, CUDA events) are printed. The phase's seconds
      are printed against its budget (SELFTUNE_BUDGET_S)
-In the whole run, phases 22, 23 and 24 run side by side, a process each
-(phase_job), while phase 21 runs in the main process: all four are bound by
-host Python (the GA, the featuriser, eager launches), and each process sets
+ 26. the native host layer (the port's g++-built library,
+     records/fast_parser.py) at the sizes users have, every number beside
+     the card's name and power limit and os.cpu_count(): (a) every
+     committed record log parsed natively and by serde, the same records,
+     both parse times; (b) the per-store features of the resnet_50 corpus
+     (2,528 CPU-target records) and of the headline pool (4,000 CUDA-target
+     records) natively at 1 thread and at every core, equal bit for bit,
+     and the Python featuriser on the first 500 records of each: s per
+     1,000 records of each beside PERF.md's Python figures, max |native -
+     Python| <= 1e-4, every record at status 0 and no fallback; (c) phase
+     23's headline command, not cut: dump_programs --n-states 4000 through
+     the native GA (make_state_records, make_states never called) beside the
+     Python GA on 1,000 states (states per second of each),
+     measure_programs --runner analytic_hf --noise 0 through
+     run_record_lists with 256 of its records equal to the State path's bit
+     for bit, then cli.vae_extent_search --record-file on that log at full
+     width for seed 2000, --max-phases 6: one fused-head launch per
+     selection phase, no other kernel; (d) make_dataset --n-threads
+     <cores> on the resnet_50 corpus, equal bit for bit to --n-threads 1,
+     then train_model --models mlp on it: every segment sum through the
+     forward kernel, every optimiser step through the backward kernel, no
+     plain call. Its seconds are printed against NATIVE_BUDGET_S
+In the whole run, phases 22, 23, 24 and 26 run side by side, a process each
+(phase_job), while phase 21 runs in the main process: all five are bound by
+host work (the GA, the featuriser, eager launches), and each process sets
 its own launch counts to 0 before its paths and reads them after. Their
 seconds are then printed beside the others' and not against their budgets,
 which hold for a phase run alone (--only). Phase 25 runs after them, alone:
 its runners time the card with CUDA events, inside whose windows the
 kernels of other processes would land.
-The last lines are JSON objects with phase 20's, 21's, 22's, 23's, 24's and
-25's results, the card's name and power limit, a JSON object with each kernel's
+The last lines are JSON objects with phase 20's, 21's, 22's, 23's, 24's,
+25's and 26's results, the card's name and power limit, a JSON object with each kernel's
 check and times, then {"ok": true, "device": {...}}.
 """
 
@@ -2914,6 +2941,9 @@ def cuda_target_phases(dev, kernels):
         vae_extent_search,
     )
     from vae_extent_search_tpu_torch.records import load_records
+    from vae_extent_search_tpu_torch.records.fast_parser import (
+        featurize_perstore_records_native,
+    )
     from vae_extent_search_tpu_torch.records.serde import record_from_json
 
     cfg = CUDA_TARGET
@@ -2937,22 +2967,22 @@ def cuda_target_phases(dev, kernels):
         os.environ["VES_DATASET_ROOT"] = os.path.join(d, "dataset")
         common.set_dataset_root()
         made = []
-        orig_make_states = dump_programs.make_states
+        orig_make_records = dump_programs.make_state_records
 
-        def keep_states(*a, **kw):
-            made.extend(orig_make_states(*a, **kw))
+        def keep_records(*a, **kw):
+            made.extend(orig_make_records(*a, **kw) or [])
             return made
 
         try:
-            # (a) the pool: the GA, then the high-fidelity runner
-            dump_programs.make_states = keep_states
+            # (a) the pool: the native GA, then the high-fidelity runner
+            dump_programs.make_state_records = keep_records
             t = time.perf_counter()
             dumped, _ = quiet(dump_programs.main, [
                 "--workload-key", cfg["workload_key"], "--target", "cuda",
                 "--n-states", str(cfg["n_states"]), "--seed",
                 str(cfg["seed"])])
             ga_s = time.perf_counter() - t
-            dump_programs.make_states = orig_make_states
+            dump_programs.make_state_records = orig_make_records
             (pool, n_pool), = dumped.items()
             t = time.perf_counter()
             measured, _ = quiet(measure_programs.main, [
@@ -2962,14 +2992,16 @@ def cuda_target_phases(dev, kernels):
             t = time.perf_counter()
             recs = load_records(mlog)
             task = recs[0].inp.task
-            n_states = len({st.to_str() for st in made})
+            # the native GA keys a state by its structure (its dedup key)
+            n_states = len(set(featurize_perstore_records_native(
+                task, made, with_features=False)[1].tolist()))
             steps = [json.dumps(r.inp.step_records) for r in recs]
             printed, bound_ok, binds_ok = [], 0, 0
-            for rec, st in zip(recs, made):
+            for rec, st_recs in zip(recs, made):
                 rst = rec.inp.recover_state(infer_bound=True)
                 printed.append(rst.to_str())
-                bound_ok += printed[-1] == \
-                    task.compute_dag.infer_bound(st).to_str()
+                bound_ok += printed[-1] == task.compute_dag.infer_bound(
+                    task.compute_dag.apply_steps(st_recs)).to_str()
                 annos = {it.annotation for stg in rst.stages
                          for it in stg.iters}
                 binds_ok += {5, 6} <= annos and any(
@@ -2985,21 +3017,20 @@ def cuda_target_phases(dev, kernels):
             log(f"[23] dump_programs --workload-key '{cfg['workload_key']}' "
                 f"--target cuda --n-states {cfg['n_states']} --seed "
                 f"{cfg['seed']}: {n_pool} states, {n_states} distinct as the "
-                f"GA keys them (printed as it holds them, bound or not), "
+                f"native GA keys them, "
                 f"{len(set(steps))} distinct step lists and "
-                f"{len(set(printed))} distinct printed bound forms, GA "
-                f"{ga_s:.2f} s (host); measure_programs --runner "
+                f"{len(set(printed))} distinct printed bound forms, native "
+                f"GA {ga_s:.2f} s (host); measure_programs --runner "
                 f"analytic_hf --noise 0: {n_meas} records in {measure_s:.2f}"
-                f" s (the per-store featuriser, host), {len(finite)} finite "
+                f" s (run_record_lists, host), {len(finite)} finite "
                 f"costs, {distinct} distinct; {binds_ok} states with "
                 f"blockIdx and threadIdx binds and a .shared cache stage; "
                 f"{bound_ok} records recover to their state's printed bound "
                 f"form ({check_s:.2f} s); {shared} step lists also in the "
                 f"committed pool")
-            # the Python GA keys a state by its printed form as it holds
-            # it, bound or not (as the JAX package's Python GA does), so a
-            # schedule may come twice, bound and unbound: the step lists
-            # are held distinct to 99.9%
+            # the step lists are held distinct to 99.9% (the Python GA,
+            # which keys a state by its printed form bound or not, gave a
+            # schedule twice at times)
             if not (n_pool == n_meas == len(recs) == len(made)
                     == cfg["n_states"] == n_states
                     == binds_ok == bound_ok == len(finite) == len(costs)
@@ -3067,7 +3098,7 @@ def cuda_target_phases(dev, kernels):
                 f"{cfg['tune_candidates']} for the time limit)")
             out["tune_vae"] = res
         finally:
-            dump_programs.make_states = orig_make_states
+            dump_programs.make_state_records = orig_make_records
             if env_before is None:
                 os.environ.pop("VES_DATASET_ROOT", None)
             else:
@@ -3084,13 +3115,12 @@ def cuda_target_phases(dev, kernels):
 # phase 24: the tuning loop. (a) cli.tune_network and cli.ansor at their
 # defaults (the random model), (b) resnet_18's 14 tasks under the gradient
 # strategy with phase 17's pretrained MLP, (c) transfer_tune with an MLP
-# base. Cut for the time limit: (b)'s GA population, 2,048 -> 128 (its 4
-# iterations kept: at 2,048 each learned round would featurise 16 times
-# the states on the host, the loop's largest part, PERF.md section 5), and
-# cli.ansor's trials, 256 -> 96
+# base. (b) runs the GA at its default population of 2,048 (the Python GA
+# and featuriser forced a cut to 128: PERF.md section 5). Cut for the time
+# limit: cli.ansor's trials, 256 -> 96
 TUNE_NET = dict(network="dcgan", trials=96, more_trials=32, ansor_trials=96,
                 loop_network="resnet_18", loop_trials=320, per_round=16,
-                population=128, transfer_sizes=(32, 48), transfer_states=32,
+                population=2048, transfer_sizes=(32, 48), transfer_states=32,
                 transfer_trials=32, probe_states=64, pick=16, tol=1e-4)
 TUNE_NET_TARGET = "llvm -mcpu=skylake-avx512"
 TUNE_NET_BUDGET_S = 240.0
@@ -3099,17 +3129,20 @@ TUNE_NET_BUDGET_S = 240.0
 class LoopClock:
     """Host seconds, while active, of the tuning loop's parts: the
     policies' rounds (GA, featurising and scoring), the featurising of the
-    states the learned model scores, its predict calls, its updates and
+    states the learned model scores (the native GA's generation batches,
+    and the State featuriser), its predict calls, its updates and
     the refits inside them, and the measuring. Also the number of samples
     at each update and at each refit."""
 
     def __init__(self, model):
+        from vae_extent_search_tpu_torch.records import fast_parser
         from vae_extent_search_tpu_torch.search import cost_model, measure
         from vae_extent_search_tpu_torch.search import sketch
 
         self.model = model
         self.targets = [
             (sketch.SketchPolicy, "continue_search_one_round", "round"),
+            (fast_parser, "featurize_perstore_records_native", "native"),
             (cost_model, "get_per_store_features_from_states", "featurise"),
             (measure.ProgramMeasurer, "measure", "measure"),
             (model.internal, "predict_on_features", "predict"),
@@ -3148,10 +3181,12 @@ class LoopClock:
                 setattr(obj, name, fn)
 
     def split(self):
-        """GA (the rounds less their featurising and scoring), featurise,
+        """GA (the rounds less their featurising and scoring), the native
+        GA's batches (replay, keys, features), the State featuriser,
         predict, refit, the updates' own featurising, measure (seconds)."""
         s = self.s
-        return {"ga": s["round"] - s["featurise"] - s["predict"],
+        return {"ga": s["round"] - s["native"] - s["featurise"]
+                - s["predict"], "native_batch": s["native"],
                 "featurise": s["featurise"], "predict": s["predict"],
                 "refit": s["refit"],
                 "update_featurise": s["update"] - s["refit"],
@@ -3435,11 +3470,12 @@ def tune_network_phases(dev, kernels, mlp_pkl=None, cfg=TUNE_NET):
         log(f"[24] (b) {cfg['loop_network']}, {len(tasks)} tasks, gradient "
             f"strategy, sketch.mlp from phase 17's mlp.pkl (warm-up gate "
             f"{model.num_warmup_sample}), GA population "
-            f"{cfg['population']} (cut from 2,048), "
+            f"{cfg['population']}, "
             f"{cfg['loop_trials']} trials, {cfg['per_round']} per round: "
             f"{rounds} rounds, {sched.ct} trials, {refits} refits at "
             f"{clock.refit_sizes} samples; {clock.n['predict']} predict "
-            f"calls; {loop_s:.1f} s wall")
+            f"calls; {loop_s:.1f} s wall, "
+            f"{clock.s['round'] / max(rounds, 1):.2f} s per policy round")
         log(f"[24] (b) host seconds: " + ", ".join(
             f"{k} {v:.2f}" for k, v in split.items()))
         log(f"[24] (b) best costs (ms): "
@@ -3963,8 +3999,351 @@ def selftune_phases(dev, kernels, cfg=SELFTUNE):
     return out
 
 
+# phase 26: the native host layer at the sizes users have. (a) every
+# committed record log parsed natively and by serde; (b) the per-store
+# features of the resnet_50 corpus (2,528 CPU-target records) and of the
+# headline pool (4,000 CUDA-target records) natively at 1 thread and at
+# every core, and the Python featuriser on the first python_subset records
+# of each; (c) phase 23's headline command (not cut) through the native GA
+# and run_record_lists, the Python GA on ga_python_states states beside
+# it, exact_records of the log against the State path, and the search on
+# that log; (d) make_dataset --n-threads <cores> and 1, and train_model
+# --models mlp on the dataset
+NATIVE = dict(python_subset=500, ga_python_states=1000, exact_records=256,
+              search_seed=2000, max_phases=6, tol=1e-4)
+NATIVE_BUDGET_S = 240.0
+# PERF.md section 5's Python featuriser on the card's host (PRs 4-7), s per
+# 1,000 records: printed beside this run's figures, never checked
+PYTHON_FEATURISE_S = {"cpu": 3.60, "cuda": 11.31}
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them, and the
+    host's cores."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        smi = "no card"
+    return f"{smi.splitlines()[0]}; os.cpu_count() {os.cpu_count()}"
+
+
+def committed_logs():
+    """The committed record logs: result/**/*.json (but the results
+    tables) and the two gzip-compressed pools."""
+    import glob
+
+    plain = [p for p in glob.glob(os.path.join(ROOT, "result", "**",
+                                               "*.json"), recursive=True)
+             if "results" not in os.path.basename(p)]
+    return sorted(plain) + [CONV_POOL_LOG, os.path.join(
+        ROOT, "result/conv2d_4k_hf/pool_conv2d_4k_hf.json.gz")]
+
+
+def native_phases(dev, kernels, cfg=NATIVE):
+    """Phase 26: the port's host library (records/fast_parser.py, built by
+    g++) on the card's host. Returns its results and the fused head's and
+    the segment sum's launches on its paths; raises on any failed check."""
+    from vae_extent_search_tpu_torch.cli import (
+        common,
+        dump_programs,
+        make_dataset,
+        measure_programs,
+        train_model,
+        vae_extent_search,
+    )
+    from vae_extent_search_tpu_torch.features import per_store as tps
+    from vae_extent_search_tpu_torch.models import segment as sm
+    from vae_extent_search_tpu_torch.ops import segment_sum as tss
+    from vae_extent_search_tpu_torch.records import fast_parser as tfp
+    from vae_extent_search_tpu_torch.records import serde
+    from vae_extent_search_tpu_torch.search import measure as tm
+    from vae_extent_search_tpu_torch.search import sketch as tsk
+
+    on_card = dev.type == "cuda"
+    cores = os.cpu_count()
+    where = card_line()
+    fh, seg = kernels["fused_head_stats"], tss.segment_sum
+    t_phase = time.perf_counter()
+    out = {"host": where}
+
+    def others(*names):
+        return {n: k.launches for n, k in kernels.items()
+                if n not in names and k.launches}
+
+    def quiet(fn, *a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        return res, buf.getvalue()
+
+    def same(a, b):
+        return (a.inp.step_records == b.inp.step_records
+                and a.inp.task.workload_key == b.inp.task.workload_key
+                and a.inp.task.target == b.inp.task.target
+                and a.res.error_no == b.res.error_no
+                and abs(a.res.mean_cost - b.res.mean_cost)
+                <= 1e-12 * abs(b.res.mean_cost))
+
+    # (a) the parser on every committed log
+    parsed = {}
+    for path in committed_logs():
+        t = time.perf_counter()
+        fast = tfp.load_records_fast(path)
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ref = serde.load_records(path)
+        serde_s = time.perf_counter() - t
+        name = os.path.relpath(path, ROOT)
+        ok = len(fast) == len(ref) > 0 and all(map(same, fast, ref))
+        log(f"[26] (a) {name}: {len(fast)} records, native parse "
+            f"{native_s:.3f} s, serde {serde_s:.3f} s, equal {ok} ({where})")
+        if not ok:
+            raise RuntimeError(f"[26] (a) {name}: {len(fast)} native records"
+                               f" against serde's {len(ref)}, or unequal")
+        parsed[name] = {"records": len(fast), "native_s": native_s,
+                        "serde_s": serde_s}
+    out["parse"] = parsed
+
+    # (b) the per-store featurisers at 1 thread and at every core, and the
+    # Python featuriser on a subset
+    feats = {}
+    for kind, path in (("cpu", RESNET50_LOG), ("cuda", CONV_POOL_LOG)):
+        tfp.FALLBACKS.clear()
+        t = time.perf_counter()
+        f1, st1 = tfp.featurize_perstore_native(path, n_threads=1)
+        one_s = time.perf_counter() - t
+        t = time.perf_counter()
+        fn, stn = tfp.featurize_perstore_native(path, n_threads=cores)
+        all_s = time.perf_counter() - t
+        n = len(f1)
+        equal = (np.array_equal(st1, stn) and all(
+            a is not None and b is not None and np.array_equal(a, b)
+            for a, b in zip(f1, fn)))
+        statuses = {int(k): int(v) for k, v in
+                    zip(*np.unique(st1, return_counts=True))}
+        recs = serde.load_records(path)[:cfg["python_subset"]]
+        t = time.perf_counter()
+        py = [tps.get_per_store_features_from_state(
+            r.inp.recover_state(infer_bound=True), r.inp.task) for r in recs]
+        py_s = time.perf_counter() - t
+        shapes = all(a.shape == b.shape for a, b in zip(f1, py))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(f1, py)
+                  if a.shape == b.shape and a.size)
+        row = {"records": n, "native_1_s_per_1000": 1e3 * one_s / n,
+               "native_all_s_per_1000": 1e3 * all_s / n,
+               "python_s_per_1000": 1e3 * py_s / len(recs),
+               "python_records": len(recs), "max_abs_err": err,
+               "threads_equal": equal, "statuses": statuses,
+               "fallbacks": dict(tfp.FALLBACKS)}
+        log(f"[26] (b) {os.path.relpath(path, ROOT)} ({kind} target): "
+            f"{n} records natively {row['native_1_s_per_1000']:.3f} s per "
+            f"1,000 at 1 thread, {row['native_all_s_per_1000']:.3f} at "
+            f"{cores} threads (equal bit for bit: {equal}); Python "
+            f"{row['python_s_per_1000']:.3f} s per 1,000 on {len(recs)} "
+            f"(PERF.md section 5: {PYTHON_FEATURISE_S[kind]:.2f}); max "
+            f"|native - Python| {err:.3g}; statuses {statuses}; fallbacks "
+            f"{row['fallbacks']} ({where})")
+        if not (equal and shapes and err <= cfg["tol"]
+                and statuses.get(0) == n and not tfp.FALLBACKS):
+            raise RuntimeError(f"[26] (b) {kind}: {row}")
+        feats[kind] = row
+    out["featurise"] = feats
+
+    # (c) the headline command end to end on the native paths
+    hc = CUDA_TARGET
+    env_before = os.environ.get("VES_DATASET_ROOT")
+    calls = {"records": 0, "states": 0, "run_record_lists": 0}
+    orig = (dump_programs.make_state_records, dump_programs.make_states,
+            tm.AnalyticRunner.run_record_lists)
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as d, in_directory(d):
+        os.environ["VES_DATASET_ROOT"] = os.path.join(d, "dataset")
+        common.set_dataset_root()
+        try:
+            dump_programs.make_state_records = counted("records", orig[0])
+            dump_programs.make_states = counted("states", orig[1])
+            tm.AnalyticRunner.run_record_lists = counted("run_record_lists",
+                                                         orig[2])
+            tfp.FALLBACKS.clear()
+            t = time.perf_counter()
+            dumped, _ = quiet(dump_programs.main, [
+                "--workload-key", hc["workload_key"], "--target", "cuda",
+                "--n-states", str(hc["n_states"]), "--seed",
+                str(hc["seed"])])
+            ga_s = time.perf_counter() - t
+            (pool, n_pool), = dumped.items()
+            task = serde.load_records(pool, max_lines=1)[0].inp.task
+            saved = tsk.SketchPolicy._evolutionary_search_native_recs
+            tsk.SketchPolicy._evolutionary_search_native_recs = \
+                lambda *a, **k: None
+            try:
+                t = time.perf_counter()
+                py_states = orig[1](task, cfg["ga_python_states"],
+                                    seed=hc["seed"])
+                py_ga_s = time.perf_counter() - t
+            finally:
+                tsk.SketchPolicy._evolutionary_search_native_recs = saved
+            t = time.perf_counter()
+            measured, _ = quiet(measure_programs.main, [
+                "--runner", "analytic_hf", "--noise", "0"])
+            measure_s = time.perf_counter() - t
+            (mlog, n_meas), = measured.items()
+            recs = serde.load_records(mlog)
+            costs = [r.res.costs[0] for r in recs if r.res.error_no == 0]
+            finite = [c for c in costs if np.isfinite(c)]
+            # the State path on the first records, bit for bit
+            runner = tm.runner_from_spec("analytic_hf", noise=0.0, seed=0)
+            runner.repeat = tm.flop_repeat_count(task.compute_dag.flop_ct)
+            part = recs[:cfg["exact_records"]]
+            state = runner.run(task, [r.inp.recover_state(infer_bound=True)
+                                      for r in part])
+            exact = sum(a.costs == b.res.costs and a.error_no ==
+                        b.res.error_no for a, b in zip(state, part))
+            ga_row = {"states": n_pool, "native_s": ga_s,
+                      "native_states_per_s": n_pool / ga_s,
+                      "python_states": len(py_states),
+                      "python_s": py_ga_s,
+                      "python_states_per_s": len(py_states) / py_ga_s,
+                      "measure_s": measure_s, "measured": n_meas,
+                      "finite_costs": len(finite),
+                      "distinct_costs": len(set(finite)),
+                      "exact_vs_state_path": exact, "calls": dict(calls),
+                      "fallbacks": dict(tfp.FALLBACKS)}
+            log(f"[26] (c) dump_programs --workload-key "
+                f"'{hc['workload_key']}' --target cuda --n-states "
+                f"{hc['n_states']} --seed {hc['seed']}: {n_pool} states by "
+                f"the native GA in {ga_s:.2f} s = "
+                f"{ga_row['native_states_per_s']:.0f} states/s; the Python "
+                f"GA {len(py_states)} states in {py_ga_s:.2f} s = "
+                f"{ga_row['python_states_per_s']:.0f} states/s; "
+                f"measure_programs --runner analytic_hf --noise 0 through "
+                f"run_record_lists: {n_meas} records in {measure_s:.2f} s, "
+                f"{len(finite)} finite costs, {len(set(finite))} distinct; "
+                f"{exact} of {len(part)} equal to the State path bit for "
+                f"bit; calls {calls}; fallbacks {ga_row['fallbacks']} "
+                f"({where})")
+            if not (n_pool == n_meas == len(recs) == hc["n_states"]
+                    == len(finite) == len(costs)
+                    and len(set(finite)) >= 0.9 * len(finite)
+                    and exact == len(part) and calls["records"] == 1
+                    and calls["states"] == 0
+                    and calls["run_record_lists"] == 1
+                    and len(py_states) == cfg["ga_python_states"]
+                    and not {k for k in tfp.FALLBACKS
+                             if not k.startswith("ga:status1")}):
+                raise RuntimeError(f"[26] (c) {ga_row}")
+            out["headline"] = ga_row
+            del recs, py_states
+
+            for k in kernels.values():
+                k.launches = 0
+            t = time.perf_counter()
+            _, text = quiet(vae_extent_search.main, [
+                "--record-file", mlog, "--out-dir", "search", "--seeds",
+                str(cfg["search_seed"]), "--max-phases",
+                str(cfg["max_phases"]), "--device", dev.type])
+            search_s = time.perf_counter() - t
+            fh_launches = fh.launches
+            csvs = [f for f in os.listdir("search")
+                    if f.startswith("vae_extent_search_")]
+            with open(os.path.join("search", csvs[0])) as f:
+                row = next(csv.DictReader(f))
+            phases = int(row["phase"])
+            log(f"[26] (c) cli.vae_extent_search --record-file <that log> "
+                f"--seeds {cfg['search_seed']} --max-phases "
+                f"{cfg['max_phases']} (hidden 256, latent 64, T 10, measure "
+                f"size 32): {text.splitlines()[0]}; found {row['found']} in "
+                f"{phases} phases; {search_s:.1f} s; fused-head launches "
+                f"{fh_launches} for {phases} selection phases; other kernels "
+                f"{others('fused_head_stats')}")
+            if (on_card and (fh_launches != phases or phases == 0)) or \
+                    others("fused_head_stats") or \
+                    (not on_card and fh_launches):
+                raise RuntimeError(f"[26] (c) {fh_launches} fused-head "
+                                   f"launches for {phases} phases, others "
+                                   f"{others('fused_head_stats')}")
+            out["search"] = {"found": int(row["found"]), "phase": phases,
+                             "wall_s": search_s,
+                             "fused_head_launches": fh_launches}
+        finally:
+            (dump_programs.make_state_records, dump_programs.make_states,
+             tm.AnalyticRunner.run_record_lists) = orig
+            if env_before is None:
+                os.environ.pop("VES_DATASET_ROOT", None)
+            else:
+                os.environ["VES_DATASET_ROOT"] = env_before
+            common.set_dataset_root()
+
+    # (d) make_dataset at every core and at 1 thread, then train_model
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        sets, secs = {}, {}
+        for n in (cores, 1):
+            sub = os.path.join(d, f"threads{n}")
+            os.makedirs(sub)
+            with in_directory(sub):
+                t = time.perf_counter()
+                sets[n], _ = quiet(make_dataset.main, [
+                    RESNET50_LOG, "--out-file", "ds.pkl", "--n-threads",
+                    str(n)])
+                secs[n] = time.perf_counter() - t
+        a, b = sets[cores], sets[1]
+        equal = list(a.features) == list(b.features) and all(
+            len(a.features[k]) == len(b.features[k])
+            and all(np.array_equal(x, y) for x, y in zip(a.features[k],
+                                                         b.features[k]))
+            and np.array_equal(a.throughputs[k], b.throughputs[k])
+            for k in a.features)
+        for k in kernels.values():
+            k.launches = 0
+        seg.backward_launches = 0
+        with in_directory(os.path.join(d, f"threads{cores}")):
+            t = time.perf_counter()
+            with CallCounts(sm, tss) as counts:
+                res, _ = quiet(train_model.main, [
+                    "--dataset", "ds.pkl", "--models", "mlp", "--seed", "0",
+                    "--device", dev.type])
+            if on_card:
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+        fwd, bwd = seg.launches, seg.backward_launches
+        log(f"[26] (d) make_dataset --n-threads {cores}: {len(a)} records, "
+            f"{len(a.tasks())} tasks in {secs[cores]:.2f} s; --n-threads 1 "
+            f"{secs[1]:.2f} s; equal bit for bit: {equal}; train_model "
+            f"--models mlp on it: {train_s:.2f} s, segment sums {counts.sums}"
+            f", forward launches {fwd}; optimiser steps {counts.steps}, "
+            f"backward launches {bwd}; plain versions {counts.plain}; "
+            f"metrics {res['mlp']}; other kernels {others('segment_sum')} "
+            f"({where})")
+        through = (fwd == counts.sums > 0 and bwd == counts.steps > 0
+                   and counts.plain == 0) if on_card else fwd == bwd == 0
+        if not (equal and len(a) == 2528 and through
+                and not others("segment_sum")
+                and all(np.isfinite(v) for v in res["mlp"].values())):
+            raise RuntimeError(f"[26] (d) equal {equal}, {fwd} forward for "
+                               f"{counts.sums} sums, {bwd} backward for "
+                               f"{counts.steps} steps, {counts.plain} plain")
+        out["dataset"] = {"records": len(a), "tasks": len(a.tasks()),
+                          "threads": cores, "seconds_all": secs[cores],
+                          "seconds_1": secs[1], "train_s": train_s,
+                          "metrics": res["mlp"]}
+    secs = time.perf_counter() - t_phase
+    budget_line("26", secs, NATIVE_BUDGET_S)
+    out["seconds"] = secs
+    out["fused_head_launches"] = fh_launches
+    out["segment_sum_launches"] = {"forward": fwd, "backward": bwd}
+    return out
+
+
 def phase_job(phase, device, arg=None):
-    """Phase 22, 23 or 24 in a process of its own (``arg``: phase 24's
+    """Phase 22, 23, 24 or 26 in a process of its own (``arg``: phase 24's
     pretrained MLP). Returns (results, its log lines, None) or (None, the
     lines so far, the traceback)."""
     import traceback
@@ -3982,8 +4361,8 @@ def phase_job(phase, device, arg=None):
             if phase == "24":
                 res = tune_network_phases(dev, kernels, arg)
             else:
-                res = {"22": online_phases,
-                       "23": cuda_target_phases}[phase](dev, kernels)
+                res = {"22": online_phases, "23": cuda_target_phases,
+                       "26": native_phases}[phase](dev, kernels)
             return res, buf.getvalue(), None
         except Exception:
             return None, buf.getvalue(), traceback.format_exc()
@@ -4531,7 +4910,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
                                        "networks", "online", "cuda_target",
-                                       "tune_network", "selftune"),
+                                       "tune_network", "selftune",
+                                       "native"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
@@ -4546,8 +4926,10 @@ def main():
                          "in-search model, transfer_tune); selftune: phases "
                          "1 and 25 (the rest of self-tuning: the kernel "
                          "suite, the library, tuned configs on the main "
-                         "paths); each ends with {\"partial\": ...} instead "
-                         "of the result line")
+                         "paths); native: phases 1 and 26 (the host "
+                         "library: the parser, the featurisers, the native "
+                         "GA and run_record_lists at full size); each ends "
+                         "with {\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4571,10 +4953,18 @@ def main():
     peaks = peaks_for(kind)
     log(f"[1] card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
+    from vae_extent_search_tpu_torch.ops import build as tbuild
+    from vae_extent_search_tpu_torch.records import fast_parser as tfp
+
     t0 = time.perf_counter()
     libs = (fh.LIB, th.LIB, om.LIB, oc.LIB, tss.LIB)
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        host = pool.submit(tfp.LIB.build, True)
         builds = list(pool.map(lambda lib: lib.build(force=True), libs))
+        host_path, _, host_s = host.result()
+    log(f"[1] g++ build of {os.path.relpath(tbuild.HOST_SRC, ROOT)} "
+        f"({' '.join(tbuild.GXX_FLAGS)}) into "
+        f"{os.path.relpath(host_path, ROOT)}: {host_s:.2f} s")
     for lib, (_, out, secs) in zip(libs, builds):
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
                                                   out)})
@@ -4649,6 +5039,13 @@ def main():
         raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
     kernels = kernel_wrappers()
+    if args.only == "native":
+        native = native_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"native": native}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "native"}), flush=True)
+        return
     if args.only == "selftune":
         tune = selftune_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -4712,7 +5109,8 @@ def main():
     arms = arms_phases(dev, kernels)
     # phases 22-24 side by side, a process each, while phase 21 runs here
     global SIDE_BY_SIDE
-    jobs = (("22", None), ("23", None), ("24", shared.get("mlp_pkl")))
+    jobs = (("22", None), ("23", None), ("24", shared.get("mlp_pkl")),
+            ("26", None))
     t = time.perf_counter()
     with ProcessPoolExecutor(len(jobs), mp_context=get_context(
             "spawn")) as pool:
@@ -4732,8 +5130,8 @@ def main():
         if err is not None:
             raise RuntimeError(f"[{ph}] phase {ph} failed:\n{err}")
         res[ph] = r
-    online, cuda, tune = res["22"], res["23"], res["24"]
-    log(f"[21-24] phases 22, 23 and 24 side by side beside phase 21: "
+    online, cuda, tune, native = res["22"], res["23"], res["24"], res["26"]
+    log(f"[21-26] phases 22, 23, 24 and 26 side by side beside phase 21: "
         f"{side_s:.1f} s wall")
     # phase 25 alone: its runners time the card with CUDA events, which
     # kernels of other processes on the card would fall inside
@@ -4742,13 +5140,15 @@ def main():
     # drove the main path first)
     head_rec = records[0]
     head_rec["launches_by_path"] = {"6": head_rec["launches"],
-                                    "23": cuda["fused_head_launches"]}
-    head_rec["launches"] += cuda["fused_head_launches"]
+                                    "23": cuda["fused_head_launches"],
+                                    "26": native["fused_head_launches"]}
+    head_rec["launches"] += (cuda["fused_head_launches"]
+                             + native["fused_head_launches"])
     # the segment sum's launches on phase 21's, 22's, 23's and 24's paths
     # join its record
     seg_rec = records[-1]
     for tag, res in (("21", net), ("22", online), ("23", cuda),
-                     ("24", tune)):
+                     ("24", tune), ("26", native)):
         seg_rec["launches_by_path"][tag] = res["segment_sum_launches"]
         for way in ("forward", "backward"):
             seg_rec[f"{way}_launches"] += res["segment_sum_launches"][way]
@@ -4775,6 +5175,7 @@ def main():
     print(json.dumps({"cuda_target": cuda}, default=float), flush=True)
     print(json.dumps({"tune_network": tune}, default=float), flush=True)
     print(json.dumps({"selftune": selftune}, default=float), flush=True)
+    print(json.dumps({"native": native}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

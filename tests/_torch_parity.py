@@ -147,3 +147,46 @@ def small_ga_population(mp, population):
             _orig(self, *a, **kw)
             self.params["evolutionary_search_population"] = population
         mp.setattr(cls, "__init__", init)
+
+
+def pin_port_python_paths(mp):
+    """Send the port down the same Python paths as ``pin_jax_python_paths``
+    sends the JAX package: its GA without the native record-level engine,
+    its per-store featurisers without the native batch. The tests that
+    hold the two Python paths against each other pin both; the native
+    paths are held against each other in ``tests/test_torch_native*.py``."""
+    import functools
+
+    from vae_extent_search_tpu_torch.cli import json_to_task_pkl as tjson
+    from vae_extent_search_tpu_torch.cli import tune_vae as ttv
+    from vae_extent_search_tpu_torch.features import per_store as tps
+    from vae_extent_search_tpu_torch.search import cost_model as tcm
+    from vae_extent_search_tpu_torch.search import sketch as tsketch
+
+    mp.setattr(tsketch.SketchPolicy, "_evolutionary_search_native_recs",
+               lambda *a, **k: None)
+    mp.setattr(tsketch.SketchPolicy, "_evolutionary_search_native",
+               lambda *a, **k: None)
+    states = functools.partial(tps.get_per_store_features_from_states,
+                               use_native=False)
+    for m in (tps, tcm, ttv):
+        mp.setattr(m, "get_per_store_features_from_states", states)
+    for name, m in (("get_per_store_features_from_measure_pairs", (tps,)),
+                    ("get_per_store_features_from_file", (tps, tjson)),
+                    ("perstore_features_from_records", (tps,))):
+        pinned = functools.partial(getattr(tps, name), use_native=False)
+        for mod in m:
+            mp.setattr(mod, name, pinned)
+
+
+def jax_native_lib() -> bool:
+    """Whether the JAX package's own loader gives its native library (it
+    builds it with g++ at first use, as its tests do): the native-against-
+    native comparisons run where it does."""
+    from vae_extent_search_tpu.records import fast_parser as jfp
+
+    try:
+        jfp._load_lib()
+    except Exception:
+        return False
+    return True

@@ -21,6 +21,7 @@ import torch
 
 from _torch_parity import (
     pin_jax_python_paths,
+    pin_port_python_paths,
     rel_err,
     small_ga_population,
     to_jax,
@@ -71,6 +72,7 @@ def _jax_gbdt_native(mp):
 def python_paths():
     mp = pytest.MonkeyPatch()
     pin_jax_python_paths(mp)
+    pin_port_python_paths(mp)
     small_ga_population(mp, 48)
     _jax_gbdt_native(mp)
     yield
@@ -96,6 +98,7 @@ def corpus(tmp_path_factory):
             task, 32, evo_population=64, min_population=20, seed=3 + i))
     mp = pytest.MonkeyPatch()
     pin_jax_python_paths(mp)
+    pin_port_python_paths(mp)
     try:
         states = {}
         for side, pkg in (("port", PORT), ("jax", JAX)):

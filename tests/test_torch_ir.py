@@ -25,6 +25,7 @@ from vae_extent_search_tpu_torch.records import load_records as tload
 from vae_extent_search_tpu_torch.records import record_to_json
 from vae_extent_search_tpu_torch.search import kernel_tuner as ttuner
 from vae_extent_search_tpu_torch.search import sketch as tsketch
+from _torch_parity import pin_port_python_paths
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOG = os.path.join(ROOT, "result", "conv2d_4k_chip", "pool_conv2d_4k.json.gz")
@@ -45,6 +46,7 @@ def pools():
     mp = pytest.MonkeyPatch()
     mp.setattr(jsketch.SketchPolicy, "_evolutionary_search_native_recs",
                lambda *a, **k: None)
+    pin_port_python_paths(mp)
     try:
         out = {}
         for name, ((func, args), _) in WORKLOADS.items():

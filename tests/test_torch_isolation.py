@@ -51,9 +51,10 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "search.task_scheduler", "search.auto_schedule",
          "cli.tune_network", "cli.ansor", "ops.kernel_library",
          "cli.tune_kernel_suite", "frontend", "frontend.torch_fx",
-         "frontend.zoo", "ir.layout"}}
+         "frontend.zoo", "ir.layout", "records.fast_parser",
+         "records.task_desc", "records.expr_desc"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
-assert not missing and len(mods) >= 92, (missing, mods)
+assert not missing and len(mods) >= 95, (missing, mods)
 """
 
 
@@ -344,3 +345,50 @@ def test_kernel_suite_and_runner_need_cuda_unless_told_cpu(tmp_path):
         assert proc.returncode != 0
         assert "torch.cuda.is_available() is False" in proc.stderr
         assert not out.exists() or out.read_text() == ""
+
+
+HOST_LIB = f"""
+import os
+from {PKG}.records import fast_parser
+feats, status = fast_parser.featurize_perstore_native(
+    "result/corpus/resnet_18-B1-llvm.json")
+assert len(feats) == 128 and (status == 0).all(), status
+path = os.path.realpath(fast_parser.LIB.library)
+build = os.path.realpath(os.path.join("{PKG}", "build"))
+assert os.path.dirname(path) == build, (path, build)
+maps = [l.split()[-1] for l in open("/proc/self/maps") if ".so" in l]
+ours = [m for m in maps if "libves" in m]
+assert ours == [path] * len(ours) and ours, ours
+assert not [m for m in maps if "vae_extent_search_tpu/" in m], maps
+print(path)
+"""
+
+
+def test_host_library_is_the_ports_own():
+    """The host library the port loads is its own build under
+    ``vae_extent_search_tpu_torch/build/``, never the JAX package's
+    ``native/libves_native.so``, even with ``VES_NATIVE_LIB`` pointing at
+    it (fresh interpreter; its mapped libraries read from /proc)."""
+    jax_lib = os.path.join(ROOT, "vae_extent_search_tpu", "native",
+                           "libves_native.so")
+    proc = _run(["-c", HOST_LIB], env_extra={"VES_NATIVE_LIB": jax_lib})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert os.path.basename(proc.stdout.strip()).startswith("libves_host-")
+
+
+def test_no_port_module_reads_the_jax_native_library():
+    """No module of the port, and not the smoke script, names the JAX
+    package's native directory, its library or its library override
+    (``VES_NATIVE_LIB``)."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, PKG)):
+        paths += [os.path.join(base, n) for n in files if n.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        if "VES_NATIVE_LIB" in text or \
+                "vae_extent_search_tpu/native" in text or \
+                "libves_native" in text:
+            offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders, offenders

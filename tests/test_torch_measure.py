@@ -43,6 +43,7 @@ from vae_extent_search_tpu_torch.search import measure as tm
 from vae_extent_search_tpu_torch.search import measure_service as tsvc
 from vae_extent_search_tpu_torch.search import sketch as tsketch
 from vae_extent_search_tpu_torch.search.platforms import PLATFORMS
+from _torch_parity import pin_port_python_paths
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POOL_LOG = os.path.join(ROOT, "result/conv2d_4k_chip/pool_conv2d_4k.json.gz")
@@ -68,6 +69,7 @@ def _jax_python_paths(mp):
     mp.setattr(jps, "get_per_store_features_from_states",
                functools.partial(jps.get_per_store_features_from_states,
                                  use_native=False))
+    pin_port_python_paths(mp)
 
 
 @pytest.fixture(scope="module")
@@ -221,9 +223,23 @@ def test_hf_gpu_branch_on_committed_cuda_records(jax_python, platform):
 
 
 def test_run_record_lists_defers_to_the_state_path(pools):
+    """The record-level batch gives the State path's costs bit for bit,
+    and a record the native replay refuses (an annotation outside the
+    enum) is measured down the State path, one record, counted."""
+    from vae_extent_search_tpu_torch.records import fast_parser as tfp
+
     _, _, tt, ts = pools["matmul"]
     recs = [[s.to_record() for s in st.transform_steps] for st in ts]
-    assert tm.AnalyticRunner().run_record_lists(tt, recs) is None
+    bad = [list(r) for r in recs[0]]
+    i = next(k for k, r in enumerate(bad) if r[0] == "AN")
+    bad[i] = ["AN", bad[i][1], bad[i][2], 99]
+    tfp.FALLBACKS.clear()
+    got = tm.AnalyticRunner(noise=0.2).run_record_lists(tt, recs + [bad])
+    assert dict(tfp.FALLBACKS) == {"analytic:state_path": 1}
+    # the States as a record replays them (remeasure_file's State path)
+    states = [tt.compute_dag.infer_bound(tt.compute_dag.apply_steps(r))
+              for r in recs] + [tt.compute_dag.apply_steps(bad)]
+    assert _costs(got) == _costs(tm.AnalyticRunner(noise=0.2).run(tt, states))
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ from vae_extent_search_tpu_torch.data.dataset import (
 from vae_extent_search_tpu_torch.models import gbdt as tg
 from vae_extent_search_tpu_torch.models import load_model_pickle
 from vae_extent_search_tpu_torch.models import segment as tseg
+from _torch_parity import pin_port_python_paths
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESNET18 = os.path.join(ROOT, "result/corpus/resnet_18-B1-llvm.json")
@@ -102,6 +103,7 @@ def test_json_to_task_pkl_same_arrays(tmp_path, monkeypatch, capsys):
                         functools.partial(
                             jps.get_per_store_features_from_file,
                             use_native=False))
+    pin_port_python_paths(monkeypatch)
     out = json_to_task_pkl.main([RESNET18, "--out", "port.pkl"])
     got_line = capsys.readouterr().out
     _run_jax(jmod, monkeypatch, [RESNET18, "--out", "jax.pkl"])

@@ -47,6 +47,7 @@ from vae_extent_search_tpu_torch.search import platforms as tplat
 from vae_extent_search_tpu_torch.utils.schedule_selector import (
     ScheduleSelector as TSelector,
 )
+from _torch_parity import pin_port_python_paths
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESNET18 = os.path.join(ROOT, "result/corpus/resnet_18-B1-llvm.json")
@@ -268,6 +269,7 @@ def test_apply_history_best_or_sample_equal(monkeypatch, tmp_path):
     # port holds the Python loop's samples
     monkeypatch.setattr(jsketch.SketchPolicy, "_evolutionary_search_native",
                         lambda self, *a: None)
+    pin_port_python_paths(monkeypatch)
     recs = list(jserde.iter_records(RESNET18))
     hit = recs[0].inp.task.workload_key
     miss = json.dumps(["matmul_auto_scheduler_test", 64, 48, 32])

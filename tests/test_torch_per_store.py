@@ -1,5 +1,5 @@
 """The port's per-store featuriser and workload embedding against the JAX
-package's Python featuriser (``use_native=False``) on committed record
+package's Python featuriser (both ``use_native=False``) on committed record
 logs: a CPU target (``result/corpus/resnet_18-B1-llvm.json``) and a CUDA
 target (``result/conv2d_4k_chip/pool_conv2d_4k.json.gz``). Both are the
 same numpy arithmetic over the same IR, so the features are held equal bit
@@ -73,12 +73,13 @@ def test_measure_pairs_and_file_equal():
     ref = jps.get_per_store_features_from_measure_pairs(
         [jr[i].inp for i in idx], [jr[i].res for i in idx], use_native=False)
     got = tps.get_per_store_features_from_measure_pairs(
-        [tr[i].inp for i in idx], [tr[i].res for i in idx])
+        [tr[i].inp for i in idx], [tr[i].res for i in idx], use_native=False)
     assert all(np.array_equal(a, b) for a, b in zip(got[0], ref[0]))
     for a, b in zip(got[1:], ref[1:]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert got[1].max() == 1.0 and len(got[3]) == 8
-    from_file = tps.get_per_store_features_from_file(RESNET18, max_lines=20)
+    from_file = tps.get_per_store_features_from_file(RESNET18, max_lines=20,
+                                                     use_native=False)
     ref_file = jps.get_per_store_features_from_file(RESNET18, max_lines=20,
                                                     use_native=False)
     assert len(from_file[0]) == 20
@@ -94,7 +95,8 @@ def test_states_featuriser_equal_and_unlowerable_rows():
     ref = jps.get_per_store_features_from_states(
         jstates, jr[0].inp.task, use_native=False)
     got = tps.get_per_store_features_from_states(tstates + [None],
-                                                 tr[0].inp.task)
+                                                 tr[0].inp.task,
+                                                 use_native=False)
     assert all(np.array_equal(a, b) for a, b in zip(got[:6], ref))
     # a state that cannot be lowered yields one all-zero row
     assert got[6].shape == (1, 164) and not got[6].any()
@@ -107,7 +109,8 @@ def test_perstore_features_from_records_equal(length_mode):
     tr = _conv_records(tserde.load_records, 48)
     ref = jps.perstore_features_from_records(jr, length_mode=length_mode,
                                              use_native=False)
-    got = tps.perstore_features_from_records(tr, length_mode=length_mode)
+    got = tps.perstore_features_from_records(tr, length_mode=length_mode,
+                                             use_native=False)
     assert got[0].shape == ref[0].shape and got[0].shape[1] % 164 == 0
     assert np.array_equal(got[0], ref[0])
     assert np.array_equal(got[1], ref[1]) and list(got[2]) == list(ref[2])

@@ -19,6 +19,7 @@ import torch
 from _torch_parity import (
     np_predictor_params,
     pin_jax_python_paths,
+    pin_port_python_paths,
     small_ga_population,
     to_torch,
 )
@@ -76,6 +77,7 @@ def _hist_stage(st):
 def python_paths():
     mp = pytest.MonkeyPatch()
     pin_jax_python_paths(mp)
+    pin_port_python_paths(mp)
     small_ga_population(mp, POP)
     yield mp
     mp.undo()

@@ -32,6 +32,7 @@ from vae_extent_search_tpu_torch.records.task import HardwareParams as THW
 from vae_extent_search_tpu_torch.records.task import SearchTask as TTask
 from vae_extent_search_tpu_torch.search import sketch as tsketch
 from vae_extent_search_tpu_torch.search.platforms import PLATFORMS
+from _torch_parity import pin_port_python_paths
 
 CONV56 = make_workload_key("conv2d_layer",
                            (1, 56, 56, 64, 64, 3, 3, [1, 1], [1, 1]))
@@ -65,6 +66,7 @@ def jax_python():
     mp.setattr(jps, "get_per_store_features_from_states",
                functools.partial(jps.get_per_store_features_from_states,
                                  use_native=False))
+    pin_port_python_paths(mp)
     yield
     mp.undo()
 

@@ -38,6 +38,7 @@ from vae_extent_search_tpu_torch.records import serde as tserde
 from vae_extent_search_tpu_torch.records.task import SearchTask as TTask
 from vae_extent_search_tpu_torch.search import measure as tm
 from vae_extent_search_tpu_torch.search.sketch import make_states
+from _torch_parity import pin_port_python_paths
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TGT = "llvm -mcpu=skylake-avx512"
@@ -63,6 +64,7 @@ def jtv():
         mp.setattr(m, "get_per_store_features_from_states",
                    functools.partial(jps.get_per_store_features_from_states,
                                      use_native=False))
+    pin_port_python_paths(mp)
     yield mod
     mp.undo()
 

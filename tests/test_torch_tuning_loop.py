@@ -18,7 +18,8 @@ import sys
 import numpy as np
 import pytest
 
-from _torch_parity import pin_jax_python_paths, small_ga_population
+from _torch_parity import (pin_jax_python_paths, pin_port_python_paths,
+                           small_ga_population)
 from vae_extent_search_tpu.records import serde as jserde
 from vae_extent_search_tpu.records import task as jtask
 from vae_extent_search_tpu.records import workload as jwl
@@ -54,6 +55,7 @@ JAX = dict(ts=jts, m=jm, task=jtask, serde=jserde, sketch=jsketch, wl=jwl,
 def python_paths():
     mp = pytest.MonkeyPatch()
     pin_jax_python_paths(mp)
+    pin_port_python_paths(mp)
     small_ga_population(mp, POP)
     yield
     mp.undo()
@@ -215,6 +217,7 @@ def matmul_log(tmp_path_factory):
     d = tmp_path_factory.mktemp("restore")
     mp = pytest.MonkeyPatch()
     pin_jax_python_paths(mp)
+    pin_port_python_paths(mp)
     small_ga_population(mp, POP)
     try:
         _, _, p_log, _ = _tune(PORT, None, "round-robin", d / "port", 144)

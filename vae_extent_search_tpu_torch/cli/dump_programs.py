@@ -5,16 +5,16 @@ Parity: reference scripts/dump_programs.py:17-74: per task, sample the
 initial population and run evolutionary search rounds collecting unique
 states (default 4,000), wrap them as records with dummy results and save
 them to ``$VES_DATASET_ROOT/to_measure_programs/<task>.json``. Host work
-(the Python sketch GA); no device is involved.
+(the native record-level GA, ``search/sketch.py::make_state_records``);
+no device is involved.
 
     python -m vae_extent_search_tpu_torch.cli.dump_programs \\
         --workload-key '["conv2d_layer", 1, 14, 14, 128, 128, 3, 3, [1, 1], [1, 1]]' \\
         --n-states 2000 --out pool.json
 
-The JAX script first tries its native record-level GA and falls back to
-``make_states``; the port has no native GA, so ``dump_task`` always takes
-the ``make_states`` path, which gives the JAX fallback's records. Both
-rule sets of the GA are ported, so ``--target cuda`` regenerates a GPU
+As in the JAX script, the steps go straight from the native GA into the
+log without building Python States; ``make_states`` runs where the native
+GA declines (a population with no record it replays). Both rule sets of the GA are ported, so ``--target cuda`` regenerates a GPU
 pool such as ``result/conv2d_4k_chip/pool_conv2d_4k.json.gz``'s:
 
     python -m vae_extent_search_tpu_torch.cli.dump_programs \
@@ -29,14 +29,16 @@ import os
 import time
 
 from ..records import SearchTask, make_record, save_records
-from ..search.sketch import make_states
+from ..search.sketch import make_state_records, make_states
 from . import common
 
 
 def dump_task(task: SearchTask, out_file: str, n_states: int,
               seed: int = 2023):
-    recs_list = [[s.to_record() for s in st.transform_steps]
-                 for st in make_states(task, n_states, seed=seed)]
+    recs_list = make_state_records(task, n_states, seed=seed)
+    if recs_list is None:
+        recs_list = [[s.to_record() for s in st.transform_steps]
+                     for st in make_states(task, n_states, seed=seed)]
     records = [
         make_record(task, recs, costs=[0.0], timestamp=0)
         for recs in recs_list

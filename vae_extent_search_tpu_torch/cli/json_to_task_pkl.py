@@ -3,9 +3,9 @@
 
 Parity: reference scripts/json_to_task_pkl.py, the minimal demo of
 ``get_per_store_features_from_file``: the pickle holds (features,
-throughputs, task ids, min costs). The JAX script takes its native
-featuriser where its library is built; the port runs the Python one,
-which gives the same arrays. Host work; no device is involved.
+throughputs, task ids, min costs), made by the port's native parser and
+featuriser as the JAX script's are by its own. Host work; no device is
+involved.
 
     python -m vae_extent_search_tpu_torch.cli.json_to_task_pkl \\
         result/corpus/resnet_18-B1-llvm.json --out r18.task.pkl

@@ -7,14 +7,12 @@ per-file record caps) and run make_dataset_from_log_file with
 min_sample_size 48 (:204-206). The hold-out sets and the preset resolve
 workload keys through the network tables (``records/networks.py``): the
 preset keeps the files whose first workload key is in its grid, the
-hold-out drops the held-out tasks' records. Featurising is host work (the
-Python per-store featuriser); no device is involved.
+hold-out drops the held-out tasks' records. Parsing and featurising are
+host work (the port's native record parser and per-store featuriser,
+``--n-threads`` threads); no device is involved.
 
     python -m vae_extent_search_tpu_torch.cli.make_dataset \\
-        result/corpus/resnet_50-B1-llvm.json --out-file dataset.pkl
-
-``--n-threads`` above 1 belongs to the native featuriser, which is not
-ported, and raises.
+        result/corpus/resnet_50-B1-llvm.json --out-file dataset.pkl --n-threads 8
 """
 
 from __future__ import annotations
@@ -85,7 +83,7 @@ def main(argv=None):
     p.add_argument("--out-file", type=str, default="dataset.pkl")
     p.add_argument("--min-sample-size", type=int, default=48)
     p.add_argument("--n-threads", type=int, default=1,
-                   help="native featurizer threads (not ported: must be 1)")
+                   help="native featurizer threads (collection boxes)")
     p.add_argument("--n-task", type=int, default=None,
                    help="cap the number of record files used")
     p.add_argument("--target", type=str, default="llvm",
@@ -102,9 +100,6 @@ def main(argv=None):
     p.add_argument("--n-measurement", type=int, default=None,
                    help="cap records used per log file")
     args = p.parse_args(argv)
-    if args.n_threads != 1:
-        raise NotImplementedError("--n-threads > 1 needs the native "
-                                  "featuriser, which is not ported")
 
     files = []
     for pat in args.logs:
@@ -135,7 +130,7 @@ def main(argv=None):
 
     return make_dataset_from_log_file(
         files, args.out_file, args.min_sample_size,
-        exclude_workload_keys=exclude,
+        n_threads=args.n_threads, exclude_workload_keys=exclude,
         max_records_per_file=args.n_measurement)
 
 

@@ -13,9 +13,10 @@ service, or the port's CUDA kernels timed on the card
     python -m vae_extent_search_tpu_torch.cli.measure_programs \\
         --in-file pool.json --out-file measured.json --runner analytic_hf
 
-The JAX script takes its native record-level path first when its library
-is built (``run_record_lists``); the port's runners have none, so every
-file goes through the State path, whose costs are the same.
+A runner that measures straight from step records (``AnalyticRunner.
+run_record_lists``, over the native replay) skips the State recovery, as
+the JAX script does, with the same costs bit for bit and the measurer's
+abort after 150 errors in a row (the records before it kept).
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import argparse
 import glob
 import os
 
-from ..records import SearchTask, load_records
+from ..records import SearchTask, load_records, make_record, save_records
 from ..search.measure import (
+    MAX_CONTINUOUS_ERROR,
     EmptyBuilder,
     ProgramMeasurer,
     RecordToFile,
@@ -62,6 +64,35 @@ def remeasure_file(in_file: str, out_file: str, runner, batch: int = 64,
     os.makedirs(os.path.dirname(out_file) or ".", exist_ok=True)
     if os.path.exists(out_file):
         os.remove(out_file)
+
+    # runners that measure straight from step records skip the State
+    # recovery (bit-identical costs)
+    fast = getattr(runner, "run_record_lists", None)
+    if fast is not None:
+        results = fast(task, [r.inp.step_records for r in records])
+        if results is not None:
+            # ProgramMeasurer's abort at MAX_CONTINUOUS_ERROR, with
+            # RecordToFile's persistence: what came before the abort is
+            # written first
+            error_ct = 0
+            cut = len(results)
+            for i, res in enumerate(results):
+                if res.error_no == 0:
+                    error_ct = 0
+                else:
+                    error_ct += 1
+                    if error_ct >= MAX_CONTINUOUS_ERROR:
+                        cut = i + 1
+                        break
+            out = [
+                make_record(task, rec.inp.step_records, res.costs,
+                            res.error_no, res.all_cost, res.timestamp)
+                for rec, res in zip(records[:cut], results[:cut])
+            ]
+            save_records(out_file, out, mode="a")
+            if cut < len(results):
+                raise RuntimeError("too many continuous measurement errors")
+            return len(out)
 
     measurer = ProgramMeasurer(
         EmptyBuilder(), runner, callbacks=[RecordToFile(out_file)]

@@ -18,8 +18,8 @@ CPU smoke run (an analytic stand-in for the timings):
 
 Runs on CUDA by default; asking for CUDA on a host without a GPU is an
 error. The pool's states are bound (bound inference) before they are
-featurised and quotiented, as the JAX package's native GA returns them and
-as a record replays: unbound cache stages print no extents, and most matmul
+featurised and quotiented, as ``make_states`` returns them and as a record
+replays: unbound cache stages print no extents, and most matmul
 states would quotient onto no configuration at all. Records are written
 under the target ``cuda -model=<dtype>``; the schedule space comes from an
 ``llvm`` task, whose pool depends on the host's core count.

@@ -1,6 +1,7 @@
 """The performance dataset: (task -> features, throughputs); counterpart of
-``vae_extent_search_tpu/data/dataset.py``, featurising with the port's
-Python per-store featuriser.
+``vae_extent_search_tpu/data/dataset.py``: logs parsed by the port's
+native record parser and featurised by its native per-store featuriser
+(``records/fast_parser.py``).
 
 Parity target: python/tvm/auto_scheduler/dataset.py —
 ``LearningTask(workload_key, target)``-keyed dict of ragged feature arrays
@@ -149,7 +150,7 @@ class Dataset:
 
 def make_dataset_from_log_file(log_files, out_file: str,
                                min_sample_size: int = 48,
-                               verbose: int = 1,
+                               verbose: int = 1, n_threads: int = 1,
                                exclude_workload_keys=None,
                                max_records_per_file=None):
     """Featurize measure-record logs into a Dataset pickle, with per-file
@@ -157,7 +158,8 @@ def make_dataset_from_log_file(log_files, out_file: str,
 
     ``exclude_workload_keys``: workload keys to drop (the reference's
     hold-out sets, make_dataset.py:24-59); ``max_records_per_file``
-    caps records per log (the reference's --n-measurement). The caches
+    caps records per log (the reference's --n-measurement); ``n_threads``
+    threads run the native featuriser. The caches
     pickle this package's ``LearningTask``, so they live in a folder of
     their own (``CACHE_FOLDER``, under the working directory), apart from
     the JAX package's ``.dataset_cache``."""
@@ -181,9 +183,9 @@ def make_dataset_from_log_file(log_files, out_file: str,
         else:
             if verbose:
                 print(f"Featurize {filename}")
-            from ..records.serde import load_records
+            from ..records.fast_parser import load_records_fast
 
-            records = load_records(filename)
+            records = load_records_fast(filename)
             if max_records_per_file:
                 records = records[:max_records_per_file]
             inputs = [r.inp for r in records]
@@ -193,7 +195,9 @@ def make_dataset_from_log_file(log_files, out_file: str,
             )
 
             features, throughputs, task_ids, min_costs = (
-                get_per_store_features_from_measure_pairs(inputs, results)
+                get_per_store_features_from_measure_pairs(
+                    inputs, results, n_threads=n_threads
+                )
             )
             # recover the ordered unique task list
             task_keys = []

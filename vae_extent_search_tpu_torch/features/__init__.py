@@ -1,6 +1,8 @@
 """Host featurisers: printed-extent vectors (``extent.py``) and the
 164-dim per-store rows (``per_store.py``), copies of the JAX package's
-Python featurisers with imports local to the port."""
+Python featurisers with imports local to the port; the per-store batch
+entry points run the port's native featuriser by default
+(``records/fast_parser.py``)."""
 
 from .extent import (
     extent_features_from_records,

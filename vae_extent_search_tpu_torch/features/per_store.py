@@ -1,7 +1,11 @@
 """Per-store 164-dim program features (counterpart of
-``vae_extent_search_tpu/features/per_store.py``: its Python featuriser; the
-native batch featuriser is not part of the port, so there is no
-``use_native`` option here).
+``vae_extent_search_tpu/features/per_store.py``). The four batch entry
+points take ``use_native`` (default True) as the JAX ones do: the port's
+host library (``records/fast_parser.py``, built by g++ at first use) then
+featurises the batch, and this module's Python featuriser runs only where
+``use_native`` is False, ``max_n_bufs`` is not the default, or the native
+side reports a record it cannot handle (``fast_parser.FALLBACKS`` counts
+those). A library that does not build or load raises.
 
 Parity target: src/auto_scheduler/feature.cc — for every store statement of
 a lowered program, a fixed 164-float vector:
@@ -865,9 +869,17 @@ def get_per_store_features_from_state(state: State, task,
 
 
 def get_per_store_features_from_states(states, task,
-                                       max_n_bufs: int = DEFAULT_MAX_N_BUFS):
+                                       max_n_bufs: int = DEFAULT_MAX_N_BUFS,
+                                       use_native: bool = True):
     """List of [n_stores_i, 164] arrays; unlowerable states yield a single
-    all-zero row (feature.cc:1365-1367 error convention)."""
+    all-zero row (feature.cc:1365-1367 error convention). The native batch
+    featuriser by default (the search-time hot loop of the learned cost
+    model); the Python one below is the reference and the per-state
+    path for what the native side cannot handle."""
+    if use_native and max_n_bufs == DEFAULT_MAX_N_BUFS:
+        from ..records.fast_parser import featurize_perstore_states_native
+
+        return featurize_perstore_states_native(task, states)
     out = []
     for st in states:
         try:
@@ -884,53 +896,83 @@ def get_per_store_features_from_states(states, task,
     return out
 
 
-def get_per_store_features_from_measure_pairs(inputs, results,
-                                              skip_first_n_feature=0,
-                                              max_n_bufs=DEFAULT_MAX_N_BUFS):
-    """(features, normalized_throughputs, task_ids, min_costs): throughput
-    normalized per task, min_cost / cost (feature.cc:1457-1535). A record
-    that does not replay or lower yields a single all-zero row."""
-    features = []
-    throughputs = []
-    task_ids = []
-    task_keys = {}
-    min_costs = []
-
-    for inp, res in zip(inputs, results):
-        key = (inp.task.workload_key, inp.task.target)
-        if key not in task_keys:
-            task_keys[key] = len(task_keys)
+def normalized_throughputs(task_keys, mean_costs, error_nos):
+    """(normalized_throughputs [n] float32, task_ids [n] int32, min_costs
+    float32) of records given by task key, mean cost and error code: task
+    ids by first appearance, an error counted as an infinite cost, and
+    min_cost / cost within each task (feature.cc:1457-1535)."""
+    ids = {}
+    task_ids, costs, min_costs = [], [], []
+    for key, mean_cost, error_no in zip(task_keys, mean_costs, error_nos):
+        if key not in ids:
+            ids[key] = len(ids)
             min_costs.append(float("inf"))
-        tid = task_keys[key]
-        cost = res.mean_cost if res.error_no == 0 else float("inf")
+        tid = ids[key]
+        cost = float(mean_cost) if error_no == 0 else float("inf")
         if cost < min_costs[tid]:
             min_costs[tid] = cost
         task_ids.append(tid)
-        try:
-            st = inp.recover_state(infer_bound=True)
-            feats = get_per_store_features_from_state(
-                st, inp.task, max_n_bufs
-            )
-        except Exception:
-            feats = np.zeros((1, FEATURE_VEC_LEN), np.float32)
-        features.append(feats)
-        throughputs.append(cost)
-
+        costs.append(cost)
     throughputs = np.asarray(
         [
             (min_costs[tid] / c) if np.isfinite(c) and c > 0 else 0.0
-            for tid, c in zip(task_ids, throughputs)
+            for tid, c in zip(task_ids, costs)
         ],
         np.float32,
     )
-    return (features, throughputs, np.asarray(task_ids, np.int32),
+    return (throughputs, np.asarray(task_ids, np.int32),
             np.asarray(min_costs, np.float32))
 
 
+def get_per_store_features_from_measure_pairs(inputs, results,
+                                              skip_first_n_feature=0,
+                                              max_n_bufs=DEFAULT_MAX_N_BUFS,
+                                              use_native=True,
+                                              n_threads=1):
+    """(features, normalized_throughputs, task_ids, min_costs): throughput
+    normalized per task, min_cost / cost (feature.cc:1457-1535). A record
+    that does not replay or lower yields a single all-zero row. The native
+    batch featuriser (``n_threads`` threads) by default; the Python one
+    per record where it returns nothing."""
+    native_feats = None
+    if use_native and max_n_bufs == DEFAULT_MAX_N_BUFS:
+        from ..records.fast_parser import featurize_perstore_inputs_native
+
+        native_feats = featurize_perstore_inputs_native(
+            inputs, n_threads=n_threads)
+    features = []
+    for inp in inputs:
+        nf = native_feats[len(features)] if native_feats else None
+        if nf is not None:
+            feats = nf
+        else:
+            try:
+                st = inp.recover_state(infer_bound=True)
+                feats = get_per_store_features_from_state(
+                    st, inp.task, max_n_bufs
+                )
+            except Exception:
+                feats = np.zeros((1, FEATURE_VEC_LEN), np.float32)
+        features.append(feats)
+    return (features, *normalized_throughputs(
+        [(inp.task.workload_key, inp.task.target) for inp in inputs],
+        [res.mean_cost for res in results],
+        [res.error_no for res in results]))
+
+
 def get_per_store_features_from_file(filename, max_lines=None,
-                                     max_n_bufs=DEFAULT_MAX_N_BUFS):
+                                     max_n_bufs=DEFAULT_MAX_N_BUFS,
+                                     use_native=True, n_threads=1):
     """:func:`get_per_store_features_from_measure_pairs` over the records
-    of a log (NDJSON, or gzip-compressed as ``*.gz``)."""
+    of a log (NDJSON, or gzip-compressed as ``*.gz``). The native parser
+    and batch featuriser by default (``fast_parser.
+    perstore_dataset_native``, ``n_threads`` threads)."""
+    if use_native and max_n_bufs == DEFAULT_MAX_N_BUFS:
+        from ..records.fast_parser import perstore_dataset_native
+
+        return perstore_dataset_native(
+            filename, -1 if max_lines is None else max_lines,
+            n_threads=n_threads)
     from ..records.serde import load_records
 
     records = load_records(filename, max_lines)
@@ -942,7 +984,8 @@ def get_per_store_features_from_file(filename, max_lines=None,
 
 
 def perstore_features_from_records(records, max_cost: float = 1e6,
-                                   length_mode: str = "modal"):
+                                   length_mode: str = "modal",
+                                   use_native: bool = True):
     """Per-store (164-dim) feature matrix for the offline search loop.
 
     The reference's design lineage ablates the VAE/regression input
@@ -973,12 +1016,19 @@ def perstore_features_from_records(records, max_cost: float = 1e6,
         return (np.zeros((0, 0), np.float32), np.zeros((0,), np.float32),
                 [])
 
+    inputs = [records[i].inp for i in kept0]
+    native_feats = None
+    if use_native:
+        from ..records.fast_parser import featurize_perstore_inputs_native
+
+        native_feats = featurize_perstore_inputs_native(inputs)
     blocks = []
-    for i in kept0:
-        inp = records[i].inp
-        st = inp.recover_state(infer_bound=True)
-        blocks.append(np.asarray(
-            get_per_store_features_from_state(st, inp.task), np.float32))
+    for k, inp in enumerate(inputs):
+        feats = native_feats[k] if native_feats else None
+        if feats is None:
+            st = inp.recover_state(infer_bound=True)
+            feats = get_per_store_features_from_state(st, inp.task)
+        blocks.append(np.asarray(feats, np.float32))
 
     counts = [b.shape[0] for b in blocks]
     if length_mode == "modal":

@@ -1,6 +1,7 @@
 """Workload registry, search tasks and measure-record serde (a copy of
 ``vae_extent_search_tpu/records/``'s ``workload``, ``workload_library``,
-``task`` and ``serde``)."""
+``task`` and ``serde``), and the binding of the port's host library
+(``fast_parser``, with the descriptors ``task_desc`` and ``expr_desc``)."""
 
 from . import workload_library  # registers the standard workloads
 from .serde import (

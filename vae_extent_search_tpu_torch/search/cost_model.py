@@ -162,7 +162,9 @@ class LearnedCostModel(PythonCostModel):
             self._embed(feats, [task.workload_key] * len(feats)))
 
     def predict_on_feature_list(self, task, feats) -> np.ndarray:
-        """Score pre-extracted per-store feature matrices."""
+        """Score pre-extracted per-store feature matrices (the native GA
+        featurises a generation in the host library and scores it here,
+        without building States)."""
         if not self._is_fit():
             rng = np.random.default_rng(0)
             return rng.random(len(feats)).astype(np.float32)

@@ -20,11 +20,10 @@ a Runner, tracks best-per-workload, aborts after ``max_continuous_error``
 - MatmulRunner / Conv2dRunner     the port's own CUDA kernels, timed on the
                                   card (search/kernel_tuner.py)
 
-All of them but the last two do host work only. The JAX package's native
-record-level path (``run_record_lists`` over its C++ replay) has no
-counterpart: the port's ``run_record_lists`` returns None, which sends the
-caller down the State path, whose costs the JAX package keeps bit-identical
-to the native ones.
+All of them but the last two do host work only. ``AnalyticRunner`` also
+measures straight from step records (``run_record_lists``, over the port's
+native replay, ``records/fast_parser.py::analytic_batch_native``), with
+the State path's costs bit for bit.
 """
 
 from __future__ import annotations
@@ -287,12 +286,105 @@ class AnalyticRunner(Runner):
                 ERROR_NO_ERROR, 0.001, now))
         return out
 
+    def _cost_from_summary(self, flops: float, text: bytes,
+                           stage_rows, iter_rows) -> float:
+        """``_cost`` over the native schedule summary (the same expressions
+        in the same order, so results equal the State path's bit for bit);
+        the noise key hashes the native byte-exact printed state."""
+        par = 1.0
+        vec = 1.0
+        tile_vol = 1.0
+        unroll_pen = 1.0
+        ii = 0
+        for ca, au, ni in stage_rows:
+            its = iter_rows[ii:ii + ni]
+            ii += ni
+            if ca == -1 or ca == 2:  # placeholder or inlined
+                continue
+            for ext, ann in its:
+                ext = int(ext) if ext >= 0 else 1
+                if ann == 3:  # parallel
+                    par = max(par, min(ext, self.num_cores))
+                if ann == 2:  # vectorize
+                    eff = min(ext, self.vector_width) / self.vector_width
+                    if ext > self.vector_width * 4:
+                        eff *= self.vector_width * 4 / ext
+                    vec = max(vec * 0.0 + (0.25 + 0.75 * eff), 0.05)
+            if ca != 0:  # not at root: inner tile volume
+                v = 1.0
+                for ext, _ in its:
+                    v *= int(ext) if ext >= 0 else 1
+                tile_vol = max(tile_vol, v)
+            if au > 512:
+                unroll_pen *= 1.1
+        locality = 1.0
+        if tile_vol > self.l1_elems:
+            locality = 1.0 + math.log2(tile_vol / self.l1_elems)
+        t = flops / (self.peak * par * vec) * locality * unroll_pen
+        if self.noise:
+            h = zlib.crc32(text + f"|{self.seed}".encode()) % 10000 / 10000.0
+            t *= 1.0 + self.noise * (h - 0.5)
+        return max(t, 1e-9)
+
     def run_record_lists(self, task, record_lists):
-        """Batch measurement straight from serialized step records. The JAX
-        package does this through its native replay; the port has none, so
-        this returns None, as the JAX method does without its native
-        library, and callers take the State path (``run``)."""
-        return None
+        """Batch measurement straight from serialized step records: the
+        native replay and bound inference give the byte-exact printed state
+        (the noise key) and a schedule summary, so no Python State is
+        built; the costs equal the State path's bit for bit. Records the
+        native side cannot replay take the State path one by one. Returns
+        None for a task the native side does not take (symbolic extents:
+        the caller then runs ``run``)."""
+        from ..records.fast_parser import (
+            count_fallback,
+            analytic_batch_native,
+            featurize_perstore_records_native,
+        )
+
+        batch = analytic_batch_native(task, record_lists)
+        if batch is None:
+            return None
+        statuses, texts, stage_rows, iter_rows = batch
+        now = time.time()
+        hw = self._apply_platform(task)
+        flops = task.compute_dag.flop_ct
+        hf_feats = None
+        if self.fidelity == "high":
+            hf_feats, _keys, _st = featurize_perstore_records_native(
+                task, record_lists)
+        out = []
+        for i, recs in enumerate(record_lists):
+            if statuses[i] == 0 and hf_feats is not None \
+                    and hf_feats[i] is not None:
+                from .analytic_hf import hf_cost_from_features
+
+                cost = hf_cost_from_features(hf_feats[i], hw)
+                if math.isfinite(cost):
+                    out.append(MeasureResult(
+                        self._rep_costs(
+                            texts[i],
+                            max(self._jitter(texts[i], cost), 1e-9)),
+                        ERROR_NO_ERROR, 0.001, now))
+                else:
+                    out.append(MeasureResult([MAX_FLOAT],
+                                             ERROR_RUNTIME_DEVICE, 0.0, now))
+                continue
+            if statuses[i] == 0 and self.fidelity == "low":
+                out.append(MeasureResult(
+                    self._rep_costs(
+                        texts[i],
+                        self._cost_from_summary(flops, texts[i],
+                                                stage_rows[i],
+                                                iter_rows[i])),
+                    ERROR_NO_ERROR, 0.001, now))
+                continue
+            count_fallback("analytic:state_path")
+            try:  # the State path (a native miss, or a bad record)
+                st = task.compute_dag.apply_steps(recs)
+                out.extend(self.run(task, [st]))
+            except Exception:
+                out.append(MeasureResult([MAX_FLOAT], ERROR_RUNTIME_DEVICE,
+                                         0.0, now))
+        return out
 
 
 class CommandRunner(Runner):
@@ -376,13 +468,18 @@ class RecordToFile:
         save_records(self.filename, records, mode="a")
 
 
+# consecutive failed measurements after which a measurer aborts
+MAX_CONTINUOUS_ERROR = 150
+
+
 class ProgramMeasurer:
     """Batched measurement with best-tracking and error abort
     (measure.cc:269-336)."""
 
     def __init__(self, builder: Builder, runner: Runner,
                  callbacks: Optional[list] = None,
-                 max_continuous_error: int = 150, verbose: int = 0):
+                 max_continuous_error: int = MAX_CONTINUOUS_ERROR,
+                 verbose: int = 0):
         self.builder = builder
         self.runner = runner
         self.callbacks = callbacks or []

@@ -11,11 +11,15 @@ heap + prefix-sum parent selection + weighted mutation (no crossover;
 iters 4, mutation 0.85, tiling structure "SSRSRS", max innermost split
 factor 64, auto-unroll candidates {0,16,64,512}).
 
-A copy of ``vae_extent_search_tpu/search/sketch.py`` with the State-level
-Python GA only (``SketchPolicy.sample_initial_population``,
-``evolutionary_search``, ``make_states``): the JAX package's native (C++)
-record-level GA and ``make_state_records`` which drives it have no
-counterpart here, so ``make_states`` always runs the Python loop; the
+A copy of ``vae_extent_search_tpu/search/sketch.py``. The GA runs on the
+port's native record-level engine (``_evolutionary_search_native_recs``:
+candidates stay step records, and the host library replays them, keys
+them and featurises them, ``records/fast_parser.py``) and
+``make_state_records`` drives it for pool generation, as in the JAX
+package; the State-level Python GA runs where the JAX one does: a cost
+model without ``predict_on_feature_list`` (or whose ``predict`` and
+``predict_on_feature_list`` come from different classes), or a population
+of which the native side replays no record (rfactor sketches). The
 measure-round methods (``continue_search_one_round`` and its eps-greedy
 pick) serve ``records/dispatcher.py``. Both rule sets are kept: the
 CPU-target rules above, and for a GPU task (``cuda`` targets; GPU order
@@ -1212,7 +1216,32 @@ def mutate_tile_size(state: State, rng: random.Random,
                      max_innermost: int = 64) -> Optional[State]:
     """Move a random factor between two positions of a random SplitStep
     (MutateTileSize), working on the state's step records."""
-    recs = [s.to_record() for s in state.transform_steps]
+    return _apply(state, _mutate_tile_size_recs(
+        [s.to_record() for s in state.transform_steps], rng, max_innermost))
+
+
+def mutate_parallel(state: State, task: SearchTask,
+                    rng: random.Random) -> Optional[State]:
+    """Re-sample the outer fuse+parallel granularity of a root stage
+    (MutateParallel, sketch_policy_rules.cc:1118)."""
+    return _apply(state, _mutate_parallel_recs(
+        [s.to_record() for s in state.transform_steps], rng))
+
+
+def mutate_auto_unroll(state: State, task: SearchTask,
+                       rng: random.Random) -> Optional[State]:
+    """Re-draw one auto_unroll_max_step pragma (MutateAutoUnroll)."""
+    return _apply(state, _mutate_auto_unroll_recs(
+        [s.to_record() for s in state.transform_steps], task.is_gpu, rng))
+
+
+# The mutations on step records: one implementation for both GA paths (the
+# same RNG stream). A child shares every step record but the mutated one
+# with its parent, by reference, which the native GA's encoder caches on.
+
+
+def _mutate_tile_size_recs(recs: List[list], rng: random.Random,
+                           max_innermost: int = 64) -> Optional[List[list]]:
     split_ids = []
     for i, r in enumerate(recs):
         if r[0] != "SP":
@@ -1257,19 +1286,17 @@ def mutate_tile_size(state: State, rng: random.Random,
         new_lengths = list(lengths)
         new_lengths[src_idx] = lengths[src_idx] // divide
         new_lengths[dst_idx] = lengths[dst_idx] * divide
-        recs[step_id] = ["SP", stage_id, iter_id, extent, new_lengths[1:],
-                         ito]
-        return _apply(state, recs)
+        out = list(recs)
+        out[step_id] = ["SP", stage_id, iter_id, extent, new_lengths[1:],
+                        ito]
+        return out
     return None
 
 
-def mutate_parallel(state: State, task: SearchTask,
-                    rng: random.Random) -> Optional[State]:
-    """Re-sample the outer fuse+parallel granularity of a root stage
-    (MutateParallel, sketch_policy_rules.cc:1118): find a trailing
-    FuseStep whose fused iterator is parallel-annotated and change the
-    number of fused outer iterators."""
-    recs = [s.to_record() for s in state.transform_steps]
+def _mutate_parallel_recs(recs: List[list],
+                          rng: random.Random) -> Optional[List[list]]:
+    """Find a trailing FuseStep whose fused iterator is parallel-annotated
+    and change the number of fused outer iterators."""
     for i in range(len(recs) - 1, 0, -1):
         r = recs[i]
         if not (r[0] == "AN" and r[3] == 3):
@@ -1281,18 +1308,17 @@ def mutate_parallel(state: State, task: SearchTask,
         n_old = len(prev[2])
         n_new = rng.choice([n for n in (1, 2, 3, 4) if n != n_old])
         base = prev[2][0]
+        out = list(recs)
         if n_new == 1:
-            recs[i - 1:i + 1] = [["AN", r[1], base, 3]]
+            out[i - 1:i + 1] = [["AN", r[1], base, 3]]
         else:
-            recs[i - 1] = ["FU", prev[1], list(range(base, base + n_new))]
-        return _apply(state, recs)
+            out[i - 1] = ["FU", prev[1], list(range(base, base + n_new))]
+        return out
     return None
 
 
-def mutate_auto_unroll(state: State, task: SearchTask,
-                       rng: random.Random) -> Optional[State]:
-    """Re-draw one auto_unroll_max_step pragma (MutateAutoUnroll)."""
-    recs = [s.to_record() for s in state.transform_steps]
+def _mutate_auto_unroll_recs(recs: List[list], is_gpu: bool,
+                             rng: random.Random) -> Optional[List[list]]:
     pragma_ids = [
         i for i, r in enumerate(recs)
         if r[0] == "PR" and isinstance(r[3], str)
@@ -1301,12 +1327,13 @@ def mutate_auto_unroll(state: State, task: SearchTask,
     if not pragma_ids:
         return None
     cands = (
-        AUTO_UNROLL_CANDIDATES_GPU if task.is_gpu else AUTO_UNROLL_CANDIDATES_CPU
+        AUTO_UNROLL_CANDIDATES_GPU if is_gpu else AUTO_UNROLL_CANDIDATES_CPU
     )
     step_id = rng.choice(pragma_ids)
-    recs[step_id] = ["PR", recs[step_id][1], recs[step_id][2],
-                     f"auto_unroll_max_step${rng.choice(cands)}"]
-    return _apply(state, recs)
+    out = list(recs)
+    out[step_id] = ["PR", recs[step_id][1], recs[step_id][2],
+                    f"auto_unroll_max_step${rng.choice(cands)}"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1340,11 +1367,18 @@ class PythonCostModel:
 
 
 class RandomCostModel(PythonCostModel):
+    # scores never read the feature rows: the native GA may skip feature
+    # emission entirely (keys and validity only)
+    feature_free = True
+
     def __init__(self, seed: int = 0):
         self.rng = np.random.default_rng(seed)
 
     def predict(self, task, states):
         return self.rng.random(len(states)).astype(np.float32)
+
+    def predict_on_feature_list(self, task, feats):
+        return self.rng.random(len(feats)).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1413,9 +1447,15 @@ class SketchPolicy:
                             out_size: int) -> List[State]:
         """Cost-model-scored GA (sketch_policy.cc:487-624): keep a heap of
         the best unique states; parents sampled by prefix-sum probability
-        over scores; mutations only (no crossover)."""
+        over scores; mutations only (no crossover). The generation batches
+        (replay, dedup keys, 164-dim features) run in the host library
+        unless ``_evolutionary_search_native`` declines the population."""
         if not init_population:
             return []
+        native = self._evolutionary_search_native(init_population,
+                                                  out_size)
+        if native is not None:
+            return native
         population = self.params["evolutionary_search_population"]
         iters = self.params["evolutionary_search_num_iters"]
         mut_prob = self.params["evolutionary_search_mutation_prob"]
@@ -1496,6 +1536,161 @@ class SketchPolicy:
 
         best = sorted(heap, key=lambda t: -t[0])
         return [st for _, _, st in best]
+
+    def _evolutionary_search_native(self, init_population: List[State],
+                                    out_size: int) -> Optional[List[State]]:
+        """The record-level GA on States: None where it declines (see
+        ``_evolutionary_search_native_recs``)."""
+        cur_recs = [[st_.to_record() for st_ in s.transform_steps]
+                    for s in init_population]
+        res = self._evolutionary_search_native_recs(cur_recs, out_size)
+        if res is None:
+            return None
+        out = []
+        for recs in res[0]:
+            try:
+                out.append(self.task.compute_dag.apply_steps(recs))
+            except Exception:
+                continue
+        return out
+
+    def _evolutionary_search_native_recs(
+            self, cur_recs: List[list], out_size: int
+    ) -> Optional[Tuple[List[list], List[int]]]:
+        """Record-level native GA: candidates live as serialized
+        transform-step records end to end (replay, dedup keys and
+        features all native); Python States are built only for the 5%
+        compute-location mutations. Returns (step-record lists, native
+        dedup keys) sorted by score descending, or None where the JAX
+        package's GA declines too, each counted in ``fast_parser.
+        FALLBACKS``: a cost model without ``predict_on_feature_list`` (or
+        whose ``predict`` comes from another class), or a first batch of
+        which the native side replays no record (rfactor sketches)."""
+        from ..records.fast_parser import (
+            count_fallback,
+            featurize_perstore_records_native,
+            make_encode_ctx,
+        )
+
+        score_fn = getattr(self.cost_model, "predict_on_feature_list", None)
+
+        # a subclass overriding predict() but inheriting
+        # predict_on_feature_list would be scored inconsistently: both
+        # methods must come from the same class
+        def _definer(name):
+            for c in type(self.cost_model).__mro__:
+                if name in c.__dict__:
+                    return c
+            return None
+
+        if score_fn is None or (_definer("predict")
+                                is not _definer("predict_on_feature_list")):
+            count_fallback("ga:no_feature_predict")
+            return None
+        encode_ctx = make_encode_ctx()
+
+        population = self.params["evolutionary_search_population"]
+        iters = self.params["evolutionary_search_num_iters"]
+        mut_prob = self.params["evolutionary_search_mutation_prob"]
+        max_inner = self.params["max_innermost_split_factor"]
+        is_gpu = self.task.is_gpu
+        # feature-free models (RandomCostModel pool generation) let the
+        # native pass skip store building and feature emission, about
+        # half the per-candidate native cost
+        with_features = not getattr(self.cost_model, "feature_free", False)
+
+        def featurize(recs_list):
+            feats, keys, status = featurize_perstore_records_native(
+                self.task, recs_list, encode_ctx=encode_ctx,
+                with_features=with_features)
+            # status 1 (an rfactor step) is dropped, as the JAX GA does
+            count_fallback("ga:status1_dropped", (status == 1).sum())
+            keep, kfeats, kkeys = [], [], []
+            for i, recs in enumerate(recs_list):
+                if status[i] == 0:
+                    keep.append(recs)
+                    kfeats.append(feats[i])
+                    kkeys.append(int(keys[i]))
+            return keep, kfeats, kkeys
+
+        heap: List[tuple] = []  # (score, tiebreak, key, recs)
+        in_heap = set()
+        counter = 0
+
+        def push(recs_list, keys, scores):
+            nonlocal counter
+            for recs, key, sc in zip(recs_list, keys, scores):
+                if key in in_heap:
+                    continue
+                if len(heap) < out_size:
+                    heapq.heappush(heap, (float(sc), counter, key, recs))
+                    in_heap.add(key)
+                    counter += 1
+                elif sc > heap[0][0]:
+                    heapq.heappushpop(heap, (float(sc), counter, key, recs))
+                    in_heap.add(key)
+                    counter += 1
+
+        cur, feats, keys = featurize(cur_recs)
+        if not cur:
+            count_fallback("ga:no_native_record")
+            return None
+        scores = np.asarray(score_fn(self.task, feats))
+        push(cur, keys, scores)
+
+        for _ in range(iters):
+            probs = _parent_probs(scores)
+            nxt = []
+            while len(nxt) < min(population, 4 * max(1, len(cur))):
+                parent = cur[
+                    min(int(np.searchsorted(probs, self.rng.random())),
+                        len(cur) - 1)
+                ]
+                if self.rng.random() < mut_prob:
+                    # the State GA's mutation weights (see evolutionary_search)
+                    r = self.rng.random()
+                    if is_gpu:
+                        if r < 0.90:
+                            child = _mutate_tile_size_recs(parent, self.rng,
+                                                           max_inner)
+                        else:
+                            child = _mutate_auto_unroll_recs(parent, is_gpu,
+                                                             self.rng)
+                    elif r < 0.90:
+                        child = _mutate_tile_size_recs(parent, self.rng,
+                                                       max_inner)
+                    elif r < 0.94:
+                        child = _mutate_auto_unroll_recs(parent, is_gpu,
+                                                         self.rng)
+                    elif r < 0.99:
+                        # compute-location needs stage structure: replay
+                        # the parent in Python for this 5% of mutations
+                        child = None
+                        try:
+                            pst = self.task.compute_dag.apply_steps(parent)
+                            cst = mutate_compute_location(pst, self.task,
+                                                          self.rng)
+                            if cst is not None:
+                                child = [s_.to_record()
+                                         for s_ in cst.transform_steps]
+                        except Exception:
+                            child = None
+                    else:
+                        child = _mutate_parallel_recs(parent, self.rng)
+                    if child is not None:
+                        nxt.append(child)
+                else:
+                    nxt.append(parent)
+                if len(nxt) >= len(cur) * 4:
+                    break
+            cur, feats, keys = featurize(nxt)
+            if not cur:
+                break
+            scores = np.asarray(score_fn(self.task, feats))
+            push(cur, keys, scores)
+
+        best = sorted(heap, key=lambda t: -t[0])
+        return [t[3] for t in best], [t[2] for t in best]
 
     def _measured_key(self, st: State) -> str:
         """Canonical dedup key: the bound state's printed form (candidate
@@ -1586,14 +1781,61 @@ def _make_pool_policy(task, evo_population, min_population, seed):
     )
 
 
+def make_state_records(task: SearchTask, size: int,
+                       evo_population: int = 512,
+                       min_population: int = 50,
+                       seed: int = 2023) -> Optional[List[list]]:
+    """Record-level candidate-pool generation: the make_states loop with
+    candidates kept as serialized step records and deduped by the native
+    featurizer's keys; no Python State is built but the initial
+    population's. Returns None where the native GA declines (callers then
+    run make_states' State loop)."""
+    policy = _make_pool_policy(task, evo_population, min_population, seed)
+    init = policy.sample_initial_population(min_population)
+    if not init:
+        return None
+    cur_recs = [[st_.to_record() for st_ in s.transform_steps]
+                for s in init]
+    res = policy._evolutionary_search_native_recs(cur_recs, size)
+    if res is None:
+        return None
+    seen: Dict[int, list] = {}
+    for r, k in zip(*res):
+        seen.setdefault(k, r)
+    rounds = 1
+    while len(seen) < size and rounds < 50:
+        rounds += 1
+        pool = list(seen.values())[-min(len(seen), evo_population):]
+        res = policy._evolutionary_search_native_recs(pool, size)
+        if res is None or not res[0]:
+            break
+        for r, k in zip(*res):
+            seen.setdefault(k, r)
+    return list(seen.values())[:size]
+
+
 def make_states(task: SearchTask, size: int, evo_population: int = 512,
                 min_population: int = 50, seed: int = 2023) -> List[State]:
     """Candidate-pool generation (reference vae_experiments/tuning.py:9-62
     make_states: sample + evolutionary until `size` unique states).
 
-    The JAX package runs its native record-level GA here when its library
-    is built; the port always runs this State-level loop, which is the
-    JAX package's own path without that library."""
+    Runs the record-level native loop (``make_state_records``) and builds
+    the States once at the end, bound; the State-level loop below where
+    the native GA declines."""
+    recs_list = make_state_records(task, size, evo_population,
+                                   min_population, seed)
+    if recs_list is not None:
+        out = []
+        for recs in recs_list:
+            try:
+                # bound inference so compute-at extents match what a
+                # record round-trip (recover_state) sees: consumers
+                # (AnalyticRunner, extent featurization) read extents
+                out.append(task.compute_dag.infer_bound(
+                    task.compute_dag.apply_steps(recs)))
+            except Exception:
+                continue
+        return out
     policy = _make_pool_policy(task, evo_population, min_population, seed)
     states = policy.sample_initial_population(min_population)
     seen = {s.to_str(): s for s in states}
