@@ -29,6 +29,9 @@
     python3 chip_smoke.py --only native  # phases 1 and 26 alone, for
                                        # work on the host library; ends
                                        # {"partial": "native"}
+    python3 chip_smoke.py --only multidevice  # phases 1 and 27 alone, for
+                                       # work on the multi-device layer;
+                                       # ends {"partial": "multidevice"}
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device and build: the card's name and power limit; nvcc builds the
@@ -86,7 +89,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the first tree's own six launches (skewed node sizes). At ~20 rows per
      program the protocol's rmse grows on either engine
      (data/boost_corpus.py says why), so the same fit on the generator's
-     4-rows-per-program corpus, with engine "auto", must go through the
+     4-rows-per-program corpus (500,000 rows, cut from 1M when phase 27
+     came), with engine "auto", must go through the
      kernel and show a falling tr-rmse
  10. the gbdt arm end to end on the committed pool (measure size 32, seeds
      2000-2002, device engine): every seed must find the optimum, and
@@ -121,8 +125,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      whole f32 lattice (56 boh x 4 bco x 3 bci = 672 configs) at that
      shape, each config held and timed like the tuner's
  13. self-tuning end to end: cli.tune_kernel on the matmul at the JAX
-     defaults (1536^3 bf16, 1,000 candidates, measure size 16, 6 phases,
-     VAE 500 epochs, predictor 1000 epochs), --arm model then --arm
+     defaults (1536^3 bf16, 1,000 candidates, measure size 16, VAE 500
+     epochs, predictor 1000 epochs) but 3 phases (cut from 6 for the time
+     limit when phase 27 came), --arm model then --arm
      random, then --dtype float32 --arm random (the f32 CUDA-core kernel's
      path: its best config beside torch.matmul in f32 and the phase 11
      sweep's fastest); every timed config went through the kernel (its launch count
@@ -200,7 +205,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (ARMS["grid_pair"]): exactly that pair's 4 configs run, over one
      pretrain, each finding the optimum; then, alone, one seed of the vae
      arm through the command line with --profile-dir and --max-phases
-     ARMS["profile_phases"] and a 20-epoch pretrain (depth cut): the
+     ARMS["profile_phases"], a 20-epoch pretrain and a 250-epoch
+     predictor fit (depth cut): the
      torch.profiler trace must hold CUDA kernel events and one
      fused_head_kernel event per launch, and cli.trace_summary prints the
      device busy time (the union of kernel intervals), the idle share of
@@ -364,6 +370,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
      then train_model --models mlp on it: every segment sum through the
      forward kernel, every optimiser step through the backward kernel, no
      plain call. Its seconds are printed against NATIVE_BUDGET_S
+ 27. the multi-device layer (parallel/, search/select_sharded.py,
+     boost_device.train(mesh=)), each part a set of ranks in processes of
+     their own (the backend printed: gloo for two ranks on one card, as NCCL
+     refuses them): (a) 2 ranks: one sharded selection phase with injected
+     dropout words at the main shape (773 x 17, padded to 774) and at the
+     bench shape (bf16), picks equal on every rank and to the single card's
+     select_programs exactly, one fused-head launch on every rank and no
+     plain call; (b) 2 ranks: the full-width search for seed 2002 on the
+     committed pool split over the ranks (the VAE and the predictor
+     trained replicated, a digest check after each), the optimum found,
+     the same picks on every rank, one fused-head launch per selection
+     phase on every rank, no plain call, no histogram; (c) 2 ranks: the
+     sharded GBDT on data/boost_corpus.py's corpus cut to MULTI's rows and
+     rounds, trees equal on every rank and to the single card's bit for
+     bit, depth x rounds histogram launches (exact cross-card mode) on every
+     rank; (d) the histogram's exact mode: int64 sums equal to
+     hist_plain_fixed's, row blocks' sums rounded equal to one launch; (e)
+     one NCCL rank per card: collectives on CUDA tensors and a sharded
+     phase equal to the single card's; (f) cli.full_sweep --global-mesh
+     with 2 ranks (cut as MULTI says), cli.collect_master with 2 local
+     workers and cli.gather_master. It prints the seconds, each rank's
+     kernel times and collective seconds; it claims no speed-up (the two
+     ranks share one card). It runs alone, after phase 25, with its
+     seconds against MULTI_BUDGET_S
 In the whole run, phases 22, 23, 24 and 26 run side by side, a process each
 (phase_job), while phase 21 runs in the main process: all five are bound by
 host work (the GA, the featuriser, eager launches), and each process sets
@@ -373,7 +403,7 @@ which hold for a phase run alone (--only). Phase 25 runs after them, alone:
 its runners time the card with CUDA events, inside whose windows the
 kernels of other processes would land.
 The last lines are JSON objects with phase 20's, 21's, 22's, 23's, 24's,
-25's and 26's results, the card's name and power limit, a JSON object with each kernel's
+25's, 26's and 27's results, the card's name and power limit, a JSON object with each kernel's
 check and times, then {"ok": true, "device": {...}}.
 """
 
@@ -414,12 +444,13 @@ PHASE6_SEEDS = (2002,)
 # grid arm runs the one (measure_size, weights) pair of DEFAULT_GRID left
 # out of its pre-filled average CSV, i.e. that pair's 4 configs; the
 # profiled run is the shortest that holds one whole predictor fit, its
-# pretrain cut to 20 epochs: a predictor epoch leaves ~1,300 trace events,
-# and the trace of a 500-epoch pretrain and two fits (1.7 GB) took 64 s to
-# write and 42 s to read
+# pretrain cut to 20 epochs and (since phase 27 came, for the time limit)
+# its fit to 250 epochs: a predictor epoch leaves ~1,300 trace events, and
+# the trace of a 500-epoch pretrain and two fits (1.7 GB) took 64 s to
+# write and 42 s to read, one 1000-epoch fit's (664 MiB) 32 and 24
 ARMS = dict(measure_size=32, diversity=(2000,), kmeans=(2000,), vib=(2000,),
             grid_pair=(64, (0.5, 0.3, 0.2)), profile_seed=2000,
-            profile_phases=1, profile_vae_epochs=20,
+            profile_phases=1, profile_vae_epochs=20, profile_reg_epochs=250,
             width=dict(latent_dim=64, hidden_dim=256, vae_epochs=500,
                        reg_epochs=1000))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -803,8 +834,10 @@ def gbdt_phases(dev, peaks, fh, th):
         raise RuntimeError(f"[9] tr-rmse not finite: {rmse_a}")
     # (b) the same generator at 4 rows per program, where the pack-sum
     # residual amplification (rows/program x eta = 0.8) stays below 2;
-    # engine "auto" must pick the device engine at this row count
-    rows_b, packs_b, labels_b = make_corpus(n, d, seed=1, rows_per_program=4)
+    # engine "auto" must pick the device engine at this row count (half
+    # the rows since phase 27 came: binning 1M rows took ~38 s of host)
+    rows_b, packs_b, labels_b = make_corpus(n // 2, d, seed=1,
+                                            rows_per_program=4)
     _, rmse_b, fit_s_b, launches_b = pretrain(
         rows_b, packs_b, labels_b, "auto", "4 rows/program")
     del rows_b, packs_b, labels_b
@@ -934,11 +967,13 @@ def gbdt_phases(dev, peaks, fh, th):
 
 
 # the self-tuning shapes (scripts/tune_pallas_kernel.py's defaults) and
-# the tuner's settings at the JAX defaults
+# the tuner's settings at the JAX defaults, but 3 phases of the JAX 6 (cut
+# for the time limit when phase 27 came: each model arm's phase is ~10 s of
+# predictor fit)
 MM_DIM = 1536
 CONV = (1, 56, 56, 256, 256, 3, 3, 1, 1)  # N H W CO CI KH KW stride pad
 TUNE_ARGS = ["--n-candidates", "1000", "--measure-size", "16",
-             "--n-phases", "6", "--vae-epochs", "500", "--reg-epochs",
+             "--n-phases", "3", "--vae-epochs", "500", "--reg-epochs",
              "1000"]
 # relative to max |plain|. float32: the same products summed in another
 # order; bfloat16 inputs: against the f32 plain version of the same
@@ -4342,6 +4377,641 @@ def native_phases(dev, kernels, cfg=NATIVE):
     return out
 
 
+# phase 27's sizes. The sharded search and selection phases run at full
+# width; cut for the time limit: the sharded GBDT to 200,000 rows of
+# data/boost_corpus.py's 164-feature corpus and 20 rounds (phase 9: 1M rows,
+# 50 rounds), full_sweep to one mobilenet_v2 task with a 200-state pool,
+# measure size 12, 6 phases, 20 VAE and 40 predictor epochs (seed 2003,
+# whose initial set misses the optimum, so the sharded phases run), and
+# the fleet to four 6-state task files
+MULTI = dict(ranks=2, search_seed=2002, gbdt_rows=200_000, gbdt_rounds=20,
+             gbdt_depth=6, sweep=["--networks", "mobilenet_v2",
+                                  "--max-tasks", "1", "--n-states", "200",
+                                  "--measure-size", "12", "--seeds", "2003",
+                                  "--max-phases", "6", "--vae-epochs", "20",
+                                  "--reg-epochs", "40"],
+             fleet_tasks=((32, 32, 32), (48, 32, 32), (32, 48, 32),
+                          (32, 32, 48)))
+MULTI_BUDGET_S = 300.0
+RANK_TIMEOUT_S = 600.0
+
+
+class RankCounts:
+    """In one rank: the fused head's and the histogram's launches, the
+    plain fused head's calls, and the seconds and calls of the collectives
+    (each timed between two device syncs) while active."""
+
+    def __init__(self):
+        from vae_extent_search_tpu_torch.ops import fused_head as fh
+        from vae_extent_search_tpu_torch.ops import hist as th
+        from vae_extent_search_tpu_torch.parallel import mesh as tm
+        from vae_extent_search_tpu_torch.search import select_sharded as ts
+
+        self.fh, self.th, self.mods = fh, th, (tm, ts)
+        self.plain = self.coll_calls = 0
+        self.coll_s = 0.0
+
+    def __enter__(self):
+        self.fh.fused_head_stats.launches = 0
+        self.th.hist.launches = 0
+        self.plain = self.coll_calls = 0
+        self.coll_s = 0.0
+        self._orig = [(m, nm, getattr(m, nm)) for m in self.mods
+                      for nm in ("all_gather", "all_reduce")]
+        self._plain = self.fh.fused_head_stats_plain
+
+        def timed(fn):
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.coll_s += time.perf_counter() - t
+                self.coll_calls += 1
+                return out
+            return wrapper
+
+        def plain(*a, **kw):
+            self.plain += 1
+            return self._plain(*a, **kw)
+
+        for m, nm, fn in self._orig:
+            setattr(m, nm, timed(fn))
+        self.fh.fused_head_stats_plain = plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, nm, fn in self._orig:
+            setattr(m, nm, fn)
+        self.fh.fused_head_stats_plain = self._plain
+
+    def read(self):
+        return {"fused_head": self.fh.fused_head_stats.launches,
+                "fused_head_plain": self.plain,
+                "hist": self.th.hist.launches,
+                "collective_s": self.coll_s,
+                "collective_calls": self.coll_calls}
+
+
+def _selection_inputs(dev, label, n_real, n, d, T, hp):
+    """Phase 27 (a)'s pool on every rank alike: random params and rows
+    (seeded), the first 32 (main) or 256 (bench) rows measured, padded rows
+    neither measured nor remaining, the injected dropout words [T, n, hp]
+    and the compact center buffer."""
+    from vae_extent_search_tpu_torch.convert import params_from_numpy
+    from vae_extent_search_tpu_torch.search.select import SelectionConfig
+
+    rng = np.random.default_rng(27)
+    params = params_from_numpy(rand_params(rng, d, 256, 64, hp), dev)
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(n, d, generator=g, device=dev)
+    x[n_real:] = 0.0
+    bits = torch.randint(-2 ** 31, 2 ** 31, (T, n, hp), generator=g,
+                         device=dev, dtype=torch.int32).view(torch.uint32)
+    n_meas = 32 if label == "main" else 256
+    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    used[:n_meas] = True
+    rem = ~used & (torch.arange(n, device=dev) < n_real)
+    cfg = (SelectionConfig(num_select=32, T_mc=T) if label == "main" else
+           SelectionConfig(num_select=64, T_mc=T, rand_num=0,
+                           compute_dtype="bfloat16"))
+    cidx = torch.zeros(cfg.max_centers, dtype=torch.int64, device=dev)
+    cidx[:n_meas] = torch.arange(n_meas, device=dev)
+    cval = torch.arange(cfg.max_centers, device=dev) < n_meas
+    return params, x, bits, used, rem, cfg, cidx, cval
+
+
+def rank_select(mesh, single):
+    """Phase 27 (a) on one rank: one sharded selection phase with injected
+    words at the main shape (the committed pool's 773 x 17, padded to a
+    multiple of the ranks) and the bench shape, each rank's fused head on
+    its rows; with ``single``, the single-card phase on the same inputs."""
+    from vae_extent_search_tpu_torch.data.pool import load_pool
+    from vae_extent_search_tpu_torch.ops import fused_head as fh
+    from vae_extent_search_tpu_torch.parallel.mesh import shard_batch
+    from vae_extent_search_tpu_torch.search.select import select_programs
+
+    dev = mesh.device
+    n_main, d_main = load_pool()[0].shape
+    s = mesh.shape["data"]
+    out = {}
+    for label, n_real, d in (("main", n_main, d_main),
+                             ("bench", BENCH["n"], BENCH["d"])):
+        n = -(-n_real // s) * s
+        T = BENCH["T"]
+        params, x, bits, used, rem, cfg, cidx, cval = _selection_inputs(
+            dev, label, n_real, n, d, T, BENCH["hp"])
+        xs, us, rs = (shard_batch(t, mesh) for t in (x, used, rem))
+        with RankCounts() as counts, torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sel, val, new_rem, aux = select_programs(
+                params, xs, us, rs, torch.Generator(device=dev).manual_seed(9),
+                cfg, mask_bits=bits, center_idx=cidx, center_valid=cval,
+                mesh=mesh)
+            picked = sel.cpu().numpy()[val.cpu().numpy()]
+            phase_s = time.perf_counter() - t
+            got = counts.read()
+        # the fused head on this rank's rows alone, by CUDA events
+        lo = mesh.index("data") * xs.shape[0]
+        xl = xs.to(getattr(torch, cfg.compute_dtype))
+        pl = {k: v for k, v in params.items()}
+        if cfg.compute_dtype != "float32":
+            from vae_extent_search_tpu_torch.convert import tree_map
+
+            pl = tree_map(lambda a: a.to(torch.bfloat16), params)
+        bl = bits[:, lo:lo + xs.shape[0]].contiguous()
+        local_ms = cuda_ms(lambda: fh.fused_head_stats(
+            pl["cost_predictor"], xl, 9, T=T, rate=cfg.dropout_rate,
+            mask_bits=bl, encoder=(pl["encoder"], pl["fc_mu"])), 5)
+        res = {"picked": picked.tolist(), "launches": got,
+               "phase_s": phase_s, "fused_head_ms": local_ms,
+               "rows": int(xs.shape[0]), "n": n,
+               "G_local": fh.launch_plan(xs.shape[0], T,
+                                         fh.sm_count(dev))[0]}
+        if single:
+            with torch.no_grad():
+                sel1, val1, rem1, _ = select_programs(
+                    params, x, used, rem,
+                    torch.Generator(device=dev).manual_seed(9), cfg,
+                    mask_bits=bits, center_idx=cidx, center_valid=cval)
+            res["single_picked"] = sel1.cpu().numpy()[
+                val1.cpu().numpy()].tolist()
+            res["same_as_single"] = bool(
+                torch.equal(sel1, sel) and torch.equal(val1, val)
+                and torch.equal(shard_batch(rem1, mesh), new_rem))
+            res["G_single"] = fh.launch_plan(n, T, fh.sm_count(dev))[0]
+        out[label] = res
+        del bits, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_search(mesh):
+    """Phase 27 (b) on one rank: the full-width search for PHASE 27's seed
+    on the committed pool split over the ranks."""
+    from vae_extent_search_tpu_torch.data.pool import load_pool
+    from vae_extent_search_tpu_torch.search.active_loop import (
+        pretrain_pool_vae,
+        run_active_search,
+    )
+    from vae_extent_search_tpu_torch.search.select import SelectionConfig
+
+    feats, labels, _ = load_pool()
+    width = ARMS["width"]
+    with RankCounts() as counts:
+        t = time.perf_counter()
+        vae = pretrain_pool_vae(feats, latent_dim=width["latent_dim"],
+                                hidden_dim=width["hidden_dim"],
+                                vae_epochs=width["vae_epochs"], mesh=mesh)
+        vae_s = time.perf_counter() - t
+        res = run_active_search(
+            feats, labels, measure_size=32, max_phases=60,
+            selection=SelectionConfig(num_select=32),
+            sampling_seed=MULTI["search_seed"], pretrained_vae_params=vae,
+            mesh=mesh, **width)
+        got = counts.read()
+    return {"found": res.found, "phase": res.phase,
+            "train_size": res.train_size,
+            "selected_order": [int(i) for i in res.selected_order],
+            "vae_s": vae_s, "fit_s": res.fit_seconds,
+            "select_s": res.select_seconds, "wall_s": res.used_time + vae_s,
+            "launches": got}
+
+
+def _tree_list(bst):
+    return [(t.feature, t.threshold, t.value, t.left, t.right)
+            for t in bst.trees]
+
+
+def rank_gbdt(mesh, single):
+    """Phase 27 (c) on one rank: data-parallel GBDT on the cut corpus; with
+    ``single``, the single-card training on the same corpus."""
+    from vae_extent_search_tpu_torch.data.boost_corpus import make_corpus
+    from vae_extent_search_tpu_torch.models import boost, boost_device
+
+    rows, pack_ids, labels = make_corpus(MULTI["gbdt_rows"], PRETRAIN["d"])
+    dm = boost.DMatrix(rows, label=labels[pack_ids], pack_ids=pack_ids,
+                       group_sizes=[len(labels)])
+    t = time.perf_counter()
+    dm._ensure_binned()
+    bin_s = time.perf_counter() - t
+    kw = dict(num_boost_round=MULTI["gbdt_rounds"],
+              obj=boost.pack_sum_square_error,
+              fevals=[boost.pack_sum_rmse,
+                      boost.pack_sum_average_peak_score(1)],
+              evals=[(dm, "tr")], metric="tr-rmse", stopping_rounds=100,
+              verbose_eval=0)
+    params = {"max_depth": MULTI["gbdt_depth"], "eta": 0.2}
+    with RankCounts() as counts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bst = boost_device.train(params, dm, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        got = counts.read()
+    out = {"trees": _tree_list(bst), "bin_s": bin_s, "train_s": train_s,
+           "launches": got, "rows": len(dm)}
+    if single:
+        t = time.perf_counter()
+        one = boost_device.train(params, dm, device=mesh.device, **kw)
+        torch.cuda.synchronize()
+        out["single_s"] = time.perf_counter() - t
+        out["same_as_single"] = _tree_list(one) == out["trees"]
+    return out
+
+
+def rank_nccl(mesh):
+    """Phase 27 (e): the NCCL collectives on CUDA tensors (int64 sums, f32
+    max, a gather) and one sharded selection phase at the main shape
+    (select_programs_sharded, whatever the rank count) against the
+    single-card phase."""
+    from vae_extent_search_tpu_torch.data.pool import load_pool
+    from vae_extent_search_tpu_torch.parallel.mesh import (
+        all_gather,
+        all_reduce,
+        shard_batch,
+    )
+    from vae_extent_search_tpu_torch.search.select import select_programs
+    from vae_extent_search_tpu_torch.search.select_sharded import (
+        select_programs_sharded,
+    )
+
+    dev = mesh.device
+    dist = torch.distributed
+    w, r = mesh.world, mesh.rank
+    big = torch.full((3,), 2 ** 40 + r, dtype=torch.int64, device=dev)
+    dist.all_reduce(big)
+    mx = torch.tensor([float(r)], device=dev)
+    dist.all_reduce(mx, dist.ReduceOp.MAX)
+    parts = [torch.empty(2, device=dev) for _ in range(w)]
+    dist.all_gather(parts, torch.tensor([r, -r], dtype=torch.float32,
+                                        device=dev))
+    ok = (int(big[0]) == w * 2 ** 40 + w * (w - 1) // 2
+          and float(mx) == w - 1
+          and all(float(p[0]) == i for i, p in enumerate(parts))
+          and torch.equal(all_reduce(big, mesh), big * w if w > 1 else big)
+          and all_gather(mx, mesh).shape[0] == w)
+    n_main, d_main = load_pool()[0].shape
+    n = -(-n_main // w) * w
+    params, x, bits, used, rem, cfg, cidx, cval = _selection_inputs(
+        dev, "main", n_main, n, d_main, BENCH["T"], BENCH["hp"])
+    with RankCounts() as counts, torch.no_grad():
+        sel, val, _, _ = select_programs_sharded(
+            params, shard_batch(x, mesh), shard_batch(used, mesh),
+            shard_batch(rem, mesh), torch.Generator(device=dev).manual_seed(9),
+            cfg, mesh, mask_bits=bits, center_idx=cidx, center_valid=cval)
+        got = counts.read()
+        sel1, val1, _, _ = select_programs(
+            params, x, used, rem, torch.Generator(device=dev).manual_seed(9),
+            cfg, mask_bits=bits, center_idx=cidx, center_valid=cval)
+    return {"backend": mesh.backend, "world": w, "collectives_ok": ok,
+            "same_as_single": bool(torch.equal(sel, sel1)
+                                   and torch.equal(val, val1)),
+            "launches": got}
+
+
+def rank_job(job, rank, world, port, backend, queue):
+    """One rank of phase 27 in a process of its own: joins the group over
+    tcp://127.0.0.1:<port> with ``backend`` and runs ``job``; puts (rank,
+    result, log lines, traceback or None) on ``queue``."""
+    import traceback
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            from vae_extent_search_tpu_torch.device import resolve_device
+            from vae_extent_search_tpu_torch.parallel import (
+                make_mesh,
+                maybe_initialize_distributed,
+            )
+
+            torch.set_num_threads(2)
+            resolve_device("cuda")
+            maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                         timeout_s=int(RANK_TIMEOUT_S),
+                                         backend=backend)
+            mesh = make_mesh(device="cuda")
+            torch.cuda.set_device(mesh.device)
+            res = {"select": lambda: rank_select(mesh, rank == 0),
+                   "search": lambda: rank_search(mesh),
+                   "gbdt": lambda: rank_gbdt(mesh, rank == 0),
+                   "nccl": lambda: rank_nccl(mesh)}[job]()
+            torch.cuda.synchronize()
+            torch.distributed.destroy_process_group()
+        queue.put((rank, res, buf.getvalue(), None))
+    except Exception:
+        queue.put((rank, None, buf.getvalue(), traceback.format_exc()))
+
+
+def run_ranks(job, world, backend):
+    """[result of each rank] of ``job`` over ``world`` spawned ranks, each
+    waited on with RANK_TIMEOUT_S; any rank's failure raises with its
+    traceback, and every rank still running then is killed."""
+    import queue as queue_mod
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=rank_job,
+                         args=(job, r, world, port, backend, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.time() + RANK_TIMEOUT_S
+        while len(got) < world:
+            try:
+                rank, res, text, err = q.get(
+                    timeout=max(1.0, deadline - time.time()))
+            except queue_mod.Empty:
+                raise RuntimeError(f"[27] {job}: ranks {sorted(set(range(world)) - set(got))}"
+                                   f" gave no result in {RANK_TIMEOUT_S} s")
+            for line in text.splitlines():
+                log(f"[27 {job} r{rank}] {line}")
+            if err is not None:
+                raise RuntimeError(f"[27] {job} rank {rank} failed:\n{err}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def hist_fixed_checks(dev):
+    """Phase 27 (d): the histogram's exact cross-card mode on the card:
+    its int64 sums equal hist_plain_fixed's at the same exponents, and the
+    sums of row blocks, rounded, equal one launch over every row."""
+    from vae_extent_search_tpu_torch.ops import hist as th
+
+    out = {}
+    for label, n, d, m, nb, parts in (("1Mx164_m32", 1_000_000, 164, 32, 256,
+                                       3),
+                                      ("odd_m4", 700, 9, 4, 40, 2)):
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        bins = torch.randint(0, nb, (d, n), generator=g, device=dev,
+                             dtype=torch.uint8)
+        node = torch.randint(0, m, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        gr = torch.randn(n, generator=g, device=dev)
+        he = torch.rand(n, generator=g, device=dev) + 0.5
+        e = (th.fixed_exponent(gr, n), th.fixed_exponent(he, n))
+        before = th.hist.launches
+        gi, hi = th.hist(bins, node, gr, he, m, nb, exponents=e)
+        rg, rh = th.hist_plain_fixed(bins, node, gr, he, m, nb, exponents=e)
+        ints_equal = torch.equal(gi, rg) and torch.equal(hi, rh)
+        cut = np.linspace(0, n, parts + 1).astype(int)
+        gs = hs = 0
+        for a, b in zip(cut[:-1], cut[1:]):
+            pg, ph = th.hist(bins[:, a:b].contiguous(), node[a:b].contiguous(),
+                             gr[a:b].contiguous(), he[a:b].contiguous(), m,
+                             nb, exponents=e)
+            gs, hs = gs + pg, hs + ph
+        one = th.hist(bins, node, gr, he, m, nb)
+        blocks_equal = (torch.equal(th.round_fixed(gs, e[0]), one[0])
+                        and torch.equal(th.round_fixed(hs, e[1]), one[1]))
+        fixed_ms = cuda_ms(lambda: th.hist(bins, node, gr, he, m, nb,
+                                           exponents=e), 5)
+        f32_ms = cuda_ms(lambda: th.hist(bins, node, gr, he, m, nb), 5)
+        out[label] = {"ints_equal": ints_equal, "blocks_equal": blocks_equal,
+                      "launches": th.hist.launches - before,
+                      "fixed_ms": fixed_ms, "f32_ms": f32_ms}
+        log(f"[27] (d) hist exact mode {label}: int64 sums equal "
+            f"hist_plain_fixed's {ints_equal}; {parts} row blocks rounded "
+            f"equal one launch {blocks_equal}; {fixed_ms:.4f} ms (f32 "
+            f"output {f32_ms:.4f} ms, events)")
+        if not (ints_equal and blocks_equal):
+            raise RuntimeError(f"[27] (d) {label}: {out[label]}")
+    return out
+
+
+def fleet_and_sweep():
+    """Phase 27 (f): cli.full_sweep --global-mesh with 2 ranks on the card
+    and, beside it (host work), the fleet (``_fleet``)."""
+    import socket
+
+    out = {}
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "vae_extent_search_tpu_torch.cli."
+             "full_sweep", *MULTI["sweep"], "--global-mesh", "--work-dir",
+             os.path.join(tmp, "work"), "--out-csv",
+             os.path.join(tmp, f"out_p{r}.csv")],
+            cwd=tmp, env=dict(env, VES_COORDINATOR=f"127.0.0.1:{port}",
+                              VES_NUM_PROCESSES="2", VES_PROCESS_ID=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            out.update(_fleet(tmp, env))
+            texts = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        out["sweep_s"] = time.perf_counter() - t
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines()[-6:]:
+                log(f"[27] (f) full_sweep rank {r}: {line}")
+            if p.returncode:
+                raise RuntimeError(f"[27] (f) full_sweep rank {r} rc "
+                                   f"{p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(tmp, "out_p0.csv")) as f:
+            rows = list(csv.DictReader(f))
+        done = [f for f in os.listdir(os.path.join(tmp, "work"))
+                if f.endswith(".done")]
+        out["sweep_rows"] = rows
+        if (len(rows) != 1 or os.path.exists(os.path.join(tmp, "out_p1.csv"))
+                or len(done) != 1 or rows[0]["found"] != "1"
+                or int(rows[0]["phase"]) < 1
+                or not all("backend gloo" in t for t in texts)):
+            raise RuntimeError(f"[27] (f) full_sweep: rows {rows}, "
+                               f"sentinels {done}")
+        log(f"[27] (f) full_sweep --global-mesh, 2 ranks (gloo, one card): "
+            f"{out['sweep_s']:.1f} s, the fleet beside it; rank 0's row "
+            f"{rows[0]}")
+    return out
+
+
+def _fleet(tmp, env):
+    """cli.collect_master with 2 local workers on MULTI's small to-measure
+    files under ``tmp``, then cli.gather_master; the gathered files and
+    records."""
+    from vae_extent_search_tpu_torch.records import (
+        SearchTask,
+        load_records,
+        make_record,
+        make_workload_key,
+        save_records,
+    )
+    from vae_extent_search_tpu_torch.search.sketch import make_states
+
+    folder = os.path.join(tmp, "to_measure")
+    os.makedirs(folder)
+    for i, shape in enumerate(MULTI["fleet_tasks"]):
+        task = SearchTask(make_workload_key("matmul_add", shape), NET_TARGET)
+        states = make_states(task, 6, evo_population=16, min_population=6,
+                             seed=10 + i)
+        save_records(os.path.join(folder, f"task_{i}.json"),
+                     [make_record(task, st.transform_steps, costs=[0.0],
+                                  timestamp=0) for st in states])
+    t = time.perf_counter()
+    workers = ["--workers"] + [f"local:{os.path.join(tmp, f'w{i}')}"
+                               for i in range(2)]
+    for name, args in (
+            ("collect_master", workers + ["--in-folder", folder, "--runner",
+                                          "analytic", "--noise", "0.1",
+                                          "--seed", "7"]),
+            ("gather_master", workers + ["--out-folder",
+                                         os.path.join(tmp, "gathered")])):
+        r = subprocess.run([sys.executable, "-m",
+                            f"vae_extent_search_tpu_torch.cli.{name}", *args],
+                           cwd=tmp, env=env, capture_output=True, text=True,
+                           timeout=RANK_TIMEOUT_S)
+        if r.returncode:
+            raise RuntimeError(f"[27] (f) {name}: {r.stdout[-2000:]}"
+                               f"{r.stderr[-2000:]}")
+    gathered = sorted(os.listdir(os.path.join(tmp, "gathered")))
+    n_rec = sum(len(load_records(os.path.join(tmp, "gathered", f)))
+                for f in gathered)
+    out = {"fleet_s": time.perf_counter() - t, "fleet_files": len(gathered),
+           "fleet_records": n_rec}
+    log(f"[27] (f) collect_master local: x 2 + gather_master: "
+        f"{len(gathered)} files, {n_rec} records in {out['fleet_s']:.1f} s")
+    if len(gathered) != len(MULTI["fleet_tasks"]) or n_rec != \
+            6 * len(MULTI["fleet_tasks"]):
+        raise RuntimeError(f"[27] (f) fleet gathered {gathered}")
+    return out
+
+
+def multidevice_phases(dev, kernels):
+    """Phase 27: the multi-device layer on the card (``parallel/``), each
+    part a set of ranks in processes of their own; returns its results."""
+    t_phase = time.perf_counter()
+    world = MULTI["ranks"]
+    out = {"ranks": world, "cuts": {k: MULTI[k] for k in (
+        "gbdt_rows", "gbdt_rounds", "sweep")}}
+    from vae_extent_search_tpu_torch.parallel.multihost import (
+        default_backend,
+    )
+
+    backend = default_backend(world, "cuda")
+    log(f"[27] {world} ranks on {torch.cuda.device_count()} card(s): "
+        f"backend {backend} (NCCL refuses two ranks on one card)")
+
+    # (a) sharded selection phases, injected words, main and bench shapes
+    t = time.perf_counter()
+    sel = run_ranks("select", world, backend)
+    out["select_s"] = time.perf_counter() - t
+    for label in ("main", "bench"):
+        r0 = sel[0][label]
+        same_ranks = all(r[label]["picked"] == r0["picked"] for r in sel)
+        launches = [r[label]["launches"] for r in sel]
+        log(f"[27] (a) {label} N={r0['n']} sharded over {world} ranks "
+            f"({r0['rows']} rows each): picks equal on every rank "
+            f"{same_ranks}, equal to the single card's {r0['same_as_single']}"
+            f" (G {r0['G_local']} per rank, {r0['G_single']} on one); fused "
+            f"head launches per rank {[l['fused_head'] for l in launches]}, "
+            f"plain calls {[l['fused_head_plain'] for l in launches]}; phase "
+            f"s per rank {[round(r[label]['phase_s'], 4) for r in sel]}; "
+            f"fused head on a rank's rows "
+            f"{[round(r[label]['fused_head_ms'], 4) for r in sel]} ms "
+            f"(events); collectives "
+            f"{[round(l['collective_s'] * 1e3, 3) for l in launches]} ms in "
+            f"{launches[0]['collective_calls']} calls")
+        if not (same_ranks and r0["same_as_single"]) or any(
+                l["fused_head"] != 1 or l["fused_head_plain"]
+                for l in launches):
+            raise RuntimeError(f"[27] (a) {label}: {sel}")
+    out["select"] = [{k: {kk: vv for kk, vv in v.items()
+                          if "picked" not in kk} for k, v in r.items()}
+                     for r in sel]
+
+    # (b) the full-width sharded search
+    srch = run_ranks("search", world, backend)
+    s0 = srch[0]
+    same = all(r["selected_order"] == s0["selected_order"] for r in srch)
+    launches = [r["launches"] for r in srch]
+    log(f"[27] (b) sharded search seed {MULTI['search_seed']} over {world} "
+        f"ranks: found {[r['found'] for r in srch]} at phase {s0['phase']}, "
+        f"train_size {s0['train_size']}; same on every rank {same}; fused "
+        f"head launches per rank {[l['fused_head'] for l in launches]} for "
+        f"{s0['phase']} selection phases, plain calls "
+        f"{[l['fused_head_plain'] for l in launches]}, hist "
+        f"{[l['hist'] for l in launches]}; VAE "
+        f"{[round(r['vae_s'], 1) for r in srch]} s, fits "
+        f"{[round(sum(r['fit_s']), 1) for r in srch]} s, selections "
+        f"{[round(sum(r['select_s']), 3) for r in srch]} s, collectives "
+        f"{[round(l['collective_s'], 3) for l in launches]} s in "
+        f"{launches[0]['collective_calls']} calls; wall "
+        f"{[round(r['wall_s'], 1) for r in srch]} s")
+    if not (same and all(r["found"] for r in srch)) or any(
+            l["fused_head"] != s0["phase"] or l["fused_head"] == 0
+            or l["fused_head_plain"] or l["hist"] for l in launches):
+        raise RuntimeError(f"[27] (b) {srch}")
+    out["search"] = [{k: v for k, v in r.items() if k != "selected_order"}
+                     for r in srch]
+
+    # (c) the sharded GBDT against the single card
+    gb = run_ranks("gbdt", world, backend)
+    g0 = gb[0]
+    same = all(r["trees"] == g0["trees"] for r in gb)
+    launches = [r["launches"]["hist"] for r in gb]
+    want = MULTI["gbdt_rounds"] * MULTI["gbdt_depth"]
+    log(f"[27] (c) sharded GBDT {g0['rows']} rows x {PRETRAIN['d']}, "
+        f"{MULTI['gbdt_rounds']} rounds, depth {MULTI['gbdt_depth']}, over "
+        f"{world} ranks: trees equal on every rank {same}, equal to the "
+        f"single card's bit for bit {g0['same_as_single']}; hist launches "
+        f"per rank {launches} (want {want}); train s per rank "
+        f"{[round(r['train_s'], 2) for r in gb]} (single card "
+        f"{g0['single_s']:.2f}); binning {[round(r['bin_s'], 1) for r in gb]}"
+        f" s; collectives "
+        f"{[round(r['launches']['collective_s'], 3) for r in gb]} s")
+    if not (same and g0["same_as_single"]) or any(l != want
+                                                  for l in launches):
+        raise RuntimeError(f"[27] (c) trees or launches: {launches}")
+    out["gbdt"] = [{k: v for k, v in r.items() if k != "trees"} for r in gb]
+
+    # (d) the histogram's exact mode on the card
+    out["hist_fixed"] = hist_fixed_checks(dev)
+
+    # (e) NCCL: one rank per card
+    n_cards = torch.cuda.device_count()
+    nc = run_ranks("nccl", n_cards, "nccl")
+    log(f"[27] (e) {nc[0]['world']} NCCL rank(s): backend "
+        f"{nc[0]['backend']}, collectives on CUDA tensors right "
+        f"{[r['collectives_ok'] for r in nc]}, sharded phase equal to the "
+        f"single card's {[r['same_as_single'] for r in nc]}; fused head "
+        f"launches {[r['launches']['fused_head'] for r in nc]}")
+    if not all(r["collectives_ok"] and r["same_as_single"]
+               and r["launches"]["fused_head"] == 1 for r in nc):
+        raise RuntimeError(f"[27] (e) {nc}")
+    out["nccl"] = nc
+
+    # (f) the command lines
+    out.update(fleet_and_sweep())
+    secs = time.perf_counter() - t_phase
+    budget_line("27", secs, MULTI_BUDGET_S)
+    out["seconds"] = secs
+    out["fused_head_launches"] = sum(r["launches"]["fused_head"]
+                                     for r in srch)
+    out["hist_launches"] = sum(launches)
+    return out
+
+
 def phase_job(phase, device, arg=None):
     """Phase 22, 23, 24 or 26 in a process of its own (``arg``: phase 24's
     pretrained MLP). Returns (results, its log lines, None) or (None, the
@@ -4620,7 +5290,8 @@ def arms_phases(dev, kernels):
                           str(ARMS["measure_size"]), "--max-phases",
                           str(ARMS["profile_phases"]), "--profile-dir",
                           trace_dir, *cli_width(dev.type), "--vae-epochs",
-                          str(ARMS["profile_vae_epochs"])])
+                          str(ARMS["profile_vae_epochs"]), "--reg-epochs",
+                          str(ARMS["profile_reg_epochs"])])
         finally:
             cli._dispatch = orig
         t_end = time.perf_counter()
@@ -4646,7 +5317,8 @@ def arms_phases(dev, kernels):
                  if ln.startswith("seed ")]
     log(f"[20] --profile-dir, seed {ARMS['profile_seed']}, --max-phases "
         f"{ARMS['profile_phases']}, --vae-epochs "
-        f"{ARMS['profile_vae_epochs']}: {seed_line}; run {tr['run_s']:.1f} s "
+        f"{ARMS['profile_vae_epochs']}, --reg-epochs "
+        f"{ARMS['profile_reg_epochs']}: {seed_line}; run {tr['run_s']:.1f} s "
         f"traced, trace written in {tr['write_s']:.1f} s, {size / 2**20:.1f} "
         f"MiB, read in {parse_s:.1f} s")
     for line in lines:
@@ -4911,7 +5583,7 @@ def main():
     ap.add_argument("--only", choices=("head", "arms", "conv_f32",
                                        "networks", "online", "cuda_target",
                                        "tune_network", "selftune",
-                                       "native"),
+                                       "native", "multidevice"),
                     help="head: run phases 1-6 alone (the fused cost head); "
                          "arms: phases 1 and 20 (the experiment's other "
                          "arms); conv_f32: phase 1, then the float32 conv2d's "
@@ -4928,7 +5600,10 @@ def main():
                          "suite, the library, tuned configs on the main "
                          "paths); native: phases 1 and 26 (the host "
                          "library: the parser, the featurisers, the native "
-                         "GA and run_record_lists at full size); each ends "
+                         "GA and run_record_lists at full size); "
+                         "multidevice: phases 1 and 27 (the multi-device "
+                         "layer: sharded selection, search and GBDT, NCCL, "
+                         "full_sweep and the fleet); each ends "
                          "with {\"partial\": ...} instead of the result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5039,6 +5714,13 @@ def main():
         raise RuntimeError(f"[1] {th.LIB.library.name}: atomics {hist_sass}")
 
     kernels = kernel_wrappers()
+    if args.only == "multidevice":
+        multi = multidevice_phases(dev, kernels)
+        log(f"total {time.time() - t_start:.1f} s")
+        print(json.dumps({"multidevice": multi}, default=float), flush=True)
+        log(card)
+        print(json.dumps({"partial": "multidevice"}), flush=True)
+        return
     if args.only == "native":
         native = native_phases(dev, kernels)
         log(f"total {time.time() - t_start:.1f} s")
@@ -5136,6 +5818,8 @@ def main():
     # phase 25 alone: its runners time the card with CUDA events, which
     # kernels of other processes on the card would fall inside
     selftune = selftune_phases(dev, kernels)
+    # phase 27 alone as well: its two ranks share the card
+    multi = multidevice_phases(dev, kernels)
     # the fused head's launches on phase 23's path join its record (phase 6
     # drove the main path first)
     head_rec = records[0]
@@ -5163,6 +5847,12 @@ def main():
         rec.setdefault("launches_by_path", {})["25"] = \
             selftune["launches"][key]
         rec["launches"] += selftune["launches"][key]
+    # phase 27's launches on every rank of its sharded search (fused head)
+    # and its sharded GBDT (hist) join their records
+    for name, key in (("fused_head_stats", "fused_head_launches"),
+                      ("hist", "hist_launches")):
+        by_name[name]["launches_by_path"]["27"] = multi[key]
+        by_name[name]["launches"] += multi[key]
     seg_rec["launches_by_path"]["25"] = selftune["segment_sum_launches"]
     for way in ("forward", "backward"):
         seg_rec[f"{way}_launches"] += selftune["segment_sum_launches"][way]
@@ -5176,6 +5866,7 @@ def main():
     print(json.dumps({"tune_network": tune}, default=float), flush=True)
     print(json.dumps({"selftune": selftune}, default=float), flush=True)
     print(json.dumps({"native": native}, default=float), flush=True)
+    print(json.dumps({"multidevice": multi}, default=float), flush=True)
     log(card)
     print(json.dumps({"kernels": records}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,10 @@ need = {{"models.boost", "models.boost_device", "models.gbdt", "ops.build",
          "cli.tune_network", "cli.ansor", "ops.kernel_library",
          "cli.tune_kernel_suite", "frontend", "frontend.torch_fx",
          "frontend.zoo", "ir.layout", "records.fast_parser",
-         "records.task_desc", "records.expr_desc"}}
+         "records.task_desc", "records.expr_desc", "parallel",
+         "parallel.mesh", "parallel.multihost", "search.select_sharded",
+         "cli.full_sweep", "cli.collect_master", "cli.collect_worker",
+         "cli.gather_master"}}
 missing = need - {{m.split(".", 1)[1] for m in mods}}
 assert not missing and len(mods) >= 95, (missing, mods)
 """

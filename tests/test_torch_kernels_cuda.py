@@ -273,6 +273,48 @@ def test_hist_kernel_equals_plain_fixed(dev, n, d, m, nb, zero_rows, g_scale,
         assert torch.equal(a, r), float((a - r).abs().max())
 
 
+# the exact cross-card mode: exponents given, int64 sums out; equal to
+# hist_plain_fixed's integers at the same exponents, with one or several row
+# ranges, and the row blocks' sums, added and rounded, equal one launch over
+# every row bit for bit
+@pytest.mark.parametrize("n,d,m,nb,zero_rows,two_bins", [
+    (700, 9, 4, 40, 0, False), (1003, 5, 1, 256, 0, False),
+    (20_000, 7, 32, 256, 3000, False), (200_000, 12, 32, 256, 10, True),
+    (1_000_000, 164, 32, 256, 0, False)])
+def test_hist_fixed_mode_equals_plain_fixed_ints(dev, n, d, m, nb, zero_rows,
+                                                 two_bins):
+    bins, node, g, h = _hist_inputs(dev, n, d, m, nb, zero_rows)
+    if two_bins:
+        bins = bins % 2
+    node[::97] = m
+    e = (th.fixed_exponent(g, n) - 1, th.fixed_exponent(h, n) - 2)
+    before = th.hist.launches
+    got = th.hist(bins, node, g, h, m, nb, exponents=e)
+    torch.cuda.synchronize()
+    assert th.hist.launches == before + 1
+    ref = th.hist_plain_fixed(bins, node, g, h, m, nb, exponents=e)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.int64 and torch.equal(a, r)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_hist_row_blocks_sum_to_one_launch(dev, parts):
+    n, d, m, nb = 300_001, 17, 8, 200
+    bins, node, g, h = _hist_inputs(dev, n, d, m, nb, seed=parts)
+    e = (th.fixed_exponent(g, n), th.fixed_exponent(h, n))
+    cut = np.linspace(0, n, parts + 1).astype(int)
+    gs = hs = 0
+    for a, b in zip(cut[:-1], cut[1:]):
+        gi, hi = th.hist(bins[:, a:b].contiguous(), node[a:b].contiguous(),
+                         g[a:b].contiguous(), h[a:b].contiguous(), m, nb,
+                         exponents=e)
+        gs, hs = gs + gi, hs + hi
+    one = th.hist(bins, node, g, h, m, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(th.round_fixed(gs, e[0]), one[0])
+    assert torch.equal(th.round_fixed(hs, e[1]), one[1])
+
+
 def test_hist_sets_attributes_once_and_reuses_scratch(dev):
     bins, node, g, h = _hist_inputs(dev, 50_000, 6, 8, 64)
     th.hist(bins, node, g, h, 8, 64)

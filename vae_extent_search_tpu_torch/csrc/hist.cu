@@ -57,6 +57,13 @@
 // a third kernel adds the C partials of every cell and writes the f32
 // outputs. The first kernel writes per-block maxima of |grad| and |hess|,
 // which the others reduce to the two exponents, so no memset is needed.
+//
+// Exact across cards (hist_launch_fixed): the caller gives the exponent
+// pair and gets the int64 sums, [d, m, nb] each, instead of f32. Ranks that
+// each hold some of the rows agree on the exponents from the global max|v|
+// and the global n, launch on their own rows, sum the integers across ranks
+// and round as this kernel rounds, float(ldexp(sum, -e)): the result equals
+// one card's launch over all the rows bit for bit. No absmax pass runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,6 +144,10 @@ struct Params {
   long long* part;  // [C][d][2][m * nb] int64 where C = gridDim.x > 1
   float* gout;
   float* hout;
+  int fixed;        // 1: exponents eg, eh given; int64 sums to g64, h64
+  int eg, eh;
+  long long* g64;
+  long long* h64;
 };
 
 // grid (row ranges, feature groups); dynamic shared memory F * 4 * m * nbs
@@ -154,7 +165,12 @@ __global__ void __launch_bounds__(NT) hist_kernel(const Params p) {
   const long long r0 = blockIdx.x * p.rows;
   const long long r1 = min(p.n, r0 + p.rows);
   for (int i = threadIdx.x; i < nf * fw; i += NT) sh[i] = 0u;
-  if (threadIdx.x < 64) {  // warp 0: |grad|, warp 1: |hess|
+  if (p.fixed) {
+    if (threadIdx.x < 2) {
+      expo[threadIdx.x] = threadIdx.x == 0 ? p.eg : p.eh;
+      scale[threadIdx.x] = ldexp(1.0, expo[threadIdx.x]);
+    }
+  } else if (threadIdx.x < 64) {  // warp 0: |grad|, warp 1: |hess|
     const int a = threadIdx.x / 32, lane = threadIdx.x % 32;
     unsigned int mx = 0u;
     for (int i = lane; i < N_MAX; i += 32) mx = max(mx, p.bmax[a * N_MAX + i]);
@@ -232,7 +248,9 @@ __global__ void __launch_bounds__(NT) hist_kernel(const Params p) {
     const int j = i / (2 * mnb), rest = i - j * 2 * mnb;
     const int a = rest / mnb, cb = rest - a * mnb;
     const long long o = (long long)(f0 + j) * mnb + cb;
-    if (a == 0)
+    if (p.fixed)
+      (a == 0 ? p.g64 : p.h64)[o] = v;
+    else if (a == 0)
       p.gout[o] = (float)ldexp((double)v, -expo[0]);
     else
       p.hout[o] = (float)ldexp((double)v, -expo[1]);
@@ -246,14 +264,17 @@ __global__ void __launch_bounds__(NT) hist_kernel(const Params p) {
   for (int i = threadIdx.x; i < cells; i += NT) mine[i] = sum_of(i);
 }
 
-// with C > 1 row ranges: out = the sum of the C partial sums, as f32
+// with C > 1 row ranges: out = the sum of the C partial sums, as f32 (or,
+// with fixed, as int64 to g64 / h64)
 __global__ void __launch_bounds__(NT_MAX) finish_kernel(const long long* __restrict__ part,
                                                         int C, int d, int mnb, int log2n,
                                                         const unsigned int* __restrict__ bmax,
                                                         float* __restrict__ gout,
-                                                        float* __restrict__ hout) {
+                                                        float* __restrict__ hout, int fixed,
+                                                        long long* __restrict__ g64,
+                                                        long long* __restrict__ h64) {
   __shared__ int expo[2];
-  if (threadIdx.x < 64) {
+  if (!fixed && threadIdx.x < 64) {
     const int a = threadIdx.x / 32, lane = threadIdx.x % 32;
     unsigned int mx = 0u;
     for (int i = lane; i < N_MAX; i += 32) mx = max(mx, bmax[a * N_MAX + i]);
@@ -268,7 +289,10 @@ __global__ void __launch_bounds__(NT_MAX) finish_kernel(const long long* __restr
     for (int c = 0; c < C; ++c) v += part[c * cells + i];
     const long long f = i / (2 * mnb), rest = i - f * 2 * mnb;
     const int a = (int)(rest / mnb), cb = (int)(rest - a * mnb);
-    (a == 0 ? gout : hout)[f * mnb + cb] = (float)ldexp((double)v, -expo[a]);
+    if (fixed)
+      (a == 0 ? g64 : h64)[f * mnb + cb] = v;
+    else
+      (a == 0 ? gout : hout)[f * mnb + cb] = (float)ldexp((double)v, -expo[a]);
   }
 }
 
@@ -291,33 +315,32 @@ cudaError_t set_attributes_once() {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// Scratch, written here: bmax holds hist_bmax_words() uint32; with
-// C = ceil(n / rows_per_block) > 1 row ranges, part holds C * d * 2 * m * nb
-// int64.
-extern "C" int hist_launch(const void* bins, const void* node, const void* grad,
-                           const void* hess, long long n, int d, int m, int nb, int F,
-                           long long rows_per_block, void* bmax, void* part, void* ghist,
-                           void* hhist, void* stream) {
+namespace {
+
+cudaError_t launch(const void* bins, const void* node, const void* grad, const void* hess,
+                   long long n, int d, int m, int nb, int F, long long rows_per_block,
+                   void* bmax, void* part, void* ghist, void* hhist, int fixed, int eg, int eh,
+                   void* g64, void* h64, void* stream) {
   if (n <= 0 || d <= 0 || m <= 0 || nb <= 0 || nb > 256 || F <= 0 || rows_per_block <= 0 ||
       (size_t)F * 16 * m * (nb | 1) > (size_t)kMaxDynSmem)
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   int log2n = 0;
   while ((1ll << log2n) < n) ++log2n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long C = (n + rows_per_block - 1) / rows_per_block;
-  if (C > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  if (C > 1 && part == nullptr) return cudaErrorInvalidValue;
   // four rows per thread: 16-byte node/grad/hess and 4-byte bins loads
   const bool vec = rows_per_block % 4 == 0 && n % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(node) | reinterpret_cast<uintptr_t>(grad) |
                      reinterpret_cast<uintptr_t>(hess)) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(bins) & 3) == 0;
   cudaError_t err = vec ? set_attributes_once<true>() : set_attributes_once<false>();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
 
-  absmax_kernel<<<N_MAX, NT_MAX, 0, s>>>(static_cast<const float*>(grad),
-                                         static_cast<const float*>(hess), n,
-                                         static_cast<unsigned int*>(bmax));
+  if (!fixed)
+    absmax_kernel<<<N_MAX, NT_MAX, 0, s>>>(static_cast<const float*>(grad),
+                                           static_cast<const float*>(hess), n,
+                                           static_cast<unsigned int*>(bmax));
   Params p;
   p.bins = static_cast<const uint8_t*>(bins);
   p.node = static_cast<const int*>(node);
@@ -335,6 +358,11 @@ extern "C" int hist_launch(const void* bins, const void* node, const void* grad,
   p.part = static_cast<long long*>(part);
   p.gout = static_cast<float*>(ghist);
   p.hout = static_cast<float*>(hhist);
+  p.fixed = fixed;
+  p.eg = eg;
+  p.eh = eh;
+  p.g64 = static_cast<long long*>(g64);
+  p.h64 = static_cast<long long*>(h64);
   const size_t smem = (size_t)F * 16 * m * p.nbs;
   const dim3 grid((unsigned)C, (unsigned)((d + F - 1) / F));
   if (vec)
@@ -345,9 +373,33 @@ extern "C" int hist_launch(const void* bins, const void* node, const void* grad,
     const long long cells = 2ll * d * m * nb;
     const long long blocks = (cells + NT_MAX - 1) / NT_MAX;
     finish_kernel<<<(unsigned)(blocks < 2048 ? blocks : 2048), NT_MAX, 0, s>>>(
-        p.part, (int)C, d, m * nb, log2n, p.bmax, p.gout, p.hout);
+        p.part, (int)C, d, m * nb, log2n, p.bmax, p.gout, p.hout, fixed, p.g64, p.h64);
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Scratch, written here: bmax holds hist_bmax_words() uint32; with
+// C = ceil(n / rows_per_block) > 1 row ranges, part holds C * d * 2 * m * nb
+// int64.
+extern "C" int hist_launch(const void* bins, const void* node, const void* grad,
+                           const void* hess, long long n, int d, int m, int nb, int F,
+                           long long rows_per_block, void* bmax, void* part, void* ghist,
+                           void* hhist, void* stream) {
+  return (int)launch(bins, node, grad, hess, n, d, m, nb, F, rows_per_block, bmax, part, ghist,
+                     hhist, 0, 0, 0, nullptr, nullptr, stream);
+}
+
+// The same sums with the exponents eg (grad) and eh (hess) given, written as
+// int64 to g64 and h64 ([d, m, nb] each); bmax is not used.
+extern "C" int hist_launch_fixed(const void* bins, const void* node, const void* grad,
+                                 const void* hess, long long n, int d, int m, int nb, int F,
+                                 long long rows_per_block, void* part, int eg, int eh, void* g64,
+                                 void* h64, void* stream) {
+  return (int)launch(bins, node, grad, hess, n, d, m, nb, F, rows_per_block, nullptr, part,
+                     nullptr, nullptr, 1, eg, eh, g64, h64, stream);
 }
 
 // cudaFuncSetAttribute calls made so far (two per kernel instance, once

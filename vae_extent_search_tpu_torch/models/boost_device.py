@@ -42,9 +42,21 @@ The JAX engine sums in float32 instead, so exact-tie gains can split
 differently on adversarial data; the parity tests use continuous
 features, where this does not occur.
 
+Data-parallel training (``train(..., mesh=)``, the counterpart of the JAX
+engine's ``_make_sharded_chunk_runner``): the rows are padded to a multiple
+of the mesh's "data" size with weight 0 and split into contiguous blocks,
+one per rank. Each rank launches the histogram kernel on its own rows in
+its exact mode (``ops/hist.py``: the ranks agree on the fixed-point
+exponents by an all-reduce MAX of max |grad| and max |hess| and by the
+global row count, then all-reduce SUM the int64 sums and round as the
+kernel does), and the pack sums, the leaf sums and the row counts per node
+reduce the same way (an agreed exponent, then an int64 SUM), since packs
+may straddle blocks. Every other step runs on the replicated histograms,
+so every rank grows the same trees, equal bit for bit to one card's.
+
 Left out of this port: the TPU-layout options ``VES_BOOST_HIST``,
 ``VES_BOOST_TIER`` and ``VES_BOOST_KRON`` (one kernel launch takes every
-bin count) and the multi-device runner ``_make_sharded_chunk_runner``.
+bin count).
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.hist import hist
+from ..ops.hist import exponent_for, hist, round_fixed
 from ..ops.kernel_library import tuned_hist_plan
 from . import boost
 from .boost import Booster, DMatrix, _Tree
@@ -76,10 +88,34 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
     return ((e + 1023) << 52).view(torch.float64)
 
 
-def _fixed_exponent(x: torch.Tensor, terms: int) -> torch.Tensor:
+class _Ranks:
+    """The reductions of rows split over a mesh's "data" ranks: ``n`` is
+    the global count of real rows and ``valid`` marks this rank's real
+    (unpadded) rows."""
+
+    def __init__(self, mesh, n: int, valid: torch.Tensor):
+        self.mesh, self.n, self.valid = mesh, n, valid
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce
+
+        return all_reduce(x, self.mesh, "data", "max")
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce
+
+        return all_reduce(x, self.mesh, "data", "sum")
+
+
+def _fixed_exponent(x: torch.Tensor, terms: int,
+                    ranks: Optional[_Ranks] = None) -> torch.Tensor:
     """int64 exponent e such that ``round(x * 2**e)`` of any ``terms``
-    values of x sums below 2**62 in magnitude (0 for an all-zero x)."""
-    amax = x.abs().max().double()
+    values of x sums below 2**62 in magnitude (0 for an all-zero x); with
+    ``ranks``, max |x| is taken over every rank's x."""
+    amax = x.abs().max()
+    if ranks is not None:
+        amax = ranks.max(amax)
+    amax = amax.double()
     _, ex = torch.frexp(amax)  # amax < 2 ** ex
     e = 62 - (max(terms, 1) - 1).bit_length() - ex.long()
     return torch.where(amax > 0, e, torch.zeros_like(e)).clamp(-1000, 1000)
@@ -90,12 +126,18 @@ def _to_fixed(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
+                 n_seg: int, ranks: Optional[_Ranks] = None) -> torch.Tensor:
     """float64 [n_seg]: the sum of ``values`` per segment id, in fixed
-    point (``jax.ops.segment_sum`` in the JAX engine)."""
-    e = _fixed_exponent(values, values.numel())
+    point (``jax.ops.segment_sum`` in the JAX engine); with ``ranks``, over
+    every rank's real rows (padded rows add nothing)."""
+    if ranks is not None:
+        values = torch.where(ranks.valid, values, torch.zeros_like(values))
+    e = _fixed_exponent(values, values.numel() if ranks is None
+                        else ranks.n, ranks)
     acc = torch.zeros(n_seg, dtype=torch.int64, device=values.device)
     acc.index_add_(0, seg, _to_fixed(values, e))
+    if ranks is not None:
+        acc = ranks.sum(acc)
     return acc.double() * _pow2(-e)
 
 
@@ -124,9 +166,22 @@ def hist_census(thresholds) -> Tuple[int, int, int, int, int]:
             int(((nbins > 64) & (nbins <= 128)).sum()))
 
 
+def _level_hist(bins, node, grad, hess, m, nb, hist_plan, ranks):
+    """The level's (ghist, hhist) [d, m, nb] float32: one launch over the
+    rows here, or with ``ranks`` the exact cross-rank sums (each rank's
+    launch at the agreed exponents, int64 SUM, the kernel's rounding)."""
+    if ranks is None:
+        return hist(bins, node, grad, hess, m, nb, plan=hist_plan)
+    eg = exponent_for(ranks.max(grad.abs().max()).cpu(), ranks.n)
+    eh = exponent_for(ranks.max(hess.abs().max()).cpu(), ranks.n)
+    gi, hi = hist(bins, node, grad, hess, m, nb, plan=hist_plan,
+                  exponents=(eg, eh))
+    return round_fixed(ranks.sum(gi), eg), round_fixed(ranks.sum(hi), eh)
+
+
 def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
                       eta: float, reg_lambda: float, gamma: float,
-                      min_child_weight: float, hist_plan=None):
+                      min_child_weight: float, hist_plan=None, ranks=None):
     """One tree as a complete binary heap of static depth.
 
     ``bins`` [d, n] uint8 on the device, ``n_edges`` [d] int64, ``grad``
@@ -137,18 +192,21 @@ def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
     Per-node grad/hess totals are the last prefix sum of feature 0's
     histogram (every row lands in exactly one bin). Row routing gathers
     each row's bin of its node's split feature. ``hist_plan`` goes to
-    every level's histogram launch (``ops/hist.py::hist(plan=)``)."""
+    every level's histogram launch (``ops/hist.py::hist(plan=)``). With
+    ``ranks`` (a ``_Ranks``) the rows here are this rank's block and every
+    sum covers all ranks' rows."""
     d, n = bins.shape
     dev = bins.device
     node = torch.zeros(n, dtype=torch.int32, device=dev)
-    ones = torch.ones(n, dtype=torch.int64, device=dev)
+    ones = (torch.ones(n, dtype=torch.int64, device=dev) if ranks is None
+            else ranks.valid.long())
     valid_bin = (torch.arange(nb - 1, device=dev)[None, None, :]
                  < n_edges[:, None, None])                   # [d, 1, nb-1]
     feat_lv, bin_lv, split_lv = [], [], []
     for level in range(max_depth):
         m = 1 << level
-        ghist, hhist = hist(bins, node, grad, hess, m, nb,
-                            plan=hist_plan)                  # [d, m, nb]
+        ghist, hhist = _level_hist(bins, node, grad, hess, m, nb,
+                                   hist_plan, ranks)         # [d, m, nb]
         gc = _prefix_sum(ghist, 2)
         hc = _prefix_sum(hhist, 2)
         Gn, Hn = gc[0, :, -1], hc[0, :, -1]                  # [m]
@@ -168,6 +226,8 @@ def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
         # output)
         Cn = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
             0, node_l, ones)
+        if ranks is not None:
+            Cn = ranks.sum(Cn)
         can_split = ((best_gain > 0.0) & (Hn >= 2 * min_child_weight)
                      & (Cn >= 2))
         f_best = torch.where(can_split, best // (nb - 1), 0)
@@ -181,8 +241,8 @@ def _grow_tree_device(bins, n_edges, grad, hess, *, max_depth: int, nb: int,
         node = 2 * node + goes_right.int()
     m = 1 << max_depth
     node_l = node.long()
-    G = _segment_sum(grad, node_l, m)
-    H = _segment_sum(hess, node_l, m)
+    G = _segment_sum(grad, node_l, m, ranks)
+    H = _segment_sum(hess, node_l, m, ranks)
     leafval = -eta * G / (H + reg_lambda)
     row_update = leafval.float()[node_l]
     return (torch.cat(feat_lv), torch.cat(bin_lv), torch.cat(split_lv),
@@ -206,30 +266,42 @@ def _descend_device(binned, feat, bin_thr, max_depth: int):
 
 class _PackSum:
     """The pack-sum objective's per-row inputs on the device, and its
-    per-pack labels for the protocol metrics."""
+    per-pack labels for the protocol metrics. With ``rows`` = (first, end,
+    pad) the per-row inputs are those of rows [first, end) padded with
+    ``pad`` inert rows (weight 0), a rank's block, and ``ranks`` sums the
+    packs over every rank."""
 
-    def __init__(self, dtrain: DMatrix, dev):
+    def __init__(self, dtrain: DMatrix, dev, rows=None, ranks=None):
         pack_ids = dtrain.pack_ids
         self.n_packs = int(pack_ids.max()) + 1 if len(pack_ids) else 1
+        self.ranks = ranks
+        label = dtrain.get_label()
+        w = dtrain.get_weight()
+        if rows is not None:
+            lo, hi, pad = rows
+            last = pack_ids[-1] if len(pack_ids) else 0
+            w = np.pad((w if len(w) else np.ones(len(label)))[lo:hi],
+                       (0, pad))
+            pack_ids = np.pad(pack_ids[lo:hi], (0, pad), constant_values=last)
+            label = np.pad(label[lo:hi], (0, pad))
         self.pack_ids = torch.as_tensor(pack_ids, dtype=torch.int64,
                                         device=dev)
         # rows of a pack carry the pack's label, so the per-row label
         # needs no per-round expansion
-        self.label_row = torch.as_tensor(dtrain.get_label(),
-                                         dtype=torch.float32, device=dev)
-        w = dtrain.get_weight()
+        self.label_row = torch.as_tensor(label, dtype=torch.float32,
+                                         device=dev)
         self.weight = (torch.as_tensor(w, dtype=torch.float32, device=dev)
                        if len(w) else None)
+        pack_ids, label = dtrain.pack_ids, dtrain.get_label()
         cnt = np.bincount(pack_ids, minlength=self.n_packs)
-        lp = np.bincount(pack_ids, weights=dtrain.get_label(),
-                         minlength=self.n_packs)
+        lp = np.bincount(pack_ids, weights=label, minlength=self.n_packs)
         self.label_pack = torch.as_tensor(lp / np.maximum(cnt, 1),
                                           dtype=torch.float64, device=dev)
         self.present = torch.as_tensor(cnt > 0, device=dev)
         self.num_present = int((cnt > 0).sum())
 
     def sums(self, preds):
-        return _segment_sum(preds, self.pack_ids, self.n_packs)
+        return _segment_sum(preds, self.pack_ids, self.n_packs, self.ranks)
 
     def grad_hess(self, preds):
         """boost.pack_sum_square_error on the device."""
@@ -342,7 +414,7 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
           stopping_rounds: Optional[int] = None,
           verbose_eval: int = 25, skip_every: int = 5,
           log_file: Optional[str] = None, device="cuda",
-          hist_plan: Optional[Tuple[int, int]] = None) -> Booster:
+          hist_plan: Optional[Tuple[int, int]] = None, mesh=None) -> Booster:
     """Drop-in for boost.train with device-resident rounds on ``device``.
 
     ``obj is boost.pack_sum_square_error`` (or the string "pack_sum")
@@ -358,7 +430,13 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
     process kernel library is asked for a plan tuned at this (rows,
     feature census) shape (``cli/tune_kernel_suite.py``'s gbdthist
     family), and where it has none ``launch_plan`` chooses. Every plan
-    grows the same trees: the histograms are exact."""
+    grows the same trees: the histograms are exact.
+
+    ``mesh`` (``parallel/mesh.py``) trains data-parallel over its "data"
+    ranks on the mesh's device (the module docstring says how); every rank
+    calls this with the whole ``dtrain`` and returns the same booster. It
+    takes the chunked path only: the pack-sum objective, the standard
+    protocol fevals, ``dtrain`` as the only eval set."""
     if params.get("grow_policy") == "lossguide":
         # leaf-wise growth keeps a dynamic splittable-leaf pool, a
         # data-dependent control structure the static-heap device tree
@@ -369,7 +447,7 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
                            stopping_rounds=stopping_rounds,
                            verbose_eval=verbose_eval,
                            skip_every=skip_every, log_file=log_file)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None else device)
     max_depth = int(params.get("max_depth", 6))
     eta = float(params.get("eta", 0.3))
     base_score = float(params.get("base_score", 0.0))
@@ -386,12 +464,28 @@ def train(params: dict, dtrain: DMatrix, num_boost_round: int = 300,
         hist_plan = tuned_hist_plan(len(dtrain), *hist_census(thresholds))
     grow_kw["hist_plan"] = hist_plan
     n = len(dtrain)
-    bins = torch.from_numpy(dtrain._binned).to(dev)          # [d, n] uint8
     n_edges = torch.as_tensor([len(e) for e in thresholds],
                               dtype=torch.int64, device=dev)
-
     pack_fast = (obj is boost.pack_sum_square_error or obj == "pack_sum")
-    packs = _PackSum(dtrain, dev) if pack_fast else None
+    if mesh is None:
+        bins = torch.from_numpy(dtrain._binned).to(dev)      # [d, n] uint8
+        packs = _PackSum(dtrain, dev) if pack_fast else None
+    else:
+        if not (pack_fast and _device_feval_kinds(fevals, dtrain) is not None
+                and all(dm is dtrain for dm, _ in evals)):
+            raise ValueError("train(mesh=) runs the pack-sum objective with "
+                             "the standard protocol fevals on dtrain only")
+        s = mesh.shape["data"]
+        n_loc = -(-n // s)
+        lo = min(mesh.index("data") * n_loc, n)
+        hi = min(lo + n_loc, n)
+        pad = n_loc - (hi - lo)
+        bins = torch.from_numpy(np.ascontiguousarray(np.pad(
+            dtrain._binned[:, lo:hi], ((0, 0), (0, pad))))).to(dev)
+        ranks = _Ranks(mesh, n, torch.arange(n_loc, device=dev) < hi - lo)
+        grow_kw["ranks"] = ranks
+        packs = _PackSum(dtrain, dev, (lo, hi, pad), ranks)
+        n = n_loc
 
     preds = torch.full((n,), base_score, dtype=torch.float32, device=dev)
     # eval sets: dtrain shares the train predictions; foreign sets get

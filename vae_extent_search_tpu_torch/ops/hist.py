@@ -21,6 +21,14 @@ and equals the kernel bit for bit; :func:`hist_plain` in float64 is the
 yardstick both are held to. Rows with grad = hess = 0 add nothing, so
 zero-weight padding is inert.
 
+Exact across cards: given ``exponents=(eg, eh)``, :func:`hist` (and
+:func:`hist_plain_fixed`, its plain twin) returns the int64 sums at those
+fixed-point exponents instead of float32. Ranks that hold parts of the
+rows agree on the exponents (:func:`exponent_for` of the global max |v|
+and the global row count), sum the integers across ranks and round them
+with :func:`round_fixed`; the result equals one card's :func:`hist` over
+all the rows bit for bit.
+
 :func:`launch_plan` sizes the grid: the features a block holds in shared
 memory and the rows it covers. The scratch a launch needs (per-block
 maxima and the blocks' partial sums) is kept
@@ -66,6 +74,9 @@ def _declare(lib):
     lib.hist_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, i64,
                                 vp, vp, vp, vp, vp]
     lib.hist_launch.restype = i32
+    lib.hist_launch_fixed.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
+                                      i64, vp, i32, i32, vp, vp, vp]
+    lib.hist_launch_fixed.restype = i32
     for fn in ("hist_attr_calls", "hist_bmax_words"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i32
@@ -91,32 +102,47 @@ def hist_plain(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
     return g.view(d, m, nb), h.view(d, m, nb)
 
 
-def fixed_exponent(v: torch.Tensor, n: int) -> int:
-    """The kernel's fixed-point exponent e for ``v`` over n rows:
-    max |v| < 2^ex, e = 62 - ceil(log2 n) - ex, so that n values rounded
-    to ``rint(v * 2^e)`` sum below 2^62 in magnitude; 0 when max |v| is 0
-    or not finite."""
-    amax = v.float().abs().max() if v.numel() else v.new_zeros(())
+def exponent_for(amax, n: int) -> int:
+    """The kernel's fixed-point exponent for a largest magnitude ``amax``
+    (a float32 value) over n rows: amax < 2^ex, e = 62 - ceil(log2 n) -
+    ex, so that n values rounded to ``rint(v * 2^e)`` sum below 2^62 in
+    magnitude; 0 when amax is 0 or not finite."""
+    amax = torch.as_tensor(amax, dtype=torch.float32).cpu()
     if not (bool(amax > 0) and bool(torch.isfinite(amax))):
         return 0
     _, ex = torch.frexp(amax)
     return 62 - (max(n, 1) - 1).bit_length() - int(ex)
 
 
+def fixed_exponent(v: torch.Tensor, n: int) -> int:
+    """The kernel's fixed-point exponent e for ``v`` over n rows
+    (:func:`exponent_for` of max |v|)."""
+    amax = v.float().abs().max() if v.numel() else v.new_zeros(())
+    return exponent_for(amax, n)
+
+
+def round_fixed(s: torch.Tensor, e: int) -> torch.Tensor:
+    """float32 of the int64 sums ``s`` at exponent e, rounded as the
+    kernel rounds: float32(float64(s) * 2^-e)."""
+    return (s.double() * 2.0 ** -e).float()
+
+
 def hist_plain_fixed(bins: torch.Tensor, node: torch.Tensor,
-                     grad: torch.Tensor, hess: torch.Tensor, m: int, nb: int):
+                     grad: torch.Tensor, hess: torch.Tensor, m: int, nb: int,
+                     exponents: Optional[Tuple[int, int]] = None):
     """(ghist, hhist), each [d, m, nb] float32, computed as the kernel
     computes them: q = rint(v * 2^e) as int64 with :func:`fixed_exponent`
     (max |v| over every row), exact integer sums by ``index_add_``, then
     ``float32(float64(sum) * 2^-e)``. Rows whose node lies outside [0, m),
     and (feature, row) pairs whose bin is >= nb, add nothing. The kernel's
     output equals this bit for bit. Features go 16 at a time to cap the
-    int64 scratch."""
+    int64 scratch. With ``exponents=(eg, eh)`` given, the int64 sums at
+    those exponents, unrounded (the kernel's ``hist_launch_fixed``)."""
     d, n = bins.shape
     chunk = 16
     out = []
-    for v in (grad, hess):
-        e = fixed_exponent(v, n)
+    for a, v in enumerate((grad, hess)):
+        e = fixed_exponent(v, n) if exponents is None else int(exponents[a])
         q = torch.round(v.double() * 2.0 ** e).long()
         q = torch.where((node >= 0) & (node < m), q, 0)
         acc = torch.zeros(d, m * nb, dtype=torch.int64, device=bins.device)
@@ -129,7 +155,8 @@ def hist_plain_fixed(bins: torch.Tensor, node: torch.Tensor,
             val = torch.where(keep, q[None, :], 0)
             acc[f0:f0 + chunk].view(-1).index_add_(0, key.reshape(-1),
                                                    val.reshape(-1))
-        out.append((acc.double() * 2.0 ** -e).float().view(d, m, nb))
+        acc = acc.view(d, m, nb)
+        out.append(acc if exponents is not None else round_fixed(acc, e))
     return out[0], out[1]
 
 
@@ -201,8 +228,12 @@ def launch_plan(d: int, n: int, m: int, nb: int, sms: int = NUM_SMS,
 
 def hist(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
          hess: torch.Tensor, m: int, nb: int,
-         plan: Optional[Tuple[int, int]] = None):
-    """(ghist, hhist), each [d, m, nb] float32.
+         plan: Optional[Tuple[int, int]] = None,
+         exponents: Optional[Tuple[int, int]] = None):
+    """(ghist, hhist), each [d, m, nb] float32; with ``exponents=(eg, eh)``
+    the int64 sums at those fixed-point exponents (exact across cards, see
+    the module docstring), from the kernel on CUDA tensors and from
+    :func:`hist_plain_fixed` on CPU tensors.
 
     ``bins`` [d, n] uint8 with values < nb <= 256; ``node`` [n] int32 in
     [0, m); ``grad``, ``hess`` [n] float32 (finite). Nodes and bins out of
@@ -217,12 +248,14 @@ def hist(bins: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
     it. The sums are exact, so every plan gives the same histograms bit
     for bit; the plain path takes no plan."""
     if bins.device.type == "cpu":
+        if exponents is not None:
+            return hist_plain_fixed(bins, node, grad, hess, m, nb, exponents)
         return hist_plain(bins, node, grad, hess, m, nb)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
     features, chunks = plan if plan is not None else (None, None)
     return _launch(bins, node, grad, hess, int(m), int(nb), features,
-                   chunks)
+                   chunks, exponents)
 
 
 hist.launches = 0
@@ -253,7 +286,8 @@ def _scratch(lib, dev, stream, d, m, nb, chunks):
     return hit
 
 
-def _launch(bins, node, grad, hess, m, nb, features=None, chunks=None):
+def _launch(bins, node, grad, hess, m, nb, features=None, chunks=None,
+            exponents=None):
     dev = bins.device
     if bins.dim() != 2 or bins.dtype != torch.uint8:
         raise ValueError("bins must be a [d, n] uint8 tensor")
@@ -267,7 +301,8 @@ def _launch(bins, node, grad, hess, m, nb, features=None, chunks=None):
         raise ValueError("bins, node, grad and hess must be contiguous")
     if not 1 <= nb <= 256 or m < 1:
         raise ValueError(f"need 1 <= nb <= 256 and m >= 1, got nb={nb}, m={m}")
-    ghist = torch.empty(d, m, nb, dtype=torch.float32, device=dev)
+    out_dtype = torch.float32 if exponents is None else torch.int64
+    ghist = torch.empty(d, m, nb, dtype=out_dtype, device=dev)
     hhist = torch.empty_like(ghist)
     if n == 0 or d == 0:
         return ghist.zero_(), hhist.zero_()
@@ -278,11 +313,18 @@ def _launch(bins, node, grad, hess, m, nb, features=None, chunks=None):
     lib = LIB.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bmax, part = _scratch(lib, dev, stream, d, m, nb, -(-n // rows))
-    err = lib.hist_launch(
-        bins.data_ptr(), node.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        n, d, m, nb, F, rows, bmax.data_ptr(),
-        None if part is None else part.data_ptr(), ghist.data_ptr(),
-        hhist.data_ptr(), stream)
+    part_ptr = None if part is None else part.data_ptr()
+    if exponents is None:
+        err = lib.hist_launch(
+            bins.data_ptr(), node.data_ptr(), grad.data_ptr(),
+            hess.data_ptr(), n, d, m, nb, F, rows, bmax.data_ptr(), part_ptr,
+            ghist.data_ptr(), hhist.data_ptr(), stream)
+    else:
+        err = lib.hist_launch_fixed(
+            bins.data_ptr(), node.data_ptr(), grad.data_ptr(),
+            hess.data_ptr(), n, d, m, nb, F, rows, part_ptr,
+            int(exponents[0]), int(exponents[1]), ghist.data_ptr(),
+            hhist.data_ptr(), stream)
     check_launch(err, "hist")
     hist.launches += 1
     return ghist, hhist

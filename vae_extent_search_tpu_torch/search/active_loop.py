@@ -21,7 +21,18 @@ of their own).
 
 The JAX loop's ``bucket_shapes`` (padding the pool so that XLA compiles
 once per bucket) has no counterpart: eager torch does not recompile per
-shape. Its ``mesh`` (a pool sharded over devices) is not ported yet.
+shape.
+
+``mesh`` (``parallel/mesh.py``) splits the pool's rows over the ranks of
+its "data" axis: the pool is padded to a multiple of that size (padded
+rows are never remaining), each rank keeps its row block on its device,
+and selection runs on the sharded path (``search/select_sharded.py``).
+The measured set and the VAE's 80/20 split are gathered
+(``gather_rows_sharded``) and training runs replicated on every rank from
+the same Generator seeds, which leaves every rank with the same
+parameters (a digest check after each training confirms it); the
+full-pool prediction for R2 and recall is computed on each rank's rows
+and gathered. Every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -67,28 +78,60 @@ def standardize(X: np.ndarray):
     return (Xl - mean) / std, (mean, std)
 
 
-def _prepare_pool(features: np.ndarray, labels: np.ndarray, device):
+def _prepare_pool(features: np.ndarray, labels: np.ndarray, device,
+                  mesh=None):
     """Standardize the candidate pool and move it to ``device`` once;
     shared by ``run_active_search`` and ``pretrain_pool_vae`` so both see
-    identical inputs."""
+    identical inputs. With a ``mesh``: padded with zero rows (label -1e9)
+    to a multiple of its "data" size, and this rank's row blocks on the
+    mesh's device."""
     X_scaled, _ = standardize(features)
-    X = torch.as_tensor(X_scaled, dtype=torch.float32).to(device)
-    y = torch.as_tensor(np.asarray(labels, np.float32)).to(device)
-    return X, y
+    X = torch.as_tensor(X_scaled, dtype=torch.float32)
+    y = torch.as_tensor(np.asarray(labels, np.float32))
+    if mesh is None:
+        return X.to(device), y.to(device)
+    from ..parallel.mesh import shard_batch
+
+    pad = -X.shape[0] % mesh.shape["data"]
+    if pad:
+        X = torch.cat([X, X.new_zeros(pad, X.shape[1])])
+        y = torch.cat([y, y.new_full((pad,), -1e9)])
+    return shard_batch(X, mesh), shard_batch(y, mesh)
+
+
+def _rows(X: torch.Tensor, idx, mesh) -> torch.Tensor:
+    """``X[idx]`` (global indices), gathered across ranks with a mesh."""
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                          device=X.device)
+    if mesh is None:
+        return X[idx]
+    from .select_sharded import gather_rows_sharded
+
+    return gather_rows_sharded(X, idx, mesh)
+
+
+def _check_replicated(params, mesh, what: str) -> None:
+    """Raise unless every rank holds bit-identical ``params``."""
+    from ..parallel.mesh import digest
+
+    if mesh is not None and not digest(params, mesh):
+        raise RuntimeError(f"{what}: the ranks' parameters differ")
 
 
 def _train_pool_vae(X: torch.Tensor, gen, train_seed: int, latent_dim: int,
                     hidden_dim: int, vae_lr: float, vae_beta: float,
-                    vae_epochs: int, deterministic: bool = False):
-    """VAE pretraining on the prepared pool, 80/20 split."""
-    N = X.shape[0]
+                    vae_epochs: int, deterministic: bool = False, N=None,
+                    mesh=None):
+    """VAE pretraining on the prepared pool (its first ``N`` rows), 80/20
+    split."""
+    N = X.shape[0] if N is None else N
     perm = np.random.default_rng(train_seed).permutation(N)
     n_tr = int(N * 0.8)
-    perm = torch.as_tensor(perm, device=X.device)
     vae_params, _ = train_vae(
-        gen, X[perm[:n_tr]], X[perm[n_tr:]], latent_dim=latent_dim,
-        hidden_dim=hidden_dim, lr=vae_lr, beta=vae_beta, epochs=vae_epochs,
-        deterministic=deterministic)
+        gen, _rows(X, perm[:n_tr], mesh), _rows(X, perm[n_tr:], mesh),
+        latent_dim=latent_dim, hidden_dim=hidden_dim, lr=vae_lr,
+        beta=vae_beta, epochs=vae_epochs, deterministic=deterministic)
+    _check_replicated(vae_params, mesh, "VAE pretraining")
     return vae_params
 
 
@@ -96,17 +139,19 @@ def pretrain_pool_vae(features: np.ndarray, latent_dim: int = 64,
                       hidden_dim: int = 256, vae_epochs: int = 500,
                       vae_lr: float = 1e-3, vae_beta: float = 0.01,
                       train_seed: int = 2023, deterministic: bool = False,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Pretrain the pool VAE once, to be shared by every sampling seed of
     an experiment (pass it as ``run_active_search(pretrained_vae_params=
     ...)``). Same inputs and Generator stream as ``run_active_search``
-    would use to train it itself."""
-    device = resolve_device(device)
+    would use to train it itself; with a ``mesh`` every rank trains the
+    same parameters from the gathered split."""
+    device = resolve_device(mesh.device if mesh is not None else device)
     X, _ = _prepare_pool(features, np.zeros(features.shape[0], np.float32),
-                         device)
+                         device, mesh)
     return _train_pool_vae(X, make_generator(train_seed, _VAE_STREAM, device),
                            train_seed, latent_dim, hidden_dim, vae_lr,
-                           vae_beta, vae_epochs, deterministic)
+                           vae_beta, vae_epochs, deterministic,
+                           features.shape[0], mesh)
 
 
 @dataclass
@@ -140,8 +185,8 @@ class _ModelPhase:
 
     def __init__(self, X, vae_params, pred_cfg, sel_cfg, hidden_dim,
                  latent_dim, reg_epochs, train_seed, sampling_seed,
-                 measured):
-        self.X, self.vae_params = X, vae_params
+                 measured, mesh=None):
+        self.X, self.vae_params, self.mesh = X, vae_params, mesh
         self.pred_cfg, self.sel_cfg = pred_cfg, sel_cfg
         self.hidden_dim, self.latent_dim = hidden_dim, latent_dim
         self.reg_epochs = reg_epochs
@@ -163,9 +208,10 @@ class _ModelPhase:
                                            device=X.device)
             if self.vae_params is not None:
                 params = load_pretrained_encoder(params, self.vae_params)
-            midx = torch.as_tensor(np.asarray(measured), device=X.device)
-            params, _ = fit_predictor(params, X[midx], y, None, self.g_phase,
-                                      self.pred_cfg, self.reg_epochs)
+            params, _ = fit_predictor(params, _rows(X, measured, self.mesh),
+                                      y, None, self.g_phase, self.pred_cfg,
+                                      self.reg_epochs)
+        _check_replicated(params, self.mesh, "predictor fit")
         return params
 
     def select(self, params, used, remaining, n_measured):
@@ -180,7 +226,8 @@ class _ModelPhase:
                 center_idx=torch.as_tensor(self.center_buf,
                                            device=self.X.device),
                 center_valid=self.center_pos < min(self.center_n,
-                                                   cfg.max_centers))
+                                                   cfg.max_centers),
+                mesh=self.mesh)
         sel = sel_idx.cpu().numpy()[sel_valid.cpu().numpy()]
         for i in sel.tolist():
             self.center_buf[self.center_n % cfg.max_centers] = i
@@ -209,6 +256,7 @@ def run_active_search(
     encoder_mode: str = "vae",
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ) -> ActiveSearchResult:
     """Search until the true-best schedule is measured.
 
@@ -225,7 +273,9 @@ def run_active_search(
     (numpy, as the JAX package draws them), "diversity"
     (``farthest_point_init``) or "kmeans" (``kmeans_representative_init``)
     on the pretrained VAE's mean latents, in pick order. "vib" takes
-    "random" only: it has no pretrained latent space."""
+    "random" only: it has no pretrained latent space. ``mesh`` splits the
+    pool over its "data" ranks (each rank runs this function; the module
+    docstring says how), on the mesh's device."""
     if encoder_mode not in ("vae", "ae", "vib"):
         raise ValueError(f"unknown encoder_mode {encoder_mode!r}")
     if init_mode not in ("random", "diversity", "kmeans"):
@@ -233,10 +283,10 @@ def run_active_search(
     if encoder_mode == "vib" and init_mode != "random":
         raise ValueError("vib has no pretrained latent space for "
                          "diversity/kmeans init; use init_mode='random'")
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if mesh is not None else device)
     t0 = time.time()
     N = features.shape[0]
-    X, y_all = _prepare_pool(features, labels, device)
+    X, y_all = _prepare_pool(features, labels, device, mesh)
 
     true_best = int(np.argmax(labels))
     true_top_set = set(np.argsort(-labels)[:stop_top_k].tolist())
@@ -248,7 +298,7 @@ def run_active_search(
             X, make_generator(train_seed, _VAE_STREAM, device), train_seed,
             latent_dim, hidden_dim, vae_lr,
             0.0 if encoder_mode == "ae" else vae_beta, vae_epochs,
-            deterministic=encoder_mode == "ae")
+            deterministic=encoder_mode == "ae", N=N, mesh=mesh)
     else:
         vae_params = pretrained_vae_params
 
@@ -259,7 +309,7 @@ def run_active_search(
     else:
         g_init = make_generator(sampling_seed, _INIT_STREAM, device)
         with torch.no_grad():
-            mu_all, _ = vae_encode(vae_params, X)
+            mu_all, _ = vae_encode(vae_params, _rows(X, np.arange(N), mesh))
             if init_mode == "diversity":
                 pick = farthest_point_init(
                     g_init, mu_all, torch.ones(N, dtype=torch.bool,
@@ -283,8 +333,18 @@ def run_active_search(
         result.selected_order = selected_order
         return result
 
-    used = torch.as_tensor(used_mask, device=device)
-    remaining = ~used
+    N_pad = N if mesh is None else N + (-N % mesh.shape["data"])
+    lo, hi = 0, N_pad
+    if mesh is not None:
+        n_loc = N_pad // mesh.shape["data"]
+        lo = mesh.index("data") * n_loc
+        hi = lo + n_loc
+    used_full = np.zeros(N_pad, bool)
+    used_full[init_idx] = True
+    used = torch.as_tensor(used_full[lo:hi], device=device)
+    # padded rows are neither measured nor selectable
+    remaining = torch.as_tensor((~used_full & (np.arange(N_pad) < N))[lo:hi],
+                                device=device)
 
     if reg_config is None:
         pred_cfg = PredictorConfig()
@@ -301,17 +361,25 @@ def run_active_search(
 
     step = _ModelPhase(X, vae_params, pred_cfg, sel_cfg, hidden_dim,
                        latent_dim, reg_epochs, train_seed, sampling_seed,
-                       selected_order)
+                       selected_order, mesh)
     labels_np = np.asarray(labels)
+
+    def fetch(t):
+        """The first N global rows of a row-sharded ``t``, on the host."""
+        if mesh is None:
+            return t.cpu().numpy()
+        from ..parallel.mesh import host
+
+        return host(t, mesh)[:N]
+
     for phase in range(1, max_phases + 1):
         t_fit = time.perf_counter()
-        params = step.fit(selected_order, y_all[
-            torch.as_tensor(np.asarray(selected_order), device=device)])
+        params = step.fit(selected_order, _rows(y_all, selected_order, mesh))
         result.fit_seconds.append(time.perf_counter() - t_fit)
 
         with torch.no_grad():
-            all_pred = pred_forward(params, X)[0].float().cpu().numpy()
-        rem_np = remaining.cpu().numpy()
+            all_pred = fetch(pred_forward(params, X)[0].float())
+        rem_np = fetch(remaining)
         result.reg_r2_history.append(
             metric_r_squared(all_pred[rem_np], labels_np[rem_np]))
         result.final_recall_topk = recall_at_k(all_pred, labels_np,
@@ -323,7 +391,8 @@ def run_active_search(
         sel, remaining = step.select(params, used, remaining,
                                      len(selected_order))
         result.select_seconds.append(time.perf_counter() - t_sel)
-        used[torch.as_tensor(sel, device=device)] = True
+        mine = sel[(sel >= lo) & (sel < hi)] - lo
+        used[torch.as_tensor(mine, device=device)] = True
         selected_order.extend(sel.tolist())
 
         if verbose:
@@ -337,7 +406,7 @@ def run_active_search(
             result.found = True
             break
 
-    result.train_size = int(used.sum())
+    result.train_size = len(selected_order)
     result.used_time = time.time() - t0
     result.selected_order = selected_order
     return result

@@ -247,7 +247,8 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
                     remaining_mask: torch.Tensor, gen: torch.Generator,
                     cfg: SelectionConfig,
                     gate_uncertainty_to_remaining: bool = False,
-                    mask_bits=None, center_idx=None, center_valid=None):
+                    mask_bits=None, center_idx=None, center_valid=None,
+                    mesh=None):
     """One full selection phase.
 
     Flow:
@@ -270,7 +271,21 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
     and the random stage's noise. ``center_idx``/``center_valid`` ([C]
     int / bool): the compact measured-set buffer for the diversity stage;
     without it the center set is derived from ``used_mask``.
+
+    With a ``mesh`` whose "data" axis holds more than one rank, the pool is
+    split over those ranks: ``X``, the masks and ``aux`` are this rank's
+    row blocks, and the phase runs on the sharded path
+    (``search/select_sharded.py``: the fused head on each rank's rows,
+    every full-N top-k merged across ranks).
     """
+    if mesh is not None and mesh.shape["data"] > 1:
+        from .select_sharded import select_programs_sharded
+
+        return select_programs_sharded(
+            params, X, used_mask, remaining_mask, gen, cfg, mesh,
+            gate_uncertainty_to_remaining=gate_uncertainty_to_remaining,
+            mask_bits=mask_bits, center_idx=center_idx,
+            center_valid=center_valid)
     if cfg.compute_dtype != "float32":
         ct = getattr(torch, cfg.compute_dtype)
         params = tree_map(
