@@ -39,7 +39,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      host library from csrc/host/ (its seconds printed), all started
      together; no fused_head_kernel instance and no f32 matmul or conv2d
      instance may spill registers (ptxas; each f32 instance's registers
-     printed); cuobjdump -sass shows HGMMA (wgmma) in every bf16 matmul
+     printed); the f32 fused_head_kernel keeps its 126 registers;
+     cuobjdump -sass shows HMMA (mma.sync) in the bf16 fused_head_kernel
+     and not in the f32 one, HGMMA (wgmma) in every bf16 matmul
      instance and HMMA (mma.sync) in every bf16 conv2d instance, and
      neither in the f32 instances, and LDGSTS (cp.async) in every f32
      matmul and conv2d instance; it prints the histogram kernel's atomic
@@ -49,18 +51,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
      main path's shape (the committed pool: N=773, D=17, T=10; the launch
      plan splits the passes over grid groups) and at the bench shape
      (N=262,144, D=24, H=256, L=64, T=10, rate 0.1; one group), float32
-     and bfloat16, and at the main shape with T=7, whose plan gives pass
-     groups of unequal length; two launches bit-identical at G > 1
+     and bfloat16, at the main shape with T=7, whose plan gives pass
+     groups of unequal length, and in bfloat16 at a head too wide for W1
+     to stay in shared memory (the streamed route), at odd widths (D
+     17, hidden 200, head 100) and at a latent wider than the head (176
+     and 160: W0 does not fit W1's region, and gz streams W0^T), and the
+     bench shape in bfloat16 from a second seed; each
+     launch's W1 route is the plan's; a bf16 gnorm row past the tolerance
+     is held against the plain gnorm with its units nearest their ReLU
+     kink, each within KINK_ULPS input ulps of it, flipped
+     (ops/fused_head.py::gnorm_errors), and such rows are few (their count
+     and the flipped units' largest |a| go into the checks record); f32's
+     gnorm is held at its tolerance as every other output; two
+     launches bit-identical at G > 1 and in bfloat16; bench rows launched
+     alone from an offset off the 32-row tile equal the full launch's
   3. the in-kernel Philox path: cost and gnorm equal the injected-bits
-     run bit for bit (bench and main shapes); the mean MC variance and the
-     mean MC offset (mc_mean - cost) are within 5% of the plain version fed
-     torch-Generator bits
+     run bit for bit (bench and main shapes, float32 and bfloat16); the
+     mean MC variance and the mean MC offset (mc_mean - cost) are within
+     5% of the plain version fed torch-Generator bits
   4. the kernel's device time by the card timer
      (search/kernel_tuner.py::cuda_seconds; the host's ms per call beside),
-     the plain version's by back-to-back CUDA events, and the bound,
-     and at the main shape in float32 the kernel at every G from 1 to T
-     (G = 1: the grid of 25 tiles alone)
-  5. one full select_programs phase at the bench shape (bfloat16)
+     the plain version's by back-to-back CUDA events, and the bound, with
+     the route, its shared memory and blocks per SM, and bfloat16's time
+     on the CUDA cores beside; where bfloat16's bench-shape time goes (a
+     pass, the encoder, the rest; injected words against Philox); and at the
+     main shape in float32 the kernel at every G from 1 to T (G = 1: the
+     grid of 25 tiles alone)
+  5. one full select_programs phase at the bench shape (bfloat16): one
+     launch on the resident route and no plain call per phase
   6. end to end: the active search on the committed pool at full width
      (hidden 256, latent 64, T 10, measure size 32, 500 VAE epochs, 1000
      predictor epochs) for seed 2002 (2000 and 2001 cut for the time
@@ -454,6 +472,15 @@ ARMS = dict(measure_size=32, diversity=(2000,), kmeans=(2000,), vib=(2000,),
             width=dict(latent_dim=64, hidden_dim=256, vae_epochs=500,
                        reg_epochs=1000))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the f32 fused_head_kernel instance's registers as the source built them
+# before the bf16 instance moved to the tensor cores (nvcc -Xptxas -v,
+# sm_90a): that move leaves the f32 instance as it was
+HEAD_F32_REGS = 126
+# the bf16 instance's device times when its products ran on the CUDA
+# cores (PERF.md's kernel table, from this script on an NVIDIA H100 80GB
+# HBM3 at 700 W). Logged for a reader beside this run's times, never put
+# into the kernels line
+HEAD_BF16_CUDA_CORE_MS = {"main": 0.2237, "bench": 21.47}
 
 
 def log(*a):
@@ -5392,17 +5419,46 @@ def head_phases(dev, peaks, fh, th):
     # ---- 2. kernel vs plain, injected bits ----
     names = ("cost", "gnorm", "mc_mean", "mc_var")
     uneven = dict(main_shape, T=7)
-    errors = {}
-    for label, shape, dtypes in (
-            ("main", main_shape, (torch.float32, torch.bfloat16)),
-            ("bench", BENCH, (torch.float32, torch.bfloat16)),
-            ("uneven", uneven, (torch.float32,))):
+    # bf16 only: a head too wide for W1 to stay in shared memory (the
+    # streamed route), odd widths (D 17, hidden 200, head 100), and a
+    # latent wider than the head, so that W0 does not fit W1's region and
+    # gz streams W0^T through the deep ring laid over it
+    streamed = dict(n=4096, d=24, hid=256, lat=64, hp=384, T=10)
+    odd = dict(n=1000, d=17, hid=200, lat=10, hp=100, T=3)
+    w0_streamed = dict(n=4096, d=24, hid=256, lat=176, hp=160, T=10)
+    errors, routes, kink_rows = {}, {}, {}
+    # (label, shape, dtypes, seed of the weights and inputs); the bench
+    # shape again in bf16 from seed 5, whose kink rows lie farther from
+    # their kinks than seed 1's
+    for label, shape, dtypes, seed in (
+            ("main", main_shape, (torch.float32, torch.bfloat16), 1),
+            ("bench", BENCH, (torch.float32, torch.bfloat16), 1),
+            ("uneven", uneven, (torch.float32, torch.bfloat16), 1),
+            ("streamed", streamed, (torch.bfloat16,), 1),
+            ("odd", odd, (torch.bfloat16,), 1),
+            ("w0_streamed", w0_streamed, (torch.bfloat16,), 1),
+            ("bench_seed5", BENCH, (torch.bfloat16,), 5)):
         for dtype in dtypes:
             G = log_plan(label, shape, dtype)
-            p, x = setup(shape, dtype, 1)
+            p, x = setup(shape, dtype, seed)
             bits = words(shape, 2)
+            before = dict(fh.fused_head_stats.routes)
             got = call(p, x, shape, bits=bits)
             torch.cuda.synchronize()
+            route = [r for r, c in fh.fused_head_stats.routes.items()
+                     if c != before[r]]
+            width = max(shape["hid"], shape["lat"], shape["hp"], 16)
+            want = fh.smem_plan(dtype == torch.bfloat16, width, shape["hp"],
+                                shape["hp"])
+            routes[(label, dtype)] = route
+            log(f"[2] {label} {dtype_name(dtype)}: route {route} "
+                f"({want[1]} bytes of shared memory per block)")
+            if route != [want[0]] or (dtype == torch.bfloat16) != (
+                    route[0] != "fma") or (label == "streamed") != (
+                    route[0] == "streamed") or (label == "w0_streamed") == (
+                    fh.w0_resident(shape["lat"], shape["hp"], shape["hp"])):
+                raise RuntimeError(f"{label} {dtype}: route {route}, the "
+                                   f"plan's {want}")
             ref = plain(p, x, shape, bits=bits)
             rel, mabs = {}, 0.0
             for nm, g, r in zip(names, got, ref):
@@ -5411,29 +5467,65 @@ def head_phases(dev, peaks, fh, th):
                                        f"or of shape {tuple(g.shape)}")
                 rel[nm] = float((g - r).abs().max() / r.abs().max())
                 mabs = max(mabs, float((g - r).abs().max()))
+            kinks = ""
+            if dtype == torch.bfloat16:
+                # gnorm jumps at a ReLU kink: a bf16 row off by more than
+                # the tolerance is held against the plain gnorm with its
+                # units nearest the kink, each within fh.KINK_ULPS input
+                # ulps of it, flipped (ops/fused_head.py::gnorm_errors)
+                check = fh.gnorm_errors(got[1], ref[1], p["cost_predictor"],
+                                        x, (p["encoder"], p["fc_mu"]),
+                                        TOL[dtype])
+                rel["gnorm"] = check.err
+                kink_rows[label] = check._asdict()
+                kinks = (f"; {check.kinks} row(s) at a ReLU kink (flipped "
+                         f"|a| <= {check.flipped_abs_max:.3e}, "
+                         f"{check.flipped_ulps_max:.3f} input ulps)")
+                if check.kinks > max(2, shape["n"] // 1000):
+                    raise RuntimeError(f"{label} bf16: {check}: too many "
+                                       f"rows at a kink")
             errors[(label, dtype)] = (rel, mabs)
             log(f"[2] {label} N={shape['n']} {dtype_name(dtype)}: rel err "
                 + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
-                + f" (tol {TOL[dtype]:g}); max abs {mabs:.3e}")
+                + f" (tol {TOL[dtype]:g}); max abs {mabs:.3e}{kinks}")
             if max(rel.values()) > TOL[dtype]:
                 raise RuntimeError(f"kernel disagrees with plain: {label} "
                                    f"{dtype}: {rel}")
-            if G > 1:
+            if G > 1 or dtype == torch.bfloat16:
                 again = call(p, x, shape, bits=bits)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise RuntimeError(f"{label} {dtype}: two launches at "
                                        f"G={G} differ")
                 log(f"[2] {label} {dtype_name(dtype)}: two launches at G={G} "
                     f"bit-identical")
+            if label == "bench" and dtype == torch.bfloat16:
+                # a row's outputs depend on that row alone: rows launched
+                # from an offset off the 32-row tile equal the full launch's
+                lo, hi = 12_345, 12_345 + 5_000
+                part = fh.fused_head_stats(
+                    p["cost_predictor"], x[lo:hi].contiguous(), 0,
+                    T=shape["T"], rate=0.1,
+                    mask_bits=bits[:, lo:hi].contiguous(),
+                    encoder=(p["encoder"], p["fc_mu"]))
+                if not all(torch.equal(a[lo:hi], b)
+                           for a, b in zip(got, part)):
+                    raise RuntimeError("bench bf16: rows launched alone "
+                                       "differ from the full launch")
+                log(f"[2] bench bf16: rows [{lo}, {hi}) launched alone equal"
+                    f" the full launch's bit for bit")
             del bits, got, ref
 
     # ---- 3. Philox path ----
     for label, shape in (("main", main_shape), ("bench", BENCH)):
-        p, x = setup(shape, torch.float32, 3)
-        inj = call(p, x, shape, bits=words(shape, 4))
-        ph = call(p, x, shape, seed=11)
-        if not (torch.equal(ph[0], inj[0]) and torch.equal(ph[1], inj[1])):
-            raise RuntimeError(f"{label}: Philox run changed cost/gnorm")
+        for dtype in (torch.bfloat16, torch.float32):
+            p, x = setup(shape, dtype, 3)
+            inj = call(p, x, shape, bits=words(shape, 4))
+            ph = call(p, x, shape, seed=11)
+            if not (torch.equal(ph[0], inj[0])
+                    and torch.equal(ph[1], inj[1])):
+                raise RuntimeError(f"{label} {dtype}: Philox run changed "
+                                   f"cost/gnorm")
+    p, x = setup(BENCH, torch.float32, 3)
     k_var, k_off, r_var, r_off = [], [], [], []
     for s in range(4):
         k = call(p, x, BENCH, seed=100 + s)
@@ -5445,7 +5537,8 @@ def head_phases(dev, peaks, fh, th):
         r_off.append(float((r[2] - r[0]).mean()))
     k_var, k_off = np.mean(k_var), np.mean(k_off)
     r_var, r_off = np.mean(r_var), np.mean(r_off)
-    log(f"[3] Philox: cost/gnorm bit-equal to injected run (main, bench); "
+    log(f"[3] Philox: cost/gnorm bit-equal to injected run (main, bench; "
+        f"float32 and bfloat16); "
         f"mean mc_var {k_var:.6e} vs plain {r_var:.6e}; mean mc offset "
         f"{k_off:.6e} vs plain {r_off:.6e} (bench, 4 seeds each)")
     if abs(k_var - r_var) > 0.05 * r_var or abs(k_off - r_off) > \
@@ -5467,10 +5560,45 @@ def head_phases(dev, peaks, fh, th):
                                   shape["lat"], shape["hp"], shape["T"],
                                   dtype, peaks)
             times[(label, dtype)] = (k_ms, p_ms, b_ms, b_by, k_host)
+            route, smem = fh.smem_plan(dtype == torch.bfloat16,
+                                       max(shape["hid"], shape["lat"],
+                                           shape["hp"], 16),
+                                       shape["hp"], shape["hp"])
+            was = (f"; on the CUDA cores {HEAD_BF16_CUDA_CORE_MS[label]} ms"
+                   if dtype == torch.bfloat16 else "")
             log(f"[4] {label} N={shape['n']} {dtype_name(dtype)}: kernel "
                 f"{k_ms:.4f} ms (host {k_host:.4f} ms per call), plain "
                 f"{p_ms:.4f} ms (events), bound {b_ms:.4f} ms "
-                f"({b_by}); kernel at {100 * b_ms / k_ms:.1f}% of bound")
+                f"({b_by}); kernel at {100 * b_ms / k_ms:.1f}% of bound; "
+                f"route {route}, {smem} bytes of shared memory, "
+                f"{fh.MAX_SMEM_BYTES // smem if smem else 0} block(s) per "
+                f"SM{was}")
+    # where the bf16 bench-shape time goes: a pass ((T 10 - T 1) / 9), the
+    # encoder (fused - latents in, at T 1) and the rest; and what reading
+    # injected dropout words costs over the in-kernel Philox bits
+    p, x = setup(BENCH, torch.bfloat16, 5)
+    z = torch.randn(BENCH["n"], BENCH["lat"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6)
+                    ).to(torch.bfloat16)
+    bits = words(BENCH, 6)
+    head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+    split = {
+        "fused_T10": times[("bench", torch.bfloat16)][0],
+        "fused_T1": card_ms(lambda: fh.fused_head_stats(
+            head, x, 7, T=1, rate=0.1, encoder=enc))[0],
+        "latents_T1": card_ms(lambda: fh.fused_head_stats(
+            head, z, 7, T=1, rate=0.1))[0],
+        "fused_T10_words": card_ms(lambda: fh.fused_head_stats(
+            head, x, 7, T=10, rate=0.1, encoder=enc, mask_bits=bits))[0]}
+    del bits
+    split["pass_ms"] = (split["fused_T10"] - split["fused_T1"]) / 9
+    split["encoder_ms"] = split["fused_T1"] - split["latents_T1"]
+    split["rest_ms"] = split["fused_T1"] - split["pass_ms"] \
+        - split["encoder_ms"]
+    split["words_over_philox_ms"] = split["fused_T10_words"] \
+        - split["fused_T10"]
+    log("[4] bench bfloat16 split: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items()))
     # the split alone: the main shape at every G up to T (from G = 6 on
     # 132 SMs, some SMs hold two blocks)
     p, x = setup(main_shape, torch.float32, 5)
@@ -5508,17 +5636,38 @@ def head_phases(dev, peaks, fh, th):
     for _ in range(2):
         phase()
     ph_times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        picked = phase()
-        ph_times.append((time.perf_counter() - t0) * 1e3)
+    plain_calls = []
+    plain_fn = fh.fused_head_stats_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return plain_fn(*a, **kw)
+
+    fh.fused_head_stats_plain = counted_plain
+    try:
+        for _ in range(10):
+            torch.cuda.synchronize()
+            before = (fh.fused_head_stats.launches,
+                      fh.fused_head_stats.routes["resident"])
+            t0 = time.perf_counter()
+            picked = phase()
+            ph_times.append((time.perf_counter() - t0) * 1e3)
+            if (fh.fused_head_stats.launches - before[0],
+                    fh.fused_head_stats.routes["resident"] - before[1]) \
+                    != (1, 1) or plain_calls:
+                raise RuntimeError("[5] a bench-shape phase made "
+                                   f"{fh.fused_head_stats.launches - before[0]}"
+                                   f" launches, {len(plain_calls)} plain "
+                                   "calls")
+    finally:
+        fh.fused_head_stats_plain = plain_fn
     if len(set(picked.tolist())) != cfg.num_select or picked.min() < 256:
         raise RuntimeError(f"bad selection: {picked}")
     ph_ms = float(np.median(ph_times))
     log(f"[5] select_programs phase N={n} bf16: median {ph_ms:.3f} ms "
         f"(min {min(ph_times):.3f}, max {max(ph_times):.3f}, 10 phases) = "
-        f"{n / (ph_ms / 1e3):.0f} candidates/s; {len(picked)} picked")
+        f"{n / (ph_ms / 1e3):.0f} candidates/s; {len(picked)} picked; one "
+        f"launch (resident route) and no plain call per phase")
 
     # ---- 6. end to end on the main path ----
     fh.fused_head_stats.launches = 0
@@ -5564,6 +5713,12 @@ def head_phases(dev, peaks, fh, th):
             "max_rel_err": {f"{lbl}_{dtype_name(dt)}": max(r.values())
                             for (lbl, dt), (r, _) in errors.items()},
             "tolerance": {dtype_name(dt): t for dt, t in TOL.items()},
+            # bf16 gnorm rows explained by a flip at a ReLU kink, by shape
+            "bfloat16_gnorm_kinks": {
+                "kink_ulps": fh.KINK_ULPS, **{
+                    lbl: {k: c[k] for k in ("kinks", "flipped_abs_max",
+                                            "flipped_ulps_max")}
+                    for lbl, c in kink_rows.items()}},
             "philox": {"cost_gnorm_bit_equal": True,
                        "mc_var_mean": [k_var, r_var],
                        "mc_offset_mean": [k_off, r_off]},
@@ -5574,6 +5729,10 @@ def head_phases(dev, peaks, fh, th):
                   "plain_ms": bp, "bound_ms": bb,
                   "float32_ms": fk, "float32_plain_ms": fp,
                   "float32_bound_ms": fb},
+        "main_bfloat16_ms": times[("main", torch.bfloat16)][0],
+        "bench_bfloat16_split_ms": split,
+        "routes": {f"{lbl}_{dtype_name(dt)}": r
+                   for (lbl, dt), r in routes.items()},
         "select_phase_ms": ph_ms,
     }
 
@@ -5658,6 +5817,25 @@ def main():
         f"{sorted(head_regs.values())}")
     if not head_regs or any(sp for _, sp in head_regs.values()):
         raise RuntimeError(f"[1] fused_head_kernel spills: {head_regs}")
+    # one instance per dtype: the f32 one keeps its registers, the bf16 one
+    # multiplies on the tensor cores (HMMA: mma.sync) and the f32 one not
+    inst = {"float32": [n for n in head_regs if "fused_head_kernelIfE" in n],
+            "bfloat16": [n for n in head_regs if "fused_head_kernelI13__nv_"
+                         "bfloat16E" in n]}
+    head_sass = sass_functions(fh.LIB.library)
+    hmma = {dt: sum("HMMA" in ln for ln in head_sass.get(names[0], []))
+            for dt, names in inst.items() if len(names) == 1}
+    log(f"[1] fused_head_kernel registers: float32 "
+        f"{[head_regs[n][0] for n in inst['float32']]} (before: "
+        f"{HEAD_F32_REGS}), bfloat16 "
+        f"{[head_regs[n][0] for n in inst['bfloat16']]}; cuobjdump -sass: "
+        f"HMMA in float32 {hmma.get('float32')}, in bfloat16 "
+        f"{hmma.get('bfloat16')}")
+    if any(len(names) != 1 for names in inst.values()) \
+            or head_regs[inst["float32"][0]][0] != HEAD_F32_REGS \
+            or hmma["float32"] or not hmma["bfloat16"]:
+        raise RuntimeError(f"[1] fused_head_kernel instances {inst}, "
+                           f"registers {head_regs}, HMMA {hmma}")
     # the f32 matmul's and conv2d's 64 (or 32) accumulators and their
     # fragments stay in registers at two blocks per SM: no instance may spill
     # (the conv's instances are (bm, bn, KWT): KWT 3 for KW = 3, 0 for any)

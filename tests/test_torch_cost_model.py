@@ -579,3 +579,57 @@ def test_transfer_tune_no_update_fits_the_delta_from_the_log(corpus):
                     mixed.predict(*corpus[side])))
     assert out[0][:2] == out[1][:2] and out[0][0] >= 16 and out[0][1]
     assert rel_err(out[0][2], out[1][2]) < 1e-6
+
+
+def test_transfer_tune_no_update_still_refits_the_delta_in_stage_2(corpus):
+    """A fault of the reference that both packages keep: under a
+    ``sketch.<kind>-no-update`` policy stage 1's model is frozen, but stage
+    2's ``_tune_task`` calls ``cost_model.update`` unconditionally, so the
+    PlusMix delta refits on every stage-2 round. The stage-2 calls and the
+    delta's refits are counted in each package: equal, and at least one
+    round refit the delta."""
+    base_pkl = _jax_base(corpus, "base_gbdt_frozen_stage2.pkl")
+    out = []
+    for side, pkg in (("port", PORT), ("jax", JAX)):
+        calls = []
+        orig = pkg["cm"].PlusMixCostModel.update
+
+        def update(self, inputs, results, orig=orig, calls=calls):
+            fits = []
+            fit = self.internal.fit_base
+
+            def counted_fit(*a, **kw):
+                fits.append(1)
+                return fit(*a, **kw)
+
+            self.internal.fit_base = counted_fit
+            try:
+                return orig(self, inputs, results)
+            finally:
+                vars(self.internal).pop("fit_base", None)
+                calls.append((len(inputs or ()), len(fits)))
+
+        mp = pytest.MonkeyPatch()
+        mp.setattr(pkg["cm"].PlusMixCostModel, "update", update)
+        try:
+            log = str(corpus["dir"] / f"frozen_stage2_{side}.json")
+            opts = pkg["task"].TuningOptions(
+                num_measure_trials=32, num_measures_per_round=8,
+                builder=pkg["m"].EmptyBuilder(),
+                runner=pkg["m"].AnalyticRunner(noise=0.1),
+                measure_callbacks=[pkg["m"].RecordToFile(log)])
+            kw = {"device": "cpu"} if pkg is PORT else {}
+            sched = pkg["ts"].TaskScheduler(
+                _tasks(pkg), strategy="round-robin", callbacks=[], **kw)
+            pkg["ts"].transfer_tune(sched, opts,
+                                    search_policy="sketch.gbdt-no-update",
+                                    load_model_file=base_pkl)
+        finally:
+            mp.undo()
+        # the first call seeds the delta from the log (no inputs); every
+        # later one is a stage-2 round's
+        assert calls and calls[0][0] == 0
+        out.append(calls[1:])
+    assert out[0] == out[1]
+    assert len(out[0]) >= 2 and all(n == 8 for n, _ in out[0])
+    assert all(fits == 1 for _, fits in out[0])

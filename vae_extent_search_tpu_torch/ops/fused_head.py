@@ -16,6 +16,12 @@ split over groups and a second kernel adds the groups' sums in a fixed
 order (:func:`mc_finish_plain` is its plain version), so a call still
 repeats bit for bit.
 
+float32 runs on the CUDA cores; bfloat16 runs every product on the
+tensor cores (``mma.sync``), with W1 held in shared memory for the whole
+block where it fits beside the rest and streamed through the weight ring
+where it does not. :func:`smem_plan` chooses that route by shape before
+the launch; ``fused_head_stats.routes`` counts the launches per route.
+
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``vae_extent_search_tpu_torch/build/`` and loaded with ctypes through a
 plain C interface (``ops/build.py``).
@@ -31,10 +37,11 @@ hidden unit of h0 when its 32-bit random word is ``>= min(int(rate *
 from __future__ import annotations
 
 import ctypes
+import logging
 from collections import OrderedDict
 from functools import lru_cache
 from itertools import accumulate
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +49,22 @@ from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch, sm_count
 
 BM = 32           # candidates per block (csrc/fused_head.cu)
 MAX_GROUPS = 32   # grid rows the kernel takes
+# the f32 instance's weight chunk (KC rows x CW columns, f32) and the
+# bf16 instance's ring: NSTAGE stages of a KS x (256 + KP) weight chunk
+# and a BM x KS input chunk, bf16, beside a [NWARP, BM] f32 row-sum
+# scratch (csrc/fused_head.cu)
+KC, CW = 16, 256
+KS, KP, NSTAGE, NWARP = 16, 8, 3, 8
+ROUTES = ("fma", "resident", "streamed")
+# how far, in input ulps, a bf16 unit may lie from its ReLU kink for a
+# flip of its mask to count as another summation order's (gnorm_errors):
+# one flipped input rounding moves a unit by at most one input ulp, and
+# the roundings another order flips upstream cascade through the encoder,
+# so several inputs of a unit may be off at once (chip_smoke.py phase 2
+# records how far the kink rows' units lay; PERF.md)
+KINK_ULPS = 8
+
+_log = logging.getLogger(__name__)
 
 
 def _declare(lib):
@@ -50,10 +73,14 @@ def _declare(lib):
         i32, vp, ctypes.c_longlong, i32, i32, vp, vp, vp,
         vp, vp, vp, vp, vp, vp, vp, vp,
         i32, i32, i32, i32, ctypes.c_uint, ctypes.c_float,
-        vp, ctypes.c_ulonglong, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+        vp, ctypes.c_ulonglong, i32, vp, vp, vp, vp, vp, vp, vp, i32, vp]
     lib.fused_head_stats_launch.restype = i32
     lib.fused_head_smem_bytes.argtypes = [i32]
     lib.fused_head_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_head_bf16_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.fused_head_bf16_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_head_bf16_w0_resident.argtypes = [i32, i32, i32, i32]
+    lib.fused_head_bf16_w0_resident.restype = i32
     lib.fused_head_attr_calls.argtypes = []
     lib.fused_head_attr_calls.restype = i32
 
@@ -70,14 +97,11 @@ def dropout_threshold(rate: float) -> int:
 # ---------------------------------------------------------------------------
 
 
-def fused_head_passes_plain(head_layers: List[Dict], x: torch.Tensor,
-                            T: int, rate: float,
-                            mask_bits: Optional[torch.Tensor] = None,
-                            generator: Optional[torch.Generator] = None,
-                            encoder: Optional[Tuple] = None):
-    """(cost, gnorm, deltas): the arguments and the first two outputs of
-    :func:`fused_head_stats_plain`, and the T passes' deltas from the
-    cost, a list of [N] float32, in pass order."""
+def _forward_plain(head_layers: List[Dict], x: torch.Tensor,
+                   encoder: Optional[Tuple] = None):
+    """The deterministic forward of :func:`fused_head_passes_plain`:
+    (rnd, z, a0, a1, cost, (w0, w1, w2, b1, b2)), rnd rounding to the
+    compute dtype and back, z the head's input before its rounding."""
     ct = x.dtype
     f32 = torch.float32
 
@@ -99,15 +123,35 @@ def fused_head_passes_plain(head_layers: List[Dict], x: torch.Tensor,
     b2 = head_layers[2]["b"].to(f32)[0]
 
     a0 = rnd(z) @ w0 + rnd(head_layers[0]["b"])
-    h0 = torch.relu(a0)
-    a1 = rnd(h0) @ w1 + b1
+    a1 = rnd(torch.relu(a0)) @ w1 + b1
     cost = rnd(torch.relu(a1)) @ w2 + b2
+    return rnd, z, a0, a1, cost, (w0, w1, w2, b1, b2)
 
-    zero = torch.zeros((), dtype=f32, device=x.device)
-    g1 = torch.where(a1 > 0, w2, zero)
-    g0 = torch.where(a0 > 0, rnd(g1) @ w1.T, zero)
+
+def _gnorm_plain(rnd, keep0, keep1, w0, w1, w2):
+    """|dz cost| from the head's ReLU masks keep0 = [a0 > 0], keep1 =
+    [a1 > 0]."""
+    zero = torch.zeros((), dtype=torch.float32, device=w0.device)
+    g1 = torch.where(keep1, w2, zero)
+    g0 = torch.where(keep0, rnd(g1) @ w1.T, zero)
     gz = rnd(g0) @ w0.T
-    gnorm = torch.sqrt((gz * gz).sum(-1))
+    return torch.sqrt((gz * gz).sum(-1))
+
+
+def fused_head_passes_plain(head_layers: List[Dict], x: torch.Tensor,
+                            T: int, rate: float,
+                            mask_bits: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None,
+                            encoder: Optional[Tuple] = None):
+    """(cost, gnorm, deltas): the arguments and the first two outputs of
+    :func:`fused_head_stats_plain`, and the T passes' deltas from the
+    cost, a list of [N] float32, in pass order."""
+    f32 = torch.float32
+    rnd, _, a0, a1, cost, (w0, w1, w2, b1, b2) = _forward_plain(
+        head_layers, x, encoder)
+    h0 = torch.relu(a0)
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    gnorm = _gnorm_plain(rnd, a0 > 0, a1 > 0, w0, w1, w2)
 
     thresh = dropout_threshold(rate)
     h0s = rnd(h0 * torch.tensor(1.0 / (1.0 - rate), dtype=f32))
@@ -148,6 +192,105 @@ def fused_head_stats_plain(head_layers: List[Dict], x: torch.Tensor, T: int,
         s = s + dt
         s2 = s2 + dt * dt
     return (cost, gnorm, *mc_finish_plain(cost, s[None], s2[None], T))
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at v >= 0 (8 significant bits; 0 at 0)."""
+    _, e = torch.frexp(v)
+    return torch.where(v > 0, torch.ldexp(torch.ones_like(v), e - 8),
+                       torch.zeros_like(v))
+
+
+def gnorm_kink_flips_plain(head_layers: List[Dict], x: torch.Tensor,
+                           encoder: Optional[Tuple] = None,
+                           nearest: int = 8):
+    """(gnorm, |a|, ulps) of each row of ``x`` with one or two of its
+    ``nearest`` head units closest to their ReLU kink taken to the other
+    side, alone and in pairs, each [N, M] float32, M = nearest + nearest *
+    (nearest - 1) / 2: the plain gnorm under that flip, the largest
+    |pre-activation| among the flipped units, and the largest distance of
+    one of them from its kink in input ulps.
+
+    gnorm is discontinuous at a kink. A summation order other than this
+    version's (the tensor cores' m16n8k16 steps) can flip a bf16 rounding
+    of one of a unit's inputs, which moves the unit's pre-activation by
+    |w| times one bf16 ulp of that input; a unit that close to 0 then
+    changes its mask and gnorm jumps by a few per cent. The plain version
+    summed in float64 differs from it on such rows too. A unit's input ulp
+    is one bf16 ulp of its layer's largest input on the row (|rnd(z)| for
+    a0, rnd(h0) for a1) times its largest |weight|; the units nearest
+    their kink are those with the fewest input ulps |a| / input ulp."""
+    rnd, z, a0, a1, _, (w0, w1, w2, _, _) = _forward_plain(
+        head_layers, x, encoder)
+    pre = torch.cat([a0, a1], 1)
+
+    def input_ulp(u, w):  # [N, units] of the layer u @ w
+        return _bf16_ulp(u.abs().amax(1, keepdim=True)) * w.abs().amax(0)
+
+    unit = torch.cat([input_ulp(rnd(z), w0),
+                      input_ulp(rnd(torch.relu(a0)), w1)], 1)
+    ulps = torch.where(unit > 0, pre.abs() / unit,
+                       torch.full_like(pre, float("inf")))
+    k = min(nearest, pre.shape[1])
+    near = ulps.topk(k, dim=1, largest=False).indices  # [N, k]
+    sets = [(i,) for i in range(k)] + [
+        (i, j) for i in range(k) for j in range(i + 1, k)]
+    keep = (pre > 0)[:, None, :].repeat(1, len(sets), 1)  # [N, M, H0 + H1]
+    a_abs = torch.zeros(x.shape[0], len(sets), device=x.device)
+    a_ulps = torch.zeros_like(a_abs)
+    rows = torch.arange(x.shape[0], device=x.device)
+    for m, units in enumerate(sets):
+        for i in units:
+            keep[rows, m, near[:, i]] ^= True
+            a_abs[:, m] = torch.maximum(a_abs[:, m],
+                                        pre[rows, near[:, i]].abs())
+            a_ulps[:, m] = torch.maximum(a_ulps[:, m], ulps[rows, near[:, i]])
+    H0 = a0.shape[1]
+    flat = keep.reshape(-1, keep.shape[2])
+    gnorm = _gnorm_plain(rnd, flat[:, :H0], flat[:, H0:], w0, w1,
+                         w2).reshape(x.shape[0], len(sets))
+    return gnorm, a_abs, a_ulps
+
+
+class GnormCheck(NamedTuple):
+    err: float              # max relative error, kink rows as explained
+    kinks: int              # rows explained by a flip at a kink
+    # over those rows, of the flip nearest the kink that explains each:
+    flipped_abs_max: float  # the largest |pre-activation| flipped
+    flipped_ulps_max: float  # the largest distance in input ulps
+
+
+def gnorm_errors(got: torch.Tensor, ref: torch.Tensor,
+                 head_layers: List[Dict], x: torch.Tensor,
+                 encoder: Optional[Tuple] = None,
+                 tol: float = 2e-2) -> GnormCheck:
+    """A bfloat16 kernel's gnorm ``got`` against the plain version's
+    ``ref``, relative to max |ref|. A row off by more than ``tol`` counts
+    as at a kink when the plain gnorm with one or two of its units nearest
+    their kink flipped (:func:`gnorm_kink_flips_plain`), each within
+    ``KINK_ULPS`` input ulps of it, is within ``tol`` of it, and is then
+    measured against that value; any other row counts as it is."""
+    scale = ref.abs().max().clamp_min(1e-12)
+    err = (got - ref).abs() / scale
+    off = (err > tol).nonzero()[:, 0]
+    kinks, a_max, u_max = 0, 0.0, 0.0
+    if len(off):
+        alt, a_abs, a_ulps = gnorm_kink_flips_plain(head_layers, x[off],
+                                                    encoder)
+        alt_err = (alt - got[off, None]).abs() / scale
+        alt_err = torch.where(a_ulps <= KINK_ULPS, alt_err,
+                              torch.full_like(alt_err, float("inf")))
+        err[off] = torch.minimum(err[off], alt_err.min(1).values)
+        ok = alt_err <= tol
+        hit = ok.any(1)
+        kinks = int(hit.sum())
+        if kinks:
+            need, m = torch.where(ok, a_ulps, torch.full_like(
+                a_ulps, float("inf"))).min(1)
+            rows = torch.arange(len(off), device=got.device)[hit]
+            a_max = float(a_abs[rows, m[hit]].max())
+            u_max = float(need[hit].max())
+    return GnormCheck(float(err.max()), kinks, a_max, u_max)
 
 
 def mc_finish_plain(cost: torch.Tensor, s_parts: torch.Tensor,
@@ -230,8 +373,62 @@ def snap_fused_groups(N: int, T: int, block: int, tc: int) -> int:
     return max(1, min(groups, T + 1, MAX_GROUPS))
 
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(route: str, width: int, H0: int, H1: int) -> int:
+    """Shared memory per block of the kernel on ``route`` where ``width``
+    is the largest hidden width (the encoder's outputs, L, H0, H1 and at
+    least 16; the input width D streams and bounds nothing). ``fma``: the
+    f32 instance's three [width, BM] f32 activation buffers, its weight
+    chunk and row sums. ``resident`` / ``streamed``: the bf16 instance's
+    three [BM, width + KP] bf16 activation buffers (rows padded to 16: the
+    encoder's pair, then rnd(h0) or a pass's masked units, and g1;
+    rnd(h0 * scale)), the row sums and the ring, and on ``resident`` W1
+    [H0, H1 + KP] bf16 (mirrors ``fused_head_smem_bytes`` and
+    ``fused_head_bf16_smem_bytes`` of ``csrc/fused_head.cu``)."""
+    if route == "fma":
+        return 4 * (3 * _up(width, 4) * BM + KC * CW + 4 * BM)
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}")
+    lda = _up(width, 16) + KP
+    total = (3 * 2 * BM * lda + 4 * NWARP * BM
+             + 2 * NSTAGE * (KS * (CW + KP) + BM * KS))
+    if route == "resident":
+        total += 2 * _up(H0, 16) * (_up(H1, 16) + KP)
+    return total
+
+
+def w0_resident(L: int, H0: int, H1: int) -> bool:
+    """Whether the bf16 instance on the ``resident`` route reads W0 for
+    gz from a copy in W1's shared-memory region (W0 [L, H0 + KP] fits
+    where W1 [H0, H1 + KP] was), so that it needs no W0^T (mirrors
+    ``fused_head_bf16_w0_resident`` of ``csrc/fused_head.cu``)."""
+    return _up(L, 16) * (_up(H0, 16) + KP) <= _up(H0, 16) * (_up(H1, 16) + KP)
+
+
+@lru_cache(maxsize=1024)
+def smem_plan(bf16: bool, width: int, H0: int, H1: int) -> Tuple[str, int]:
+    """(route, shared-memory bytes per block) the kernel takes for these
+    widths (see :func:`smem_bytes`), chosen by shape alone before any
+    launch. float32 has one route, ``fma`` (the CUDA cores). bfloat16
+    takes ``resident`` (W1 loaded into shared memory once per block and
+    read by all 12 of its products) where that fits a block's
+    ``MAX_SMEM_BYTES``, else ``streamed`` (W1 and W1^T through the weight
+    ring, as the other weights). Raises ValueError where no route fits."""
+    for route in (("resident", "streamed") if bf16 else ("fma",)):
+        nbytes = smem_bytes(route, width, H0, H1)
+        if nbytes <= MAX_SMEM_BYTES:
+            return route, nbytes
+    raise ValueError(f"hidden width {width} needs {nbytes} bytes of shared "
+                     f"memory per block (> {MAX_SMEM_BYTES})")
+
+
 # the groups' sums [2, G, N] per (device, stream, G, N)
 _SCRATCH = OrderedDict()
+# (bf16, width, H0, H1) whose route was logged
+_PLANS_SEEN = set()
 _SCRATCH_MAX = 16
 
 
@@ -259,8 +456,10 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
 
     On a CUDA tensor this launches the CUDA kernel on the current stream,
     and where the plan has G > 1 groups the kernel that adds their sums
-    (``fused_head_stats.launches`` counts one per call); ``groups``
-    replaces :func:`launch_plan`'s G (a tuned G, or timing and tests).
+    (``fused_head_stats.launches`` counts one per call,
+    ``fused_head_stats.routes`` one per call under its :func:`smem_plan`
+    route); ``groups`` replaces :func:`launch_plan`'s G (a tuned G, or
+    timing and tests).
     ``fused_head_stats.tap``, where set, is called with ``(x, T, groups)``
     first, on either device. The dropout
     words are ``mask_bits`` [T, N, H] uint32 when given, else Philox bits
@@ -285,6 +484,7 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
 
 
 fused_head_stats.launches = 0
+fused_head_stats.routes = dict.fromkeys(ROUTES, 0)
 fused_head_stats.tap = None
 
 
@@ -317,37 +517,48 @@ def _launch(head_layers, x, seed, T, rate, mask_bits, encoder, groups):
     if any(t.device != dev for t in tensors):
         raise ValueError(f"every parameter must lie on {dev}")
 
-    lib = LIB.load()
     # the input width d streams from device memory; the hidden widths
     # live in shared memory
-    widths = [*[l["w"].shape[1] for l in enc], L, H0, H1, 16]
-    width = -(-max(widths) // 4) * 4
-    smem = lib.fused_head_smem_bytes(width)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"hidden width {max(widths)} needs {smem} bytes of "
-                         f"shared memory per block (> {MAX_SMEM_BYTES})")
+    bf16 = ct == torch.bfloat16
+    width = max(*[l["w"].shape[1] for l in enc], L, H0, H1, 16)
+    plan_key = (bf16, width, H0, H1)
+    seen = plan_key in _PLANS_SEEN
+    route, smem = smem_plan(*plan_key)
+    if not seen:
+        _PLANS_SEEN.add(plan_key)
+        _log.info("fused_head_stats: %s widths (%d, H0 %d, H1 %d): route "
+                  "%s, %d bytes of shared memory per block",
+                  "bfloat16" if bf16 else "float32", width, H0, H1, route,
+                  smem)
+    lib = LIB.load()
     if n == 0:
         e = torch.empty(0, dtype=torch.float32, device=dev)
         return e, e.clone(), e.clone(), e.clone()
-    bf16 = ct == torch.bfloat16
     if groups is None:
         groups, bounds = launch_plan(n, T, sm_count(dev))
     else:
         bounds = pass_bounds(T, groups)
 
-    def w_(t):  # weights in the compute dtype, row-major [in, out]
-        return t.to(ct).contiguous()
-
-    def b_(t):  # biases rounded to the compute dtype, passed as f32
-        return t.to(ct).to(torch.float32).contiguous()
+    def w_(t):  # weights in the compute dtype, row-major [in, out],
+        # 16-byte aligned (the bf16 instance copies rows by cp.async)
+        t = t.to(ct).contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
 
     enc_w = [w_(l["w"]) for l in enc]
-    enc_b = [b_(l["b"]) for l in enc]
     w0, w1 = w_(head_layers[0]["w"]), w_(head_layers[1]["w"])
-    w2 = w_(head_layers[2]["w"][:, 0])
-    b0, b1 = b_(head_layers[0]["b"]), b_(head_layers[1]["b"])
+    w2 = w_(head_layers[2]["w"].reshape(-1))
+    # biases rounded to the compute dtype, passed as f32, converted in one
+    # go (a call stays a handful of launches where the kernel is short)
+    biases = [l["b"] for l in [*enc, *head_layers[:2]]]
+    flat = torch.cat([b.reshape(-1) for b in biases]).to(ct).to(
+        torch.float32)
+    *enc_b, b0, b1 = flat.split([b.numel() for b in biases])
     b2 = head_layers[2]["b"].to(torch.float32).contiguous()
-    w0t, w1t = w0.t().contiguous(), w1.t().contiguous()
+    # W0^T and W1^T only where they are read: the resident route reads
+    # W1's shared copy [n][k] instead, and W0's where it fits
+    w0t = None if route == "resident" and w0_resident(L, H0, H1) \
+        else w0.t().contiguous()
+    w1t = None if route == "resident" else w1.t().contiguous()
     outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(4)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     part = None if groups == 1 else _scratch(dev, stream, groups, n)
@@ -359,14 +570,17 @@ def _launch(head_layers, x, seed, T, rate, mask_bits, encoder, groups):
         ptrs(*[t.data_ptr() for t in enc_b]),
         (ctypes.c_int * (len(enc) + 1))(d, *[t.shape[1] for t in enc_w]),
         w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), w0t.data_ptr(), w1t.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(),
+        None if w0t is None else w0t.data_ptr(),
+        None if w1t is None else w1t.data_ptr(),
         L, H0, H1, T, dropout_threshold(rate), 1.0 / (1.0 - rate),
         None if mask_bits is None else mask_bits.data_ptr(),
         seed & 0xFFFFFFFFFFFFFFFF, groups,
         (ctypes.c_int * len(bounds))(*bounds),
         None if part is None else part[0].data_ptr(),
         None if part is None else part[1].data_ptr(),
-        *[o.data_ptr() for o in outs], stream)
+        *[o.data_ptr() for o in outs], int(route == "resident"), stream)
     check_launch(err, "fused_head_stats")
     fused_head_stats.launches += 1
+    fused_head_stats.routes[route] += 1
     return tuple(outs)

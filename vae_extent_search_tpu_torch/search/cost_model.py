@@ -88,12 +88,13 @@ class LearnedCostModel(PythonCostModel):
         self.internal = internal
         self.device = str(getattr(internal, "device", device))
         self.few_shot_learning = few_shot_learning
-        # reference XGBModel num_warmup_sample semantics
-        # (task_scheduler.py:100-102, xgb_model.py): update() does not
-        # refit until this many measured samples accumulated. For a
-        # PRETRAINED model this is what keeps early online updates from
-        # wiping the pretrained fit with a 16-sample refit — the
+        # num_warmup_sample (set by make_search_policies from
+        # task_scheduler.py:100-102): update() does not refit until this
+        # many measured samples accumulated, so for a PRETRAINED model the
         # pretrained predictions serve until enough local data exists.
+        # This gate on update() is the JAX package's, kept for parity; it
+        # is not the reference XGBModel's, which gates predict() (random
+        # scores until num_warmup_sample samples), not update().
         self.num_warmup_sample = num_warmup_sample
         self._inputs: List = []
         self._results: List = []

@@ -256,6 +256,9 @@ class TaskScheduler:
             self.dead_tasks.add(idx)
             return
         results = self.measurer.measure(task, states)
+        # unconditional, as in the JAX package: a '-no-update' policy's
+        # freeze does not reach a model handed in as cost_model (the
+        # PlusMix delta of transfer_tune's stage 2; see transfer_tune)
         if getattr(self, "cost_model", None) is not None:
             from ..records.serde import MeasureInput
 
@@ -340,7 +343,14 @@ def transfer_tune(scheduler: TaskScheduler, tune_option,
     mlp_model.py:446-474) — and tune the second half with the combined
     model. The delta keeps refitting as second-half measurements arrive;
     the base never moves. Both stages' models live on the scheduler's
-    ``device``."""
+    ``device``.
+
+    A fault of the reference kept for parity with the JAX package: with a
+    ``sketch.<kind>-no-update`` policy only stage 1's model is frozen.
+    Stage 2's ``_tune_task`` calls ``cost_model.update`` on every round
+    whatever the policy said, so the delta still refits there
+    (``tests/test_torch_cost_model.py::
+    test_transfer_tune_no_update_still_refits_the_delta_in_stage_2``)."""
     import copy
 
     n = len(scheduler.tasks)
