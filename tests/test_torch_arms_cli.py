@@ -231,9 +231,47 @@ def test_trace_summary_reads_a_cpu_trace(tmp_path, capsys):
     with tmisc.trace_profile(str(tmp_path)):
         with torch.profiler.record_function("fit_predictor"):
             (torch.ones(32, 32) @ torch.ones(32, 32)).sum()
+        with tmisc.span("select_programs"):
+            for _ in range(3):
+                with tmisc.span("select.sync"):
+                    torch.ones(4).sum()
+            with tmisc.span("fused_head.launch"):
+                torch.ones(4).sum()
     (f,) = _trace_files(tmp_path)
     tsum.main([f])
     out = capsys.readouterr().out.splitlines()
     s = json.loads(out[-1])
     assert s["kernel_events"] == 0 and s["idle_share"] == 1.0
     assert len(s["spans"]["fit_predictor"]) == 1
+    assert len(s["spans"]["select_programs"]) == 1
+    assert set(s["stages"]) == {"select.sync", "fused_head.launch"}
+    assert s["stages"]["select.sync"]["count"] == 3
+    assert s["stages"]["select.sync"]["idle_share"] == 1.0
+    assert any(ln.startswith("select.sync x3:") for ln in out)
+
+
+def test_trace_summary_sums_the_stage_ranges_by_name(tmp_path):
+    """Ranges named by a stage prefix are summed by name: wall time, the
+    kernel time inside them and the idle share that leaves."""
+    events = [
+        _x("user_annotation", "select_programs", 0.0, 1000.0),
+        _x("user_annotation", "select.sync", 100.0, 100.0),
+        _x("user_annotation", "select.sync", 500.0, 300.0),
+        _x("user_annotation", "fused_head.launch", 250.0, 50.0),
+        _x("user_annotation", "other.range", 0.0, 50.0),
+        _x("kernel", "fused_head_kernel", 150.0, 500.0),
+    ]
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    s = tsum.summarize(str(path))
+    assert set(s["stages"]) == {"select.sync", "fused_head.launch"}
+    sync = s["stages"]["select.sync"]
+    # 400 us of ranges; the kernel covers 150-200 and 500-650 of them
+    assert sync["count"] == 2
+    assert sync["wall_ms"] == pytest.approx(0.4)
+    assert sync["busy_ms"] == pytest.approx(0.2)
+    assert sync["idle_share"] == pytest.approx(0.5)
+    assert sync["kernels"] == 1
+    launch = s["stages"]["fused_head.launch"]
+    assert launch["busy_ms"] == pytest.approx(0.05)
+    assert launch["idle_share"] == pytest.approx(0.0)

@@ -8,11 +8,14 @@ It prints the traced window (the first event's start to the last event's
 end), the device busy time (the union of the CUDA kernel intervals) and
 the idle share that leaves, the kernel count and the top kernels by
 summed device time, and the same busy time and idle share inside each
-host-side range the port marks with ``torch.profiler.record_function``
-(``SPANS``: the VAE pretrain, each predictor fit, each selection phase);
-then the whole summary as one JSON line. Kernels run after their launch,
-so a range's busy time counts the kernel time inside the range's host
-bounds; each of these ranges ends in a host read of a device result.
+host-side range the port marks with ``utils/misc.py::span`` (``SPANS``:
+the VAE pretrain, each predictor fit, each selection phase), and summed
+by name over the ranges inside a phase (``STAGE_PREFIXES``: the stages of
+``select_programs``, ``select.prepare`` to ``select.random``, its host
+syncs ``select.sync``, and the fused head's ``fused_head.launch``); then
+the whole summary as one JSON line. Kernels run after their launch, so a
+range's busy time counts the kernel time inside the range's host bounds;
+each of the ``SPANS`` ends in a host read of a device result.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import json
 from typing import Dict, List, Tuple
 
 SPANS = ("vae_pretrain", "fit_predictor", "select_programs")
+STAGE_PREFIXES = ("select.", "fused_head.")
 
 
 def union_length(intervals: List[Tuple[float, float]]) -> float:
@@ -66,11 +70,24 @@ def summarize(path: str, top: int = 5) -> Dict:
                 "kernels": sum(lo <= a < hi for a, _, _ in kern[i:j])}
 
     spans: Dict[str, List[Dict]] = {}
+    stages: Dict[str, Dict] = {}
     for e in sorted(events, key=lambda e: float(e["ts"])):
-        if e.get("cat") == "user_annotation" and e["name"] in SPANS:
-            lo = float(e["ts"])
+        if e.get("cat") != "user_annotation":
+            continue
+        lo = float(e["ts"])
+        if e["name"] in SPANS:
             spans.setdefault(e["name"], []).append(
                 span(lo, lo + float(e["dur"])))
+        elif e["name"].startswith(STAGE_PREFIXES):
+            r = span(lo, lo + float(e["dur"]))
+            c = stages.setdefault(e["name"], dict.fromkeys(
+                ("count", "wall_ms", "busy_ms", "kernels"), 0))
+            c["count"] += 1
+            for k in ("wall_ms", "busy_ms", "kernels"):
+                c[k] += r[k]
+    for c in stages.values():
+        c["idle_share"] = (1.0 - c["busy_ms"] / c["wall_ms"]
+                           if c["wall_ms"] > 0 else 0.0)
     copies = [float(e["dur"]) for e in events
               if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
     return {
@@ -82,6 +99,7 @@ def summarize(path: str, top: int = 5) -> Dict:
         "top_kernels_ms": sorted(((n, c[1]) for n, c in by_name.items()),
                                  key=lambda x: -x[1])[:top],
         "spans": spans,
+        "stages": stages,
     }
 
 
@@ -104,6 +122,10 @@ def report(s: Dict) -> List[str]:
             lines.append(f"{name} {i + 1}: wall {r['wall_ms']:.1f} ms, "
                          f"device busy {r['busy_ms']:.1f} ms, idle share "
                          f"{r['idle_share']:.4f}, {r['kernels']} kernels")
+    for name, c in s["stages"].items():
+        lines.append(f"{name} x{c['count']}: wall {c['wall_ms']:.3f} ms, "
+                     f"device busy {c['busy_ms']:.3f} ms, idle share "
+                     f"{c['idle_share']:.4f}, {c['kernels']} kernels")
     return lines
 
 

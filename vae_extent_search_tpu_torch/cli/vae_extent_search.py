@@ -47,7 +47,7 @@ from ..search.active_loop import (
     run_gbdt_baseline_search,
 )
 from ..search.select import SelectionConfig
-from ..utils import trace_profile
+from ..utils import span, trace_profile
 
 # the default sweep grid of the grid arm
 DEFAULT_GRID = {
@@ -91,7 +91,7 @@ def run_experiment(pool=None, out_dir="result", measure_size=64,
     # the pool VAE is pretrained once and shared across sampling seeds
     if pretrained_vae_params is None and encoder_mode != "vib":
         t_vae = time.time()
-        with torch.profiler.record_function("vae_pretrain"):
+        with span("vae_pretrain"):
             pretrained_vae_params = pretrain_pool_vae(
                 feats, latent_dim=latent_dim, hidden_dim=hidden_dim,
                 vae_epochs=vae_epochs,
@@ -217,7 +217,7 @@ def run_grid(pool=None, out_dir="result", seeds=(2000,), max_phases=60,
     if not rows:
         return rows
     feats, _, _ = _load(pool, record_file, features)
-    with torch.profiler.record_function("vae_pretrain"):
+    with span("vae_pretrain"):
         vae_params = pretrain_pool_vae(feats, latent_dim=latent_dim,
                                        hidden_dim=hidden_dim,
                                        vae_epochs=vae_epochs, device=device)

@@ -45,6 +45,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.misc import span
 from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch, sm_count
 
 BM = 32           # candidates per block (csrc/fused_head.cu)
@@ -459,7 +460,9 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
     (``fused_head_stats.launches`` counts one per call,
     ``fused_head_stats.routes`` one per call under its :func:`smem_plan`
     route); ``groups`` replaces :func:`launch_plan`'s G (a tuned G, or
-    timing and tests).
+    timing and tests). Under a running profiler the host's work of a CUDA
+    call (checks, weight casts and transposes, the launch plan, the
+    library call) is the range "fused_head.launch".
     ``fused_head_stats.tap``, where set, is called with ``(x, T, groups)``
     first, on either device. The dropout
     words are ``mask_bits`` [T, N, H] uint32 when given, else Philox bits
@@ -479,8 +482,9 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
                                       gen, encoder)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(head_layers, x, int(seed), T, rate, mask_bits, encoder,
-                   groups)
+    with span("fused_head.launch"):
+        return _launch(head_layers, x, int(seed), T, rate, mask_bits,
+                       encoder, groups)
 
 
 fused_head_stats.launches = 0

@@ -10,41 +10,60 @@ argmax, running min) is monotonic in the distance.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 NEG_INF = -1e30
 
 
 def _sq_dist_block(a: torch.Tensor, b: torch.Tensor,
-                   b_valid: torch.Tensor) -> torch.Tensor:
+                   b_valid: torch.Tensor,
+                   sync=contextlib.nullcontext) -> torch.Tensor:
     """Squared euclidean distances [n, m] via the matmul identity, with
     invalid columns masked to +inf."""
     sq = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
           - 2.0 * a @ b.T)
-    inf = torch.tensor(float("inf"), dtype=sq.dtype, device=sq.device)
+    with sync():
+        inf = torch.tensor(float("inf"), dtype=sq.dtype, device=sq.device)
     return torch.where(b_valid[None, :], torch.clamp(sq, min=0.0), inf)
 
 
 def k_center_greedy_pool_core(z_pool: torch.Tensor, avail: torch.Tensor,
                               centers: torch.Tensor, c_valid: torch.Tensor,
-                              k: int):
+                              k: int, sync=contextlib.nullcontext):
     """Greedy farthest-first picks from the pool ``z_pool`` [P, D] where
     ``avail``, against ``centers`` [C, D] where ``c_valid``. Returns
     (local indices into the pool [k], valid [k]).
 
-    The loop stays on the device (no host sync per step). Ties go to the
-    lowest index, as jnp.argmax: torch.argmax returns the first maximum."""
-    min_sq = _sq_dist_block(z_pool, centers, c_valid).min(dim=1).values
+    Each step indexes with the 0-d device tensor ``j``, which PyTorch
+    reads on the host: on CUDA each such index, and each host scalar
+    copied to the device, waits for the card. ``sync()`` gives the
+    context each of them runs in (``select_programs`` counts and marks
+    them). Ties go to the lowest index, as jnp.argmax: torch.argmax
+    returns the first maximum."""
+    min_sq = _sq_dist_block(z_pool, centers, c_valid,
+                            sync).min(dim=1).values
     avail = avail.clone()
     sel = torch.zeros(k, dtype=torch.int64, device=z_pool.device)
     val = torch.zeros(k, dtype=torch.bool, device=z_pool.device)
-    neg = torch.tensor(NEG_INF, dtype=min_sq.dtype, device=min_sq.device)
+    with sync():
+        neg = torch.tensor(NEG_INF, dtype=min_sq.dtype, device=min_sq.device)
     for i in range(k):
         score = torch.where(avail, min_sq, neg)
         j = torch.argmax(score)
         sel[i] = j
-        val[i] = score[j] > NEG_INF / 2
-        avail[j] = False
-        d_new = torch.clamp(((z_pool - z_pool[j]) ** 2).sum(-1), min=0.0)
+        with sync():
+            score_j = score[j]
+        val[i] = score_j > NEG_INF / 2
+        # ``avail[j] = False`` as the two syncs it makes: the index's read
+        # and the copy of the host's False to the device
+        with sync():
+            j_host = int(j)
+        with sync():
+            avail[j_host] = False
+        with sync():
+            z_j = z_pool[j]
+        d_new = torch.clamp(((z_pool - z_j) ** 2).sum(-1), min=0.0)
         min_sq = torch.minimum(min_sq, d_new)
     return sel, val

@@ -58,6 +58,7 @@ from ..models.predictor import (
     pred_forward,
 )
 from ..models.vae import train_vae, vae_encode
+from ..utils.misc import span
 from .select import (
     SelectionConfig,
     farthest_point_init,
@@ -202,7 +203,7 @@ class _ModelPhase:
         ``measured``, from a fresh init with the pretrained encoder (none
         in the VIB arm). A profiler trace shows it as "fit_predictor"."""
         X = self.X
-        with torch.profiler.record_function("fit_predictor"):
+        with span("fit_predictor"):
             params = init_predictor_params(self.g_phase, X.shape[1],
                                            self.hidden_dim, self.latent_dim,
                                            device=X.device)
@@ -217,8 +218,7 @@ class _ModelPhase:
     def select(self, params, used, remaining, n_measured):
         """(pool indices to measure next, the new ``remaining`` mask)."""
         cfg = self.sel_cfg
-        with torch.no_grad(), torch.profiler.record_function(
-                "select_programs"):
+        with torch.no_grad():
             sel_idx, sel_valid, remaining, _ = select_programs(
                 params, self.X, used, remaining, self.g_sel, cfg,
                 gate_uncertainty_to_remaining=n_measured

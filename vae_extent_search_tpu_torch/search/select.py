@@ -19,6 +19,7 @@ hold duplicate rows whose scores tie exactly.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple
 
 import torch
@@ -28,17 +29,22 @@ from ..models.predictor import mc_predict, pred_encode, predict_cost
 from ..ops.fused_head import fused_head_stats
 from ..ops.kcenter import k_center_greedy_pool_core
 from ..ops.kernel_library import tuned_fused_head_config
+from ..utils.misc import span
 
 NEG_INF = -1e30
 
 
-def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int,
+                 sync=contextlib.nullcontext):
     """Indices of the k largest scores where mask (lowest index first on
     ties); masked-out entries score -inf. Returns (indices [k], valid
-    [k]); when k exceeds the pool size the tail is padded invalid."""
+    [k]); when k exceeds the pool size the tail is padded invalid.
+    ``sync()`` gives the context of the copy of -inf to the device, which
+    waits for the card on CUDA."""
     n = scores.shape[0]
     kk = min(k, n)
-    neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device)
+    with sync():
+        neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device)
     masked = torch.where(mask, scores, neg)
     vals, idx = torch.sort(masked, descending=True, stable=True)
     vals, idx = vals[:kk], idx[:kk]
@@ -72,21 +78,24 @@ def l2_normalize(z: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + eps)
 
 
-def first_k_true(mask: torch.Tensor, k: int, fill: int = 0) -> torch.Tensor:
+def first_k_true(mask: torch.Tensor, k: int, fill: int = 0,
+                 sync=contextlib.nullcontext) -> torch.Tensor:
     """Indices of the first k set entries of ``mask`` in index order,
-    padded with ``fill``."""
-    idx = torch.nonzero(mask).flatten()[:k]
+    padded with ``fill``. ``sync()`` gives the context of the nonzero,
+    whose count the host reads."""
+    with sync():
+        idx = torch.nonzero(mask).flatten()[:k]
     out = torch.full((k,), fill, dtype=torch.int64, device=mask.device)
     out[:idx.shape[0]] = idx
     return out
 
 
 def random_select(gen: torch.Generator, remaining_mask: torch.Tensor,
-                  k: int):
+                  k: int, sync=contextlib.nullcontext):
     """eps-greedy random pick without replacement from the remaining set."""
     noise = torch.rand(remaining_mask.shape[0], generator=gen,
                        device=gen.device).to(remaining_mask.device)
-    return masked_top_k(noise, remaining_mask, k)
+    return masked_top_k(noise, remaining_mask, k, sync)
 
 
 def _sq_dist_to(z: torch.Tensor, j) -> torch.Tensor:
@@ -277,54 +286,92 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
     row blocks, and the phase runs on the sharded path
     (``search/select_sharded.py``: the fused head on each rank's rows,
     every full-N top-k merged across ranks).
-    """
-    if mesh is not None and mesh.shape["data"] > 1:
-        from .select_sharded import select_programs_sharded
 
-        return select_programs_sharded(
-            params, X, used_mask, remaining_mask, gen, cfg, mesh,
-            gate_uncertainty_to_remaining=gate_uncertainty_to_remaining,
-            mask_bits=mask_bits, center_idx=center_idx,
-            center_valid=center_valid)
-    if cfg.compute_dtype != "float32":
-        ct = getattr(torch, cfg.compute_dtype)
-        params = tree_map(
-            lambda a: a.to(ct) if a.dtype == torch.float32 else a, params)
-        X = X.to(ct).contiguous()
+    Under a running profiler the phase is the range "select_programs",
+    and on one device its stages are ranges inside it: "select.prepare",
+    "select.score", "select.pool_topk", "select.picks", "select.kcenter"
+    and "select.random", with "select.sync" around each place where the
+    host waits for the card (the kernel's seed draw, the copies of -inf,
+    the k-center loop's 0-d indexing). ``select_programs.host_syncs``
+    counts those places as they are passed, profiler or not, on one
+    device (the sharded route's syncs are not counted).
+    """
+    with span("select_programs"):
+        if mesh is not None and mesh.shape["data"] > 1:
+            from .select_sharded import select_programs_sharded
+
+            return select_programs_sharded(
+                params, X, used_mask, remaining_mask, gen, cfg, mesh,
+                gate_uncertainty_to_remaining=gate_uncertainty_to_remaining,
+                mask_bits=mask_bits, center_idx=center_idx,
+                center_valid=center_valid)
+        return _select_one_device(params, X, used_mask, remaining_mask, gen,
+                                  cfg, gate_uncertainty_to_remaining,
+                                  mask_bits, center_idx, center_valid)
+
+
+select_programs.host_syncs = 0
+
+
+def _host_sync():
+    """The context of one place in ``select_programs`` where the host
+    waits for the card: counted, and a "select.sync" range."""
+    select_programs.host_syncs += 1
+    return span("select.sync")
+
+
+def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
+                       gate_uncertainty_to_remaining, mask_bits, center_idx,
+                       center_valid):
+    with span("select.prepare"):
+        if cfg.compute_dtype != "float32":
+            ct = getattr(torch, cfg.compute_dtype)
+            params = tree_map(
+                lambda a: a.to(ct) if a.dtype == torch.float32 else a,
+                params)
+            X = X.to(ct).contiguous()
+        fused = _use_fused_head(params, X, cfg, mask_bits)
+        if fused:
+            # the kernel's group count tuned for this shape on the card
+            # (cli/tune_kernel_suite.py's fusedhead family), where the
+            # process kernel library holds a record; launch_plan's G
+            # otherwise
+            h_dim, l_dim = params["fc_mu"]["w"].shape
+            groups = tuned_fused_head_config(
+                X.shape[0], X.shape[1], h_dim, l_dim, cfg.T_mc,
+                dtype=cfg.compute_dtype)
     mu = None
-    if _use_fused_head(params, X, cfg, mask_bits):
-        # the kernel's group count tuned for this shape on the card
-        # (cli/tune_kernel_suite.py's fusedhead family), where the process
-        # kernel library holds a record; launch_plan's G otherwise
-        h_dim, l_dim = params["fc_mu"]["w"].shape
-        groups = tuned_fused_head_config(
-            X.shape[0], X.shape[1], h_dim, l_dim, cfg.T_mc,
-            dtype=cfg.compute_dtype)
-        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
-                                 device=gen.device))
-        cost_pred, gnorm, _, mc_var = fused_head_stats(
-            params["cost_predictor"], X, seed, T=cfg.T_mc,
-            rate=cfg.dropout_rate, mask_bits=mask_bits,
-            encoder=(params["encoder"], params["fc_mu"]), groups=groups)
+    if fused:
+        with _host_sync():
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                     device=gen.device))
+        with span("select.score"):
+            cost_pred, gnorm, _, mc_var = fused_head_stats(
+                params["cost_predictor"], X, seed, T=cfg.T_mc,
+                rate=cfg.dropout_rate, mask_bits=mask_bits,
+                encoder=(params["encoder"], params["fc_mu"]), groups=groups)
     else:
-        mu, _ = pred_encode(params, X)
-        cost_pred = predict_cost(params, mu).float()
-        gnorm = z_grad_norms(params, mu).float()
-        # the encoder has no dropout: the T MC samples reuse mu
-        _, mc_var = mc_predict(params, X, gen, cfg.T_mc, cfg.dropout_rate,
-                               mu=mu)
-        mc_var = mc_var.float()
-        mu = mu.float()
+        with span("select.score"):
+            mu, _ = pred_encode(params, X)
+            cost_pred = predict_cost(params, mu).float()
+            gnorm = z_grad_norms(params, mu).float()
+            # the encoder has no dropout: the T MC samples reuse mu
+            _, mc_var = mc_predict(params, X, gen, cfg.T_mc,
+                                   cfg.dropout_rate, mu=mu)
+            mc_var = mc_var.float()
+            mu = mu.float()
 
     n = X.shape[0]
     dev = X.device
     k_pool = cfg.num_select * cfg.topk_factor
 
     # 2. candidate pool — the one full-N top-k; stages 3-6 pick from it
-    pool_idx, pool_valid = masked_top_k(cost_pred, remaining_mask, k_pool)
-    avail = pool_valid
-    cost_p, gnorm_p, mcvar_p = (cost_pred[pool_idx], gnorm[pool_idx],
-                                mc_var[pool_idx])
+    with span("select.pool_topk"):
+        pool_idx, pool_valid = masked_top_k(cost_pred, remaining_mask,
+                                            k_pool, _host_sync)
+        avail = pool_valid
+        cost_p, gnorm_p, mcvar_p = (cost_pred[pool_idx], gnorm[pool_idx],
+                                    mc_var[pool_idx])
 
     picked = torch.zeros(n, dtype=torch.bool, device=dev)
     none = (torch.zeros(0, dtype=torch.int64, device=dev),
@@ -332,60 +379,67 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
 
     def pick_local(scores_p, avail, k):
         """Pool-local masked top-k -> (global idx, valid, new avail)."""
-        li, lv = masked_top_k(scores_p, avail, k)
+        li, lv = masked_top_k(scores_p, avail, k, _host_sync)
         return pool_idx[li], lv, scatter_unset(avail, li, lv)
 
-    # 3. predicted-cost top-k
-    ci, cv, avail = pick_local(cost_p, avail, cfg.n_cost)
-    picked = scatter_set(picked, ci, cv)
+    with span("select.picks"):
+        # 3. predicted-cost top-k
+        ci, cv, avail = pick_local(cost_p, avail, cfg.n_cost)
+        picked = scatter_set(picked, ci, cv)
 
-    # 4. z-grad top-k
-    if cfg.grad_num:
-        gi, gv, avail = pick_local(gnorm_p, avail, cfg.grad_num)
-        picked = scatter_set(picked, gi, gv)
-    else:
-        gi, gv = none
+        # 4. z-grad top-k
+        if cfg.grad_num:
+            gi, gv, avail = pick_local(gnorm_p, avail, cfg.grad_num)
+            picked = scatter_set(picked, gi, gv)
+        else:
+            gi, gv = none
 
-    # 5. uncertainty top-k
-    if not cfg.n_unc:
-        ui, uv = none
-    elif gate_uncertainty_to_remaining:
-        ui, uv = masked_top_k(mc_var, remaining_mask & ~picked, cfg.n_unc)
-        picked = scatter_set(picked, ui, uv)
-        avail = avail & ~picked[pool_idx]
-    else:
-        ui, uv, avail = pick_local(mcvar_p, avail, cfg.n_unc)
-        picked = scatter_set(picked, ui, uv)
+        # 5. uncertainty top-k
+        if not cfg.n_unc:
+            ui, uv = none
+        elif gate_uncertainty_to_remaining:
+            ui, uv = masked_top_k(mc_var, remaining_mask & ~picked,
+                                  cfg.n_unc, _host_sync)
+            picked = scatter_set(picked, ui, uv)
+            avail = avail & ~picked[pool_idx]
+        else:
+            ui, uv, avail = pick_local(mcvar_p, avail, cfg.n_unc)
+            picked = scatter_set(picked, ui, uv)
 
     # 6. latent diversity (k-center greedy) restricted to the pool. The
     # fused path has no latents: it re-encodes the few hundred gathered
     # pool and center rows
-    if cfg.n_div:
-        if center_idx is not None:
-            cidx = torch.cat([center_idx.to(torch.int64), ci, gi, ui])
-            c_valid = torch.cat([center_valid, cv, gv, uv])
+    with span("select.kcenter"):
+        if cfg.n_div:
+            if center_idx is not None:
+                cidx = torch.cat([center_idx.to(torch.int64), ci, gi, ui])
+                c_valid = torch.cat([center_valid, cv, gv, uv])
+            else:
+                cmask = used_mask | picked
+                cidx = first_k_true(cmask, cfg.max_centers, sync=_host_sync)
+                c_valid = cmask[cidx]
+            if mu is None:
+                zp, _ = pred_encode(params, X[pool_idx])
+                zc, _ = pred_encode(params, X[cidx])
+                zp_norm = l2_normalize(zp.float())
+                centers = l2_normalize(zc.float())
+            else:
+                zp_norm = l2_normalize(mu[pool_idx])
+                centers = l2_normalize(mu[cidx])
+            dl, dv = k_center_greedy_pool_core(zp_norm, avail, centers,
+                                               c_valid, cfg.n_div, _host_sync)
+            di = pool_idx[dl]
         else:
-            cmask = used_mask | picked
-            cidx = first_k_true(cmask, cfg.max_centers)
-            c_valid = cmask[cidx]
-        if mu is None:
-            zp, _ = pred_encode(params, X[pool_idx])
-            zc, _ = pred_encode(params, X[cidx])
-            zp_norm = l2_normalize(zp.float())
-            centers = l2_normalize(zc.float())
-        else:
-            zp_norm = l2_normalize(mu[pool_idx])
-            centers = l2_normalize(mu[cidx])
-        dl, dv = k_center_greedy_pool_core(zp_norm, avail, centers, c_valid,
-                                           cfg.n_div)
-        di = pool_idx[dl]
-    else:
-        di, dv = none
-    picked = scatter_set(picked, di, dv)
+            di, dv = none
+        picked = scatter_set(picked, di, dv)
 
     # 7. eps-greedy random from remaining minus picked
-    ri, rv = (random_select(gen, remaining_mask & ~picked, cfg.rand_num)
-              if cfg.rand_num else none)
+    if cfg.rand_num:
+        with span("select.random"):
+            ri, rv = random_select(gen, remaining_mask & ~picked,
+                                   cfg.rand_num, _host_sync)
+    else:
+        ri, rv = none
     picked = scatter_set(picked, ri, rv)
 
     parts = [(ci, cv), (gi, gv), (ui, uv), (di, dv), (ri, rv)]
