@@ -123,6 +123,21 @@ def test_scatter_and_first_k_true():
     assert np.asarray(ref).tolist() == [2, 5, 7]
 
 
+@pytest.mark.parametrize("n,k,density", [
+    (50, 8, 0.3), (50, 8, 0.0), (50, 8, 1.0), (5, 12, 0.6), (300, 256, 0.5),
+])
+def test_first_k_true_matches_the_nonzero_compaction(n, k, density):
+    """The sync-free compaction against the nonzero it replaced: the
+    first k set indices in order, ``fill`` past the set ones (k past n
+    too)."""
+    mask = torch.as_tensor(np.random.default_rng(n + k).random(n) < density)
+    on = torch.nonzero(mask).flatten()[:k].tolist()
+    want = on + [n] * (k - len(on))
+    assert ts.first_k_true(mask, k, fill=n).tolist() == want
+    ref = js.first_k_true(jnp.asarray(mask.numpy()), k, fill=n)
+    assert np.asarray(ref).tolist() == want
+
+
 def test_budget_split_matches_jax():
     for kw in (dict(num_select=32), dict(num_select=64, w_cost=0.4,
                                          w_unc=0.3, w_div=0.3, grad_num=4),

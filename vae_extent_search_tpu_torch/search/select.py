@@ -19,7 +19,6 @@ hold duplicate rows whose scores tie exactly.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, NamedTuple
 
 import torch
@@ -34,18 +33,14 @@ from ..utils.misc import span
 NEG_INF = -1e30
 
 
-def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int,
-                 sync=contextlib.nullcontext):
+def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
     """Indices of the k largest scores where mask (lowest index first on
-    ties); masked-out entries score -inf. Returns (indices [k], valid
-    [k]); when k exceeds the pool size the tail is padded invalid.
-    ``sync()`` gives the context of the copy of -inf to the device, which
-    waits for the card on CUDA."""
+    ties); masked-out entries score -1e30, a Python scalar in the same
+    dtype, so nothing is copied from the host. Returns (indices [k], valid
+    [k]); when k exceeds the pool size the tail is padded invalid."""
     n = scores.shape[0]
     kk = min(k, n)
-    with sync():
-        neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device)
-    masked = torch.where(mask, scores, neg)
+    masked = torch.where(mask, scores, NEG_INF)
     vals, idx = torch.sort(masked, descending=True, stable=True)
     vals, idx = vals[:kk], idx[:kk]
     valid = vals > NEG_INF / 2
@@ -78,24 +73,25 @@ def l2_normalize(z: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + eps)
 
 
-def first_k_true(mask: torch.Tensor, k: int, fill: int = 0,
-                 sync=contextlib.nullcontext) -> torch.Tensor:
+def first_k_true(mask: torch.Tensor, k: int, fill: int = 0) -> torch.Tensor:
     """Indices of the first k set entries of ``mask`` in index order,
-    padded with ``fill``. ``sync()`` gives the context of the nonzero,
-    whose count the host reads."""
-    with sync():
-        idx = torch.nonzero(mask).flatten()[:k]
-    out = torch.full((k,), fill, dtype=torch.int64, device=mask.device)
-    out[:idx.shape[0]] = idx
-    return out
+    padded with ``fill``. Each set entry is scattered to its rank among
+    the set entries (a cumsum); the ranks past k and the unset entries go
+    to one spare slot, dropped. The host reads no count, so on CUDA
+    nothing waits for the card."""
+    rank = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (rank < k), rank, k)
+    out = torch.full((k + 1,), fill, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.shape[0], device=mask.device))
+    return out[:k]
 
 
 def random_select(gen: torch.Generator, remaining_mask: torch.Tensor,
-                  k: int, sync=contextlib.nullcontext):
+                  k: int):
     """eps-greedy random pick without replacement from the remaining set."""
     noise = torch.rand(remaining_mask.shape[0], generator=gen,
                        device=gen.device).to(remaining_mask.device)
-    return masked_top_k(noise, remaining_mask, k, sync)
+    return masked_top_k(noise, remaining_mask, k)
 
 
 def _sq_dist_to(z: torch.Tensor, j) -> torch.Tensor:
@@ -287,14 +283,22 @@ def select_programs(params: Dict, X: torch.Tensor, used_mask: torch.Tensor,
     (``search/select_sharded.py``: the fused head on each rank's rows,
     every full-N top-k merged across ranks).
 
+    On one device the host waits for the card once, at the draw of the
+    kernel's seed, before anything of the phase is queued; every later
+    stage (the casts, the kernel, the top-ks, the k-center re-encode and
+    loop, the scatters) is queued behind it without a read on the host,
+    so on CUDA the function returns while the card still works and the
+    caller's first read of the outputs waits for the phase. (A generator
+    on another device than the data's would add a wait, at the copy of
+    the random stage's noise; every caller keeps both on one device.)
+
     Under a running profiler the phase is the range "select_programs",
     and on one device its stages are ranges inside it: "select.prepare",
     "select.score", "select.pool_topk", "select.picks", "select.kcenter"
-    and "select.random", with "select.sync" around each place where the
-    host waits for the card (the kernel's seed draw, the copies of -inf,
-    the k-center loop's 0-d indexing). ``select_programs.host_syncs``
-    counts those places as they are passed, profiler or not, on one
-    device (the sharded route's syncs are not counted).
+    and "select.random", with "select.sync" around each of those waits.
+    ``select_programs.host_syncs`` counts them as they are passed,
+    profiler or not, on one device (the sharded route's syncs are not
+    counted).
     """
     with span("select_programs"):
         if mesh is not None and mesh.shape["data"] > 1:
@@ -323,6 +327,14 @@ def _host_sync():
 def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                        gate_uncertainty_to_remaining, mask_bits, center_idx,
                        center_valid):
+    # the phase's one host wait: the kernel's seed, the generator's first
+    # draw, read before the casts are queued (the gate reads only shapes
+    # and devices, which the casts keep)
+    fused = _use_fused_head(params, X, cfg, mask_bits)
+    if fused:
+        with _host_sync():
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                     device=gen.device))
     with span("select.prepare"):
         if cfg.compute_dtype != "float32":
             ct = getattr(torch, cfg.compute_dtype)
@@ -330,7 +342,6 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                 lambda a: a.to(ct) if a.dtype == torch.float32 else a,
                 params)
             X = X.to(ct).contiguous()
-        fused = _use_fused_head(params, X, cfg, mask_bits)
         if fused:
             # the kernel's group count tuned for this shape on the card
             # (cli/tune_kernel_suite.py's fusedhead family), where the
@@ -342,9 +353,6 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                 dtype=cfg.compute_dtype)
     mu = None
     if fused:
-        with _host_sync():
-            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
-                                     device=gen.device))
         with span("select.score"):
             cost_pred, gnorm, _, mc_var = fused_head_stats(
                 params["cost_predictor"], X, seed, T=cfg.T_mc,
@@ -368,7 +376,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
     # 2. candidate pool — the one full-N top-k; stages 3-6 pick from it
     with span("select.pool_topk"):
         pool_idx, pool_valid = masked_top_k(cost_pred, remaining_mask,
-                                            k_pool, _host_sync)
+                                            k_pool)
         avail = pool_valid
         cost_p, gnorm_p, mcvar_p = (cost_pred[pool_idx], gnorm[pool_idx],
                                     mc_var[pool_idx])
@@ -379,7 +387,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
 
     def pick_local(scores_p, avail, k):
         """Pool-local masked top-k -> (global idx, valid, new avail)."""
-        li, lv = masked_top_k(scores_p, avail, k, _host_sync)
+        li, lv = masked_top_k(scores_p, avail, k)
         return pool_idx[li], lv, scatter_unset(avail, li, lv)
 
     with span("select.picks"):
@@ -399,7 +407,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
             ui, uv = none
         elif gate_uncertainty_to_remaining:
             ui, uv = masked_top_k(mc_var, remaining_mask & ~picked,
-                                  cfg.n_unc, _host_sync)
+                                  cfg.n_unc)
             picked = scatter_set(picked, ui, uv)
             avail = avail & ~picked[pool_idx]
         else:
@@ -416,7 +424,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                 c_valid = torch.cat([center_valid, cv, gv, uv])
             else:
                 cmask = used_mask | picked
-                cidx = first_k_true(cmask, cfg.max_centers, sync=_host_sync)
+                cidx = first_k_true(cmask, cfg.max_centers)
                 c_valid = cmask[cidx]
             if mu is None:
                 zp, _ = pred_encode(params, X[pool_idx])
@@ -427,7 +435,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                 zp_norm = l2_normalize(mu[pool_idx])
                 centers = l2_normalize(mu[cidx])
             dl, dv = k_center_greedy_pool_core(zp_norm, avail, centers,
-                                               c_valid, cfg.n_div, _host_sync)
+                                               c_valid, cfg.n_div)
             di = pool_idx[dl]
         else:
             di, dv = none
@@ -437,7 +445,7 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
     if cfg.rand_num:
         with span("select.random"):
             ri, rv = random_select(gen, remaining_mask & ~picked,
-                                   cfg.rand_num, _host_sync)
+                                   cfg.rand_num)
     else:
         ri, rv = none
     picked = scatter_set(picked, ri, rv)

@@ -67,8 +67,7 @@ def local_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int,
     kk = min(k, rows) masked scores (-1e30 where masked out), lowest index
     first on ties; ``base`` is the rank's first global row."""
     kk = min(k, scores.shape[0])
-    masked = torch.where(mask, scores.float(),
-                         torch.tensor(NEG_INF, device=scores.device))
+    masked = torch.where(mask, scores.float(), NEG_INF)
     vals, idx = torch.sort(masked, descending=True, stable=True)
     return vals[:kk], idx[:kk] + base
 
