@@ -64,7 +64,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      and the flipped units' largest |a| go into the checks record); f32's
      gnorm is held at its tolerance as every other output; two
      launches bit-identical at G > 1 and in bfloat16; bench rows launched
-     alone from an offset off the 32-row tile equal the full launch's
+     alone from an offset off the 32-row tile equal the full launch's;
+     and the bfloat16 split route at the vae_perstore cell's shape
+     (262,144 x 820 float32 rows with dtype=bfloat16: the first encoder
+     layer as the port's bf16 GEMM ahead of the kernel, one GEMM launch
+     per chunk of SPLIT_ROWS rows, one kernel launch, counted from 0)
+     against the plain version on the rounded rows, gnorm as above
   3. the in-kernel Philox path: cost and gnorm equal the injected-bits
      run bit for bit (bench and main shapes, float32 and bfloat16); the
      mean MC variance and the mean MC offset (mc_mean - cost) are within
@@ -454,6 +459,9 @@ PEAKS = {
     "H200": {"float32": 67e12, "bfloat16": 989e12, "bytes": 4.8e12},
 }
 BENCH = dict(n=262_144, d=24, hid=256, lat=64, hp=256, T=10)
+# the vae_perstore.select_262k cell's shape (per-store rows, 5 x 164): in
+# bfloat16 the wrapper runs the first encoder layer ahead of the kernel
+PERSTORE = dict(n=262_144, d=820, hid=256, lat=64, hp=256, T=10)
 # phase 6's seeds, cut from 2000-2002 for the time limit when phase 20
 # came (phase 20 runs the same path for three more seeds; the 20-seed band
 # is PERF.md's, from the command line)
@@ -5514,6 +5522,69 @@ def head_phases(dev, peaks, fh, th):
                 log(f"[2] bench bf16: rows [{lo}, {hi}) launched alone equal"
                     f" the full launch's bit for bit")
             del bits, got, ref
+
+    # the bf16 split route at the vae_perstore.select_262k cell's shape:
+    # float32 rows handed over with dtype=bfloat16, the first encoder layer
+    # run ahead of the kernel as the port's bf16 GEMM in chunks of
+    # fh.SPLIT_ROWS rows (fh.split_first_layer), the kernel on its output;
+    # held against the plain version on the rounded rows, with the GEMM
+    # and kernel launches counted from 0
+    from vae_extent_search_tpu_torch.ops import matmul as om
+
+    label, shape, dtype = "perstore_split", PERSTORE, torch.bfloat16
+    log_plan(label, shape, dtype)
+    p, x = setup(shape, torch.float32, 1)
+    head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+    widths = [l["w"].shape[1] for l in (*enc[0], enc[1])]
+    if not fh.split_first_layer(True, shape["d"], widths):
+        raise RuntimeError(f"{label}: the wrapper would not split D "
+                           f"{shape['d']} over widths {widths}")
+    bits = words(shape, 2)
+    before = dict(fh.fused_head_stats.routes)
+    om.matmul.launches = 0
+    fh.fused_head_stats.launches = 0
+    fh.fused_head_stats.splits = 0
+    got = fh.fused_head_stats(head, x, 0, T=shape["T"], rate=0.1,
+                              mask_bits=bits, encoder=enc, dtype=dtype)
+    torch.cuda.synchronize()
+    counted = (om.matmul.launches, fh.fused_head_stats.launches,
+               fh.fused_head_stats.splits)
+    chunks = -(-shape["n"] // fh.SPLIT_ROWS)
+    route = [r for r, c in fh.fused_head_stats.routes.items()
+             if c != before[r]]
+    routes[(label, dtype)] = route
+    log(f"[2] {label} N={shape['n']} D={shape['d']}: {counted[0]} GEMM "
+        f"launch(es), {counted[1]} kernel launch(es), {counted[2]} split(s)"
+        f", route {route}")
+    if counted != (chunks, 1, 1) or route != ["resident"]:
+        raise RuntimeError(f"{label}: (GEMM, kernel, split) launches "
+                           f"{counted}, route {route}; want ({chunks}, 1, "
+                           f"1) on the resident route")
+    xb = x.to(dtype)
+    del x
+    ref = plain(p, xb, shape, bits=bits)
+    rel, mabs = {}, 0.0
+    for nm, g, r in zip(names, got, ref):
+        if g.shape != (shape["n"],) or not torch.isfinite(g).all():
+            raise RuntimeError(f"{label}: {nm} not finite or of shape "
+                               f"{tuple(g.shape)}")
+        rel[nm] = float((g - r).abs().max() / r.abs().max())
+        mabs = max(mabs, float((g - r).abs().max()))
+    check = fh.gnorm_errors(got[1], ref[1], head, xb, enc, TOL[dtype])
+    rel["gnorm"] = check.err
+    kink_rows[label] = check._asdict()
+    errors[(label, dtype)] = (rel, mabs)
+    log(f"[2] {label} N={shape['n']} bfloat16: rel err "
+        + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
+        + f" (tol {TOL[dtype]:g}); max abs {mabs:.3e}; {check.kinks} row(s)"
+        f" at a ReLU kink (flipped |a| <= {check.flipped_abs_max:.3e}, "
+        f"{check.flipped_ulps_max:.3f} input ulps, KINK_ULPS "
+        f"{fh.KINK_ULPS})")
+    if check.kinks > max(2, shape["n"] // 1000):
+        raise RuntimeError(f"{label}: {check}: too many rows at a kink")
+    if max(rel.values()) > TOL[dtype]:
+        raise RuntimeError(f"kernel disagrees with plain: {label}: {rel}")
+    del bits, got, ref, xb
 
     # ---- 3. Philox path ----
     for label, shape in (("main", main_shape), ("bench", BENCH)):

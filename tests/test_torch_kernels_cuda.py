@@ -178,6 +178,161 @@ def test_fused_head_bf16_rows_do_not_depend_on_the_launch(dev, groups):
         assert torch.equal(a[lo:hi], c)
 
 
+# the cell vae_perstore.select_262k's widths (per-store rows, 5 x 164):
+# bf16 runs the first encoder layer as a GEMM ahead of the kernel
+# (fh.split_first_layer), in chunks of fh.SPLIT_ROWS rows
+PERSTORE = dict(d=820, hid=256, lat=64, hp=256)
+
+
+def _unsplit(monkeypatch):
+    monkeypatch.setattr(fh, "split_first_layer", lambda *a: False)
+
+
+def test_fused_head_bf16_split_matches_the_unsplit_kernel(dev, monkeypatch):
+    """At the per-store widths the split route (the first layer's GEMM,
+    then the kernel on its output) and the unsplit kernel both hold the
+    plain version's tolerances (gnorm through fh.gnorm_errors), agree with
+    each other, launch one GEMM per chunk and one kernel, and a row's
+    outputs depend on nothing but the row."""
+    from vae_extent_search_tpu_torch.ops import matmul as om
+
+    n, T, rows = 40_000, 10, 16_384  # chunks end off the row count
+    monkeypatch.setattr(fh, "SPLIT_ROWS", rows)
+    # float32 rows and parameters, rounded by the wrapper as it reads them
+    p, x, bits = _setup(dev, n, torch.float32, T=T, seed=11, **PERSTORE)
+    head, enc = p["cost_predictor"], (p["encoder"], p["fc_mu"])
+
+    def run(xs, bs):
+        return fh.fused_head_stats(head, xs, 0, T=T, rate=0.1, mask_bits=bs,
+                                   encoder=enc, dtype=torch.bfloat16)
+
+    mm0, routes0 = om.matmul.launches, dict(fh.fused_head_stats.routes)
+    splits0 = fh.fused_head_stats.splits
+    split = run(x, bits)
+    torch.cuda.synchronize()
+    assert om.matmul.launches - mm0 == -(-n // rows)
+    assert fh.fused_head_stats.splits - splits0 == 1
+    assert fh.fused_head_stats.routes["resident"] - routes0["resident"] == 1
+    lo, hi = 45, 20_045
+    part = run(x[lo:hi], bits[:, lo:hi].contiguous())
+    xb = x.to(torch.bfloat16)
+    ref = fh.fused_head_stats_plain(head, xb, T, 0.1, mask_bits=bits,
+                                    encoder=enc)
+    with monkeypatch.context() as m:
+        _unsplit(m)
+        mm0, splits0 = om.matmul.launches, fh.fused_head_stats.splits
+        whole = run(xb, bits)
+        torch.cuda.synchronize()
+        assert om.matmul.launches == mm0
+        assert fh.fused_head_stats.splits == splits0
+    for i, name in enumerate(("cost", "gnorm", "mc_mean", "mc_var")):
+        assert torch.equal(split[i][lo:hi], part[i]), name
+        for got in (split, whole):
+            assert torch.isfinite(got[i]).all(), name
+            err = _rel(got[i], ref[i])
+            if name == "gnorm":  # a row at a ReLU kink: see _gnorm_rel
+                err = _gnorm_rel(got[i], ref[i], head, xb, enc, 2e-2, n)
+            assert err <= 2e-2, (name, err)
+        if name != "gnorm":
+            assert _rel(split[i], whole[i]) <= 2e-2, name
+
+
+def _perstore_phases(dev, n_phases, seed, X, per_phase):
+    """A closed loop of selection phases over X as the benchmark's cells
+    run it: episodes of 8 phases from 32 measured rows, fresh parameters
+    each phase, uncertainty gated to every remaining row while fewer than
+    128 are measured; ``per_phase(params, X, used, remaining, gen_seed,
+    gated, cfg)`` runs a phase and returns (sel_idx, sel_valid,
+    new_remaining)."""
+    from vae_extent_search_tpu_torch.search.select import SelectionConfig
+
+    cfg = SelectionConfig(num_select=32, T_mc=10, uncertainty_topk=128,
+                          topk_factor=5, max_centers=4096,
+                          compute_dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = X.shape[0]
+    dims = [(820, 256), (256, 256), (256, 256)]
+
+    def dense(i, o):
+        bw, bb = (3.0 / i) ** 0.5, (1.0 / i) ** 0.5
+        return {"w": (torch.rand(i, o, generator=g, device=dev) * 2 - 1) * bw,
+                "b": (torch.rand(o, generator=g, device=dev) * 2 - 1) * bb}
+
+    for ph in range(n_phases):
+        if ph % 8 == 0:
+            used = torch.zeros(n, dtype=torch.bool, device=dev)
+            used[torch.randperm(n, generator=g, device=dev)[:32]] = True
+        params = {"encoder": [dense(i, o) for i, o in dims],
+                  "fc_mu": dense(256, 64), "fc_logvar": dense(256, 64),
+                  "cost_predictor": [dense(64, 256), dense(256, 256),
+                                     dense(256, 1)]}
+        gated = int(used.sum()) < cfg.uncertainty_topk
+        idx, valid, remaining = per_phase(params, X, used, ~used,
+                                          seed * 1000 + ph, gated, cfg)
+        used = ~remaining
+        yield idx, valid, remaining
+
+
+def test_select_picks_equal_the_unsplit_route_over_48_phases(dev,
+                                                            monkeypatch):
+    """48 closed-loop selection phases at the vae_perstore cell's size and
+    widths: every phase's picks, their validity and the new remaining mask
+    equal those of the same phase on the unsplit route."""
+    from vae_extent_search_tpu_torch.search.select import select_programs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    X = torch.randn(262_144, 820, generator=g, device=dev)
+
+    def one(params, X, used, remaining, gen_seed, gated, cfg):
+        def go():
+            gen = torch.Generator(device=dev).manual_seed(gen_seed)
+            return select_programs(params, X, used, remaining, gen, cfg,
+                                   gate_uncertainty_to_remaining=gated)[:3]
+        got = go()
+        with monkeypatch.context() as m:
+            _unsplit(m)
+            ref = go()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), (gen_seed, gated)
+        return got
+
+    phases = list(_perstore_phases(dev, 48, 26, X, one))
+    assert len(phases) == 48
+
+
+def test_select_phase_peak_memory_does_not_rise_with_the_split(dev,
+                                                              monkeypatch):
+    """One selection phase over 262,144 x 820 float32 rows: the device
+    memory the phase allocates above the pool, by
+    torch.cuda.max_memory_allocated, is lower on the split route than on
+    the unsplit one, whose whole-X bf16 copy (0.43 GB) alone exceeds the
+    split's chunks and first-layer output."""
+    from vae_extent_search_tpu_torch.search.select import select_programs
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    X = torch.randn(262_144, 820, generator=g, device=dev)
+    peaks = {}
+
+    def one(params, X, used, remaining, gen_seed, gated, cfg):
+        for name in ("unsplit", "split"):
+            with monkeypatch.context() as m:
+                if name == "unsplit":
+                    _unsplit(m)
+                gen = torch.Generator(device=dev).manual_seed(gen_seed)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out = select_programs(params, X, used, remaining, gen, cfg,
+                                      gate_uncertainty_to_remaining=gated)
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated() - base
+        return out[:3]
+
+    list(_perstore_phases(dev, 1, 27, X, one))
+    assert peaks["split"] < peaks["unsplit"], peaks
+    assert peaks["split"] < X.numel() * 2, peaks  # no whole bf16 copy
+
+
 def test_fused_head_bf16_instance_runs_on_the_tensor_cores(dev):
     """cuobjdump: HMMA (mma.sync) in the bf16 instance, none in the f32
     instance, which stays on the CUDA cores."""

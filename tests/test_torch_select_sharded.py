@@ -141,6 +141,13 @@ VARIANTS = [
     ("unfused_gate_mask_centers", dict(rand_num=4, dropout_rate=0.0), False,
      True, False, False),
     ("unfused_mc", dict(rand_num=4), False, True, True, False),
+    # bfloat16: each rank hands the fused head its float32 rows, which
+    # the head rounds as it reads them, and rounds the gathered rows it
+    # re-encodes for k-center, as the single-device phase does
+    ("fused_bf16", dict(rand_num=0, compute_dtype="bfloat16"), True, False,
+     True, False),
+    ("fused_bf16_mask_centers", dict(rand_num=0, compute_dtype="bfloat16"),
+     True, True, False, False),
 ]
 
 

@@ -77,7 +77,15 @@
 // warps per SM. Where W1 does not fit beside the rest (H0 x H1 past ~256 x
 // 256) the same routine streams W1 (and W1^T for the backward) through
 // the ring; the wrapper chooses the route by shape before the launch
-// (ops/fused_head.py::smem_plan). The backward runs after the passes, so
+// (ops/fused_head.py::smem_plan). Where the input is wider than the first
+// encoder layer's output (the per-store rows: D 820 against 256), a block
+// would stage that layer's 420 KB of weights from L2 for its 32 rows, ~3.5
+// ms of a 9.1-ms launch at N = 262,144 (PERF.md); there the wrapper runs
+// the layer ahead of this kernel as one tensor-core GEMM over all rows
+// (ops/fused_head.py::split_first_layer, ops/matmul.py, under the same
+// contract: f32 sums, bias, ReLU, one rounding) and launches this kernel
+// on its [N, 256] bf16 output with the other layers, so this instance
+// runs unchanged. float32 never splits. The backward runs after the passes, so
 // that gz finds W1's region free. Measured on an H100 (PERF.md), a pass
 // is paced by shared-memory reads (each of the 8 warps reads the whole 32
 // x 16 A tile per step beside its B tile) and by Philox's IMADs, the ring

@@ -21,14 +21,17 @@ tensor cores (``mma.sync``), with W1 held in shared memory for the whole
 block where it fits beside the rest and streamed through the weight ring
 where it does not. :func:`smem_plan` chooses that route by shape before
 the launch; ``fused_head_stats.routes`` counts the launches per route.
+Where the input is wider than the first encoder layer's output, bfloat16
+runs that layer ahead of the kernel as one tensor-core GEMM
+(:func:`split_first_layer`), chosen by shape alone as well.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``vae_extent_search_tpu_torch/build/`` and loaded with ctypes through a
 plain C interface (``ops/build.py``).
 
 Numerics (both versions, as the JAX kernel): matmul operands are rounded
-to the compute dtype (the input's dtype, float32 or bfloat16) and
-accumulated in float32; biases are rounded to the compute dtype and
+to the compute dtype (``dtype=``, else the input's; float32 or bfloat16)
+and accumulated in float32; biases are rounded to the compute dtype and
 added in float32, except ``b2``, which stays float32. Dropout keeps a
 hidden unit of h0 when its 32-bit random word is ``>= min(int(rate *
 2**32), 2**32 - 1)`` and scales kept units by ``1 / (1 - rate)``.
@@ -47,6 +50,7 @@ import torch
 
 from ..utils.misc import span
 from .build import MAX_SMEM_BYTES, CudaLibrary, check_launch, sm_count
+from .matmul import TMA_ALIGN, matmul
 
 BM = 32           # candidates per block (csrc/fused_head.cu)
 MAX_GROUPS = 32   # grid rows the kernel takes
@@ -64,6 +68,12 @@ ROUTES = ("fma", "resident", "streamed")
 # so several inputs of a unit may be off at once (chip_smoke.py phase 2
 # records how far the kink rows' units lay; PERF.md)
 KINK_ULPS = 8
+# the bf16 route's first encoder layer ahead of the kernel
+# (split_first_layer): rows of x rounded and multiplied per chunk, and the
+# bf16 matmul's block configuration (ops/matmul.py; one 128 x 256 tile of
+# the layer's output per block)
+SPLIT_ROWS = 65536
+SPLIT_BLOCK = (128, 256, 64)
 
 _log = logging.getLogger(__name__)
 
@@ -172,6 +182,19 @@ def fused_head_passes_plain(head_layers: List[Dict], x: torch.Tensor,
         h1t = rnd(torch.relu(torch.where(keep, h0s, zero) @ w1 + b1))
         deltas.append((h1t @ w2 + b2) - cost)
     return cost, gnorm, deltas
+
+
+def first_layer_plain(layer: Dict, x: torch.Tensor,
+                      ct: torch.dtype) -> torch.Tensor:
+    """rnd(ReLU(rnd(x) @ rnd(w) + rnd(b))) [N, H] in ``ct``: the first
+    encoder layer as the split route computes it ahead of the kernel
+    (:func:`split_first_layer`), products summed in float32 and rounded
+    once. :func:`fused_head_stats_plain` on it with the encoder's other
+    layers equals the unsplit call bit for bit."""
+    def rnd(t):
+        return t.to(ct).to(torch.float32)
+
+    return torch.relu(rnd(x) @ rnd(layer["w"]) + rnd(layer["b"])).to(ct)
 
 
 def fused_head_stats_plain(head_layers: List[Dict], x: torch.Tensor, T: int,
@@ -409,6 +432,22 @@ def w0_resident(L: int, H0: int, H1: int) -> bool:
     return _up(L, 16) * (_up(H0, 16) + KP) <= _up(H0, 16) * (_up(H1, 16) + KP)
 
 
+def split_first_layer(bf16: bool, d: int, enc_widths: Sequence[int]) -> bool:
+    """Whether the kernel's wrapper runs the first encoder layer ahead of
+    the kernel, as one tensor-core GEMM over all rows (:func:`_first_layer`),
+    and launches the kernel on its output with the other layers. ``d`` is
+    the input width, ``enc_widths`` the output widths of the encoder's
+    layers, fc_mu last. bfloat16 only, where an encoder layer precedes
+    fc_mu and ``d`` exceeds its width: a 32-row block of the kernel stages
+    each weight it reads once from L2 and uses it for only 32 rows, so a
+    wide first layer costs the kernel far more than its operations; the
+    GEMM's 128 x 256 tiles read it once per 128 rows, and the kernel then
+    reads the narrower [N, width] output instead of x. float32 never
+    splits: its CUDA-core kernel is paced by its operations, which a
+    split would not reduce."""
+    return bf16 and len(enc_widths) >= 2 and d > enc_widths[0]
+
+
 @lru_cache(maxsize=1024)
 def smem_plan(bf16: bool, width: int, H0: int, H1: int) -> Tuple[str, int]:
     """(route, shared-memory bytes per block) the kernel takes for these
@@ -450,16 +489,30 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
                      T: int = 10, rate: float = 0.1,
                      mask_bits: Optional[torch.Tensor] = None,
                      encoder: Optional[Tuple[Sequence[Dict], Dict]] = None,
-                     groups: Optional[int] = None):
+                     groups: Optional[int] = None,
+                     dtype: Optional[torch.dtype] = None):
     """cost, gnorm, mc_mean, mc_var — each [N] float32 — for a
     2-hidden-layer ReLU cost head over ``x``: latents [N, L], or raw
     features [N, D] with ``encoder=(encoder_layers, fc_mu)`` run first.
+    ``dtype`` is the compute dtype, ``x``'s own where None; a float32
+    ``x`` is rounded to it as it is read (``x.to(dtype)``), so a caller
+    need not cast the whole of it.
+
+    Where :func:`split_first_layer` holds (bfloat16, the input wider than
+    the first encoder layer's output), the first encoder layer runs ahead
+    of the kernel as one tensor-core GEMM per chunk of ``SPLIT_ROWS`` rows
+    (:func:`_first_layer`: each chunk rounded to bfloat16, multiplied with
+    ``ops/matmul.py::matmul``, the bias added to the float32 sums, one
+    rounding, ReLU), and the kernel runs on that [N, width] output with
+    the other encoder layers and fc_mu, under the unsplit kernel's
+    contract (:func:`first_layer_plain`).
 
     On a CUDA tensor this launches the CUDA kernel on the current stream,
     and where the plan has G > 1 groups the kernel that adds their sums
     (``fused_head_stats.launches`` counts one per call,
     ``fused_head_stats.routes`` one per call under its :func:`smem_plan`
-    route); ``groups`` replaces :func:`launch_plan`'s G (a tuned G, or
+    route, ``fused_head_stats.splits`` one per call that ran the first
+    encoder layer ahead of the kernel); ``groups`` replaces :func:`launch_plan`'s G (a tuned G, or
     timing and tests). Under a running profiler the host's work of a CUDA
     call (checks, weight casts and transposes, the launch plan, the
     library call) is the range "fused_head.launch".
@@ -474,31 +527,68 @@ def fused_head_stats(head_layers: List[Dict], x: torch.Tensor, seed: int,
         raise ValueError(f"T must be >= 1, got {T}")
     if fused_head_stats.tap is not None:
         fused_head_stats.tap(x, T, groups)
+    ct = x.dtype if dtype is None else dtype
     if x.device.type == "cpu":
         gen = None
         if mask_bits is None:
             gen = torch.Generator().manual_seed(int(seed))
-        return fused_head_stats_plain(head_layers, x, T, rate, mask_bits,
-                                      gen, encoder)
+        return fused_head_stats_plain(head_layers, x.to(ct), T, rate,
+                                      mask_bits, gen, encoder)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     with span("fused_head.launch"):
-        return _launch(head_layers, x, int(seed), T, rate, mask_bits,
+        return _launch(head_layers, x, ct, int(seed), T, rate, mask_bits,
                        encoder, groups)
 
 
 fused_head_stats.launches = 0
 fused_head_stats.routes = dict.fromkeys(ROUTES, 0)
+fused_head_stats.splits = 0
 fused_head_stats.tap = None
 
 
-def _launch(head_layers, x, seed, T, rate, mask_bits, encoder, groups):
-    dev, ct = x.device, x.dtype
+def _first_layer(x: torch.Tensor, layer: Dict, ct: torch.dtype
+                 ) -> torch.Tensor:
+    """h [N, H] in ``ct`` = rnd(ReLU(rnd(x) @ rnd(w) + rnd(b))) on the
+    card (:func:`first_layer_plain`'s numbers, summed in the GEMM's order),
+    ``SPLIT_ROWS`` rows of ``x`` at a time: a chunk is rounded into a
+    [rows, D] buffer whose row length is padded to the GEMM's 16-byte
+    multiple with zero columns (so the matmul stages no copy of it), then
+    multiplied into float32 sums, which take the bias and one rounding into
+    h, then ReLU. No copy of the whole ``x`` in ``ct`` is made."""
+    n, d = x.shape
+    dp = _up(d, TMA_ALIGN)
+    w = layer["w"].to(ct)
+    if dp != d:
+        w = torch.nn.functional.pad(w, (0, 0, 0, dp - d))
+    w = w.contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()
+    b = layer["b"].to(ct).to(torch.float32)
+    h = torch.empty(n, w.shape[1], dtype=ct, device=x.device)
+    rows = min(n, SPLIT_ROWS)
+    buf = torch.empty(rows, dp, dtype=ct, device=x.device)
+    if dp != d:
+        buf[:, d:].zero_()
+    for r in range(0, n, rows):
+        m = min(rows, n - r)
+        a = buf[:m]
+        a[:, :d].copy_(x[r:r + m])  # rounds to nearest even, as x.to(ct)
+        # the bias added in float32 and rounded into h, then ReLU on the
+        # rounded values (rounding is monotonic and keeps 0, so this is
+        # rnd(ReLU(s)); two passes over h, none over the float32 sums)
+        hr = h[r:r + m]
+        torch.add(matmul(a, w, *SPLIT_BLOCK), b, out=hr).relu_()
+    return h
+
+
+def _launch(head_layers, x, ct, seed, T, rate, mask_bits, encoder, groups):
+    dev = x.device
     if ct not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, "
                          f"got {ct}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous [N, D] tensor")
+    if x.dim() != 2:
+        raise ValueError("x must be an [N, D] tensor")
     n, d = x.shape
     enc = [] if encoder is None else [*encoder[0], encoder[1]]
     if len(enc) > 8:
@@ -521,9 +611,18 @@ def _launch(head_layers, x, seed, T, rate, mask_bits, encoder, groups):
     if any(t.device != dev for t in tensors):
         raise ValueError(f"every parameter must lie on {dev}")
 
+    bf16 = ct == torch.bfloat16
+    if n and split_first_layer(bf16, d, [l["w"].shape[1] for l in enc]):
+        x, enc = _first_layer(x, enc[0], ct), enc[1:]
+        d = x.shape[1]
+        fused_head_stats.splits += 1
+    elif x.dtype != ct:
+        x = x.to(ct).contiguous()
+    if not x.is_contiguous():
+        raise ValueError("x must be a contiguous [N, D] tensor")
+
     # the input width d streams from device memory; the hidden widths
     # live in shared memory
-    bf16 = ct == torch.bfloat16
     width = max(*[l["w"].shape[1] for l in enc], L, H0, H1, 16)
     plan_key = (bf16, width, H0, H1)
     seen = plan_key in _PLANS_SEEN

@@ -335,18 +335,25 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
         with _host_sync():
             seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
                                      device=gen.device))
+    ct = getattr(torch, cfg.compute_dtype)
     with span("select.prepare"):
-        if cfg.compute_dtype != "float32":
-            ct = getattr(torch, cfg.compute_dtype)
+        if ct != torch.float32:
             params = tree_map(
                 lambda a: a.to(ct) if a.dtype == torch.float32 else a,
                 params)
-            X = X.to(ct).contiguous()
+            # the fused head rounds X as it reads it (a chunk at a time
+            # where it runs the first encoder layer as a GEMM), so X is
+            # cast whole only for the unfused path
+            if not fused:
+                X = X.to(ct).contiguous()
         if fused:
             # the kernel's group count tuned for this shape on the card
             # (cli/tune_kernel_suite.py's fusedhead family), where the
             # process kernel library holds a record; launch_plan's G
-            # otherwise
+            # otherwise. Keyed by the caller's D: the suite times the whole
+            # fused_head_stats call at that D, so a bf16 record at a D
+            # wider than the first encoder layer times the kernel on that
+            # layer's output (split_first_layer) as this call runs it
             h_dim, l_dim = params["fc_mu"]["w"].shape
             groups = tuned_fused_head_config(
                 X.shape[0], X.shape[1], h_dim, l_dim, cfg.T_mc,
@@ -357,7 +364,8 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
             cost_pred, gnorm, _, mc_var = fused_head_stats(
                 params["cost_predictor"], X, seed, T=cfg.T_mc,
                 rate=cfg.dropout_rate, mask_bits=mask_bits,
-                encoder=(params["encoder"], params["fc_mu"]), groups=groups)
+                encoder=(params["encoder"], params["fc_mu"]), groups=groups,
+                dtype=ct)
     else:
         with span("select.score"):
             mu, _ = pred_encode(params, X)
@@ -427,8 +435,8 @@ def _select_one_device(params, X, used_mask, remaining_mask, gen, cfg,
                 cidx = first_k_true(cmask, cfg.max_centers)
                 c_valid = cmask[cidx]
             if mu is None:
-                zp, _ = pred_encode(params, X[pool_idx])
-                zc, _ = pred_encode(params, X[cidx])
+                zp, _ = pred_encode(params, X[pool_idx].to(ct))
+                zc, _ = pred_encode(params, X[cidx].to(ct))
                 zp_norm = l2_normalize(zp.float())
                 centers = l2_normalize(zc.float())
             else:

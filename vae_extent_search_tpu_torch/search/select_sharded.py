@@ -223,7 +223,8 @@ def _fused_scores_sharded(params: Dict, X: torch.Tensor, seed: int,
     cost, gnorm, _, mc_var = fused_head_stats(
         params["cost_predictor"], X, seed + i * (1 << 20), T=cfg.T_mc,
         rate=cfg.dropout_rate, mask_bits=mask_bits,
-        encoder=(params["encoder"], params["fc_mu"]), groups=groups)
+        encoder=(params["encoder"], params["fc_mu"]), groups=groups,
+        dtype=getattr(torch, cfg.compute_dtype))
     return cost, gnorm, mc_var
 
 
@@ -272,13 +273,18 @@ def select_programs_sharded(params: Dict, X: torch.Tensor,
     n = n_loc * mesh.shape[axis]
     base = mesh.index(axis) * n_loc
     dev = X.device
-    if cfg.compute_dtype != "float32":
-        ct = getattr(torch, cfg.compute_dtype)
+    ct = getattr(torch, cfg.compute_dtype)
+    # the gate reads only shapes and devices, which the casts keep
+    fused = _use_fused_head(params, X, cfg, mask_bits)
+    if ct != torch.float32:
         params = tree_map(
             lambda a: a.to(ct) if a.dtype == torch.float32 else a, params)
-        X = X.to(ct).contiguous()
+        # the fused head rounds X as it reads it, as on one device, so X
+        # is cast whole only for the unfused path
+        if not fused:
+            X = X.to(ct).contiguous()
     mu = None
-    if _use_fused_head(params, X, cfg, mask_bits):
+    if fused:
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
                                  device=gen.device))
         cost_pred, gnorm, mc_var = _fused_scores_sharded(
@@ -342,8 +348,8 @@ def select_programs_sharded(params: Dict, X: torch.Tensor,
             zc, c_valid = gather_masked_rows_sharded(
                 z, used_mask | picked, cfg.max_centers, mesh, axis)
         if mu is None:
-            zp, _ = pred_encode(params, zp)
-            zc, _ = pred_encode(params, zc)
+            zp, _ = pred_encode(params, zp.to(ct))
+            zc, _ = pred_encode(params, zc.to(ct))
         dl, dv = k_center_greedy_pool_core(
             l2_normalize(zp.float()), avail, l2_normalize(zc.float()),
             c_valid, cfg.n_div)
